@@ -23,7 +23,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
     IMAGENET_STD,
     make_batches,
 )
-from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import init_random_
+from image_retrieval_for_image_based_localization_tpu_torch.models.init import init_random_
 from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
     RetrievalNet,
 )
@@ -80,8 +80,8 @@ class Extractor:
     """Descriptor extraction engine.
 
     Args:
-      cfg: ExtractConfig (float32 ResNet + GeM/MAC/SPoC; ``use_pallas``
-        selects the hand-written CUDA head).
+      cfg: ExtractConfig (float32 ResNet or VGG-16 + GeM/MAC/SPoC/NetVLAD;
+        ``use_pallas`` selects the hand-written CUDA head).
       state_dict: weights for ``RetrievalNet`` (this package's layout; see
         ``models.flax_port`` for flax variables). None: random weights from
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
@@ -95,7 +95,8 @@ class Extractor:
         self.device = resolve_device(device)
         mc = cfg.model
         model = RetrievalNet(arch=mc.arch, pooling=mc.pooling, whiten_dim=mc.whiten_dim,
-                             gem_p=mc.gem_p, use_kernel=mc.use_pallas)
+                             gem_p=mc.gem_p, use_kernel=mc.use_pallas,
+                             netvlad_clusters=mc.netvlad_clusters)
         if state_dict is None:
             init_random_(model, torch.Generator().manual_seed(seed))
         else:
@@ -113,7 +114,8 @@ class Extractor:
         return self.model.out_dim
 
     def _msp(self) -> torch.Tensor:
-        """Multi-scale power: cfg.msp, else GeM's p for whitening-free GeM, else 1."""
+        """Multi-scale power: cfg.msp, else GeM's p for whitening-free GeM, else 1
+        (NetVLAD included)."""
         if self.cfg.msp is not None:
             return torch.tensor(self.cfg.msp, dtype=torch.float32, device=self.device)
         model = self.model

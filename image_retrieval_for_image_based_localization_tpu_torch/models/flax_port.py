@@ -1,14 +1,17 @@
 """Carry weights across from the JAX package's flax variables.
 
-The inverse of the JAX package's ``models/torch_port.py`` (``port_resnet_trunk``
-and ``port_retrieval_net``): flax variables as nested dicts of numpy arrays
-become this package's ``state_dict``.
+The inverse of the JAX package's ``models/torch_port.py`` (``port_resnet_trunk``,
+``port_vgg_trunk`` and ``port_retrieval_net``): flax variables as nested
+dicts of numpy arrays become this package's ``state_dict``.
 
-  * conv kernels: HWIO -> OIHW;
+  * conv kernels: HWIO -> OIHW; VGG's ``conv{i}`` (with bias) go to
+    torchvision's ``features.{idx}``;
   * BatchNorm: scale/bias params + mean/var batch_stats -> weight/bias +
     running_mean/running_var (``num_batches_tracked`` = 0);
   * whitening Dense: [in, out] kernel -> [out, in] Linear weight;
-  * GeM p: scalar -> cirtorch's [1].
+  * GeM p: scalar -> cirtorch's [1];
+  * NetVLAD: ``centroids`` -> ``pool.centroids``, ``assign_w`` [C, K] ->
+    ``pool.conv.weight`` [K, C, 1, 1], ``assign_b`` -> ``pool.conv.bias``.
 
 ``cirtorch_to_torchvision_keys`` is a copy of the JAX package's, so a
 cirtorch checkpoint (numeric ``features.N`` trunk keys) loads here too.
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import RESNET_SPECS
+from image_retrieval_for_image_based_localization_tpu_torch.models.vgg import conv_indices
 
 
 def _t(a) -> torch.Tensor:
@@ -60,17 +64,37 @@ def trunk_state_dict(variables: Mapping[str, Any], arch: str,
     return sd
 
 
+def vgg_state_dict(params: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax VGG-16 trunk params (``conv{i}``) -> torchvision ``features``
+    keys ``{prefix}{idx}.weight/bias`` (the inverse of ``port_vgg_trunk``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate(conv_indices()):
+        conv = params[f"conv{i}"]
+        sd[f"{prefix}{idx}.weight"] = _t(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{prefix}{idx}.bias"] = _t(conv["bias"])
+    return sd
+
+
 def variables_to_state_dict(variables: Mapping[str, Any], arch: str) -> Dict[str, torch.Tensor]:
     """Flax ``RetrievalNet`` variables -> this package's ``RetrievalNet``
-    ``state_dict`` (cirtorch layout: ``features.*``, ``pool.p``, ``whiten.*``)."""
-    if not arch.startswith("resnet"):
-        raise ValueError(f"arch {arch!r} is not supported; resnet only")
+    ``state_dict`` (cirtorch layout: ``features.*``, ``pool.p`` or
+    ``pool.centroids`` / ``pool.conv.*``, ``whiten.*``)."""
     params = variables["params"]
-    sd = trunk_state_dict(
-        {"params": params["trunk"], "batch_stats": variables["batch_stats"]["trunk"]},
-        arch, prefix="features.")
+    if arch == "vgg16":
+        sd = vgg_state_dict(params["trunk"], prefix="features.")
+    elif arch.startswith("resnet"):
+        sd = trunk_state_dict(
+            {"params": params["trunk"], "batch_stats": variables["batch_stats"]["trunk"]},
+            arch, prefix="features.")
+    else:
+        raise ValueError(f"arch {arch!r} is not supported; resnet or vgg16 only")
     if "gem_p" in params:
         sd["pool.p"] = _t(np.asarray(params["gem_p"]).reshape(1))
+    if "centroids" in params:
+        w = np.asarray(params["assign_w"])  # [C, K]
+        sd["pool.centroids"] = _t(params["centroids"])
+        sd["pool.conv.weight"] = _t(w.T.reshape(w.shape[1], w.shape[0], 1, 1))
+        sd["pool.conv.bias"] = _t(params["assign_b"])
     if "whiten" in params:
         sd["whiten.weight"] = _t(np.asarray(params["whiten"]["kernel"]).T)
         sd["whiten.bias"] = _t(params["whiten"]["bias"])

@@ -100,25 +100,3 @@ class ResNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
-
-
-def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill weights from ``generator`` (He-normal convs, random BN affine and
-    running statistics), for pipeline runs without a checkpoint."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               * (2.0 / fan_in) ** 0.5)
-            elif isinstance(m, nn.BatchNorm2d):
-                n = m.num_features
-                m.weight.copy_(torch.rand(n, generator=generator) * 0.5 + 0.5)
-                m.bias.copy_(torch.randn(n, generator=generator) * 0.1)
-                m.running_mean.copy_(torch.randn(n, generator=generator) * 0.1)
-                m.running_var.copy_(torch.rand(n, generator=generator) + 0.5)
-            elif isinstance(m, nn.Linear):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               / m.in_features ** 0.5)
-                m.bias.zero_()
-    return module

@@ -1,14 +1,15 @@
 """The descriptor model: trunk -> pool -> (whiten FC) -> L2N.
 
-The JAX package's ``models/retrieval_net.py`` for GeM/MAC/SPoC heads.
-Submodule names follow cirtorch's ``ImageRetrievalNet`` (``features`` trunk,
-``pool.p``, ``whiten``), so a cirtorch ``state_dict`` whose trunk keys are
-torchvision-named loads as it is (see ``models.flax_port``).
+The JAX package's ``models/retrieval_net.py`` for ResNet and VGG-16 trunks
+with GeM/MAC/SPoC or NetVLAD heads. Submodule names follow cirtorch's
+``ImageRetrievalNet`` (``features`` trunk, ``pool.p`` or ``pool.centroids``
+/ ``pool.conv``, ``whiten``), so a cirtorch ``state_dict`` whose trunk keys
+are torchvision-named loads as it is (see ``models.flax_port``).
 
-``use_kernel=True`` swaps the GeM + L2N tail for the hand-written CUDA head
-(``ops.kernels.gem_l2n``), the counterpart of the JAX package's
-``use_pallas``. Inputs keep the JAX package's layout: NHWC pixels
-``[B, H, W, 3]`` and an optional validity mask ``[B, H, W]``.
+``use_kernel=True`` swaps the head for the hand-written CUDA kernels
+(``ops.kernels.gem_l2n``, ``ops.kernels.netvlad``), the counterpart of the
+JAX package's ``use_pallas``. Inputs keep the JAX package's layout: NHWC
+pixels ``[B, H, W, 3]`` and an optional validity mask ``[B, H, W]``.
 """
 
 from __future__ import annotations
@@ -22,14 +23,19 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import
     RESNET_SPECS,
     ResNetTrunk,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.models.vgg import VGGTrunk
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     gem_l2n_fused,
     gem_l2n_fused_rect,
+    netvlad_fused,
+    netvlad_fused_rect,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.ops.netvlad import netvlad_aggregate
 from image_retrieval_for_image_based_localization_tpu_torch.ops.normalization import l2n
 from image_retrieval_for_image_based_localization_tpu_torch.ops.pooling import gem, mac, spoc
 
-OUTPUT_DIM = {arch: 512 * spec[2] for arch, spec in RESNET_SPECS.items()}
+OUTPUT_DIM = {**{arch: 512 * spec[2] for arch, spec in RESNET_SPECS.items()}, "vgg16": 512}
+POOLINGS = ("gem", "mac", "spoc", "netvlad")
 
 
 class GeM(nn.Module):
@@ -42,6 +48,21 @@ class GeM(nn.Module):
             self.p = nn.Parameter(t)
         else:
             self.register_buffer("p", t)
+
+
+class NetVLAD(nn.Module):
+    """Holds NetVLAD's parameters as cirtorch does: ``centroids`` [K, C] and
+    the assignment 1x1 ``conv`` (weight [K, C, 1, 1], bias [K])."""
+
+    def __init__(self, dim: int, clusters: int = 64):
+        super().__init__()
+        self.centroids = nn.Parameter(torch.zeros(clusters, dim))
+        self.conv = nn.Conv2d(dim, clusters, 1, bias=True)
+
+    def assign_w(self) -> torch.Tensor:
+        """The assignment weights as the JAX package holds them, [C, K]."""
+        K, C = self.centroids.shape
+        return self.conv.weight.reshape(K, C).t()
 
 
 def feature_mask(mask: torch.Tensor, in_hw, feat_hw) -> torch.Tensor:
@@ -71,9 +92,10 @@ class RetrievalNet(nn.Module):
         gem_p: float = 3.0,
         gem_p_trainable: bool = True,
         use_kernel: bool = False,
+        netvlad_clusters: int = 64,
     ):
         super().__init__()
-        if pooling not in ("gem", "mac", "spoc"):
+        if pooling not in POOLINGS:
             raise ValueError(f"unknown pooling {pooling!r}")
         self.arch = arch
         self.pooling = pooling
@@ -81,15 +103,23 @@ class RetrievalNet(nn.Module):
         self.gem_p = gem_p
         self.gem_p_trainable = gem_p_trainable
         self.use_kernel = use_kernel
-        self.features = ResNetTrunk(arch)
+        self.netvlad_clusters = netvlad_clusters
+        self.features = VGGTrunk() if arch == "vgg16" else ResNetTrunk(arch)
         if pooling == "gem":
             self.pool = GeM(gem_p, gem_p_trainable)
+        elif pooling == "netvlad":
+            self.pool = NetVLAD(OUTPUT_DIM[arch], netvlad_clusters)
         if whiten_dim is not None:
-            self.whiten = nn.Linear(OUTPUT_DIM[arch], whiten_dim)
+            self.whiten = nn.Linear(self.pooled_dim, whiten_dim)
+
+    @property
+    def pooled_dim(self) -> int:
+        c = OUTPUT_DIM[self.arch]
+        return c * self.netvlad_clusters if self.pooling == "netvlad" else c
 
     @property
     def out_dim(self) -> int:
-        return self.whiten_dim if self.whiten_dim is not None else OUTPUT_DIM[self.arch]
+        return self.whiten_dim if self.whiten_dim is not None else self.pooled_dim
 
     def trunk_nhwc(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC pixels -> NHWC features [B, h, w, C] (contiguous)."""
@@ -101,7 +131,9 @@ class RetrievalNet(nn.Module):
         fmask = None
         if mask is not None:
             fmask = feature_mask(mask, x.shape[1:3], feats.shape[1:3])
-        if self.pooling == "gem" and self.use_kernel:
+        if self.pooling == "netvlad":
+            desc = self._netvlad(feats.float(), fmask)
+        elif self.pooling == "gem" and self.use_kernel:
             # the fused head L2-normalizes; a mask from the bucketing is a
             # top-left rectangle, so (h, w) extents describe it exactly
             if fmask is None:
@@ -120,3 +152,19 @@ class RetrievalNet(nn.Module):
         if self.whiten_dim is not None:
             desc = l2n(self.whiten(desc))
         return desc
+
+    def _netvlad(self, feats: torch.Tensor, fmask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The JAX head's routing: the fused kernel without a mask; with one,
+        the rect kernel when every row's mask is the rectangle its extents
+        describe (``sum(mask) == h * w``, the bucketing invariant), else the
+        plain aggregation, which takes any mask."""
+        c, w, b = self.pool.centroids, self.pool.assign_w(), self.pool.conv.bias
+        if not self.use_kernel:
+            return netvlad_aggregate(feats, c, w, b, mask=fmask)
+        if fmask is None:
+            return netvlad_fused(feats, c, w, b)
+        sizes = rect_sizes(fmask)
+        is_rect = bool(torch.all(fmask.sum(dim=(1, 2)) == sizes[:, 0] * sizes[:, 1]))
+        if is_rect:
+            return netvlad_fused_rect(feats, c, w, b, sizes=sizes)
+        return netvlad_aggregate(feats, c, w, b, mask=fmask)

@@ -1,0 +1,44 @@
+"""VGG-16 trunk as an ``nn.Sequential`` with torchvision's layer indices.
+
+The JAX package's ``models/vgg.py``: torchvision's cfg "D" (13 biased 3x3
+convs with ReLU, no BN) with the final max-pool stripped, as the cirtorch
+lineage does (``features.children()[:-1]``), so the trunk has stride 16 and
+512 channels. The layers sit at torchvision's indices 0-29, so a torchvision
+or cirtorch ``features.N.weight/bias`` ``state_dict`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import torch.nn as nn
+
+# torchvision vgg16 cfg "D": numbers are conv widths, "M" is 2x2 maxpool
+VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512)
+
+
+class VGGTrunk(nn.Sequential):
+    """VGG-16 feature trunk: [B, 3, H, W] -> [B, 512, H/16, W/16] (NCHW logical)."""
+
+    out_channels = 512
+
+    def __init__(self):
+        layers = []
+        in_ch = 3
+        for v in VGG16_CFG:
+            if v == "M":
+                layers.append(nn.MaxPool2d(2, 2))
+            else:
+                layers += [nn.Conv2d(in_ch, v, 3, padding=1), nn.ReLU(inplace=True)]
+                in_ch = v
+        super().__init__(*layers)
+
+
+def conv_indices():
+    """torchvision ``features.N`` index of each conv, in order (JAX ``conv{i}``)."""
+    out, idx = [], 0
+    for v in VGG16_CFG:
+        if v == "M":
+            idx += 1
+        else:
+            out.append(idx)
+            idx += 2
+    return out

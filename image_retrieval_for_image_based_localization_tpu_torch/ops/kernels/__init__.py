@@ -14,8 +14,19 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.gem_l2n 
     gem_l2n_fused_rect,
     gem_l2n_plain,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad import (  # noqa: F401
+    netvlad_fused,
+    netvlad_fused_rect,
+    netvlad_plain,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (  # noqa: F401
+    blockmax_topk_search,
+    scores_blockmax,
+    scores_blockmax_plain,
+)
 
-KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search)
+KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search, netvlad_fused_rect,
+           netvlad_fused, scores_blockmax)
 
 
 def reset_launch_counts() -> None:

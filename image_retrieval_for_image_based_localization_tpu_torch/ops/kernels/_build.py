@@ -38,6 +38,15 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # n_splits, is_bf16, stream
         "fused_topk_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
+    "netvlad": {
+        # x, w, bias, centroids, sizes, part_agg, part_cnt, row_sq, out,
+        # B, N, W, C, K, n_splits, stream
+        "netvlad_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "score_topk": {
+        # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, stream
+        "scores_blockmax_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()

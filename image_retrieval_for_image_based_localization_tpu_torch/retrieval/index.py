@@ -6,8 +6,11 @@ the same layout, so each package loads the other's index.
 
 Search routing in :meth:`Index.query` is a fixed rule on shape and dtype:
 exact top-k with ``k <= 128`` over an f32 or bf16 gallery goes to the
-hand-written kernel (``ops.kernels.fused_topk``); larger k or int8 storage
-goes to the chunked stable-sort search (``retrieval.knn.knn_search``).
+hand-written fused top-k kernel (``ops.kernels.fused_topk``); everything
+else goes to the chunked exact search (``retrieval.knn.knn_search``), which
+on the card scores f32/bf16 chunks with the score/block-max kernel
+(``ops.kernels.score_topk``) and int8 storage with a dense product and a
+stable sort.
 """
 
 from __future__ import annotations

@@ -2,9 +2,16 @@
 
 The JAX package's ``retrieval/knn.py``: scores are ``queries @ gallery.T``
 in f32, and on exact ties the lower gallery index wins, matching NumPy
-``argsort(-scores, kind='stable')``. Selection here is a stable descending
-sort (``torch.topk`` promises no order among equal values); the hand-written
-kernel ``ops.kernels.fused_topk`` covers k <= 128 without a score matrix.
+``argsort(-scores, kind='stable')``. Selection is stable throughout
+(``torch.topk`` promises no order among equal values).
+
+:func:`knn_search` streams gallery chunks and carries the running top-k. On
+a CUDA f32 or bf16 gallery each chunk goes through the hand-written
+score/block-max kernel and the exact block-max selection
+(``ops.kernels.score_topk``, the JAX package's ``streaming_topk`` with
+``blockmax_topk``); int8 storage and CPU tensors take dense scores and a
+stable sort. The kernel ``ops.kernels.fused_topk`` covers k <= 128 without
+a score matrix.
 """
 
 from __future__ import annotations
@@ -13,6 +20,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (
+    blockmax_topk_search,
+)
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -52,18 +63,28 @@ def knn_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over gallery chunks: ``(scores [Nq,k] f32, indices [Nq,k] int32)``.
 
-    The carried top-k sits in front of each fresh chunk, and its indices are
+    A chunk's candidates are either its whole score row (dense route) or its
+    own exact top-k in (score desc, index asc) order (block-max route, CUDA
+    f32/bf16). The carried top-k sits in front of them and its indices are
     all lower, so a stable sort of the concatenation keeps lower-index-wins.
     """
     Ng = gallery.shape[0]
     Nq = queries.shape[0]
     k = min(k, Ng)
     chunk = min(chunk or auto_chunk(Ng, Nq), Ng)
+    blockmax = gallery.device.type == "cuda" and gallery.dtype in (torch.float32,
+                                                                   torch.bfloat16)
+    if blockmax:
+        queries = queries.to(gallery.dtype).float()  # as score_matrix rounds them
     best_s = best_i = None
     for start in range(0, Ng, chunk):
-        s = score_matrix(gallery[start : start + chunk], queries)
-        ids = torch.arange(start, start + s.shape[1], device=s.device,
-                           dtype=torch.int64).expand(Nq, -1)
+        if blockmax:
+            s, ids = blockmax_topk_search(gallery[start : start + chunk], queries, k)
+            ids = ids.to(torch.int64) + start
+        else:
+            s = score_matrix(gallery[start : start + chunk], queries)
+            ids = torch.arange(start, start + s.shape[1], device=s.device,
+                               dtype=torch.int64).expand(Nq, -1)
         if best_s is not None:
             s = torch.cat([best_s, s], dim=1)
             ids = torch.cat([best_i, ids], dim=1)

@@ -117,7 +117,7 @@ GRADED_CONFIGS = {
 
 # what this package runs so far; the rest of the JAX package's options come
 # with later parts of the port
-_SUPPORTED_POOLING = ("gem", "mac", "spoc")
+_SUPPORTED_POOLING = ("gem", "mac", "spoc", "netvlad")
 
 
 def check_supported(cfg: ExtractConfig) -> None:
@@ -133,8 +133,8 @@ def check_supported(cfg: ExtractConfig) -> None:
         raise ValueError(f"dtype {mc.dtype!r} is not supported; only float32")
     if mc.regional:
         raise ValueError("regional pooling is not supported")
-    if not mc.arch.startswith("resnet"):
-        raise ValueError(f"arch {mc.arch!r} is not supported; resnet only")
+    if not (mc.arch.startswith("resnet") or mc.arch == "vgg16"):
+        raise ValueError(f"arch {mc.arch!r} is not supported; resnet or vgg16 only")
     if mc.pooling not in _SUPPORTED_POOLING:
         raise ValueError(f"pooling {mc.pooling!r} is not supported "
                          f"(one of {_SUPPORTED_POOLING})")

@@ -2,6 +2,7 @@
 points never fall back to the CPU unasked."""
 
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -68,11 +69,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
 def test_unported_options_raise():
     for mc in (port.ModelConfig(dtype="bfloat16"), port.ModelConfig(s2d_stem=True),
-               port.ModelConfig(pooling="netvlad"), port.ModelConfig(arch="vgg16")):
+               port.ModelConfig(regional=True), port.ModelConfig(arch="alexnet"),
+               port.ModelConfig(arch="squeezenet1_1"), port.ModelConfig(arch="densenet121"),
+               port.ModelConfig(arch="vgg16", pooling="gemmp")):
         with pytest.raises(ValueError):
             port.Extractor(port.ExtractConfig(model=mc), device="cpu")
     with pytest.raises(ValueError):
         port.Extractor(port.ExtractConfig(fuse_blocks=True), device="cpu")
+    # graded config 3's model is ported
+    cfg3 = port.GRADED_CONFIGS[3].extract
+    ex = port.Extractor(dataclasses.replace(cfg3, model=dataclasses.replace(
+        cfg3.model, netvlad_clusters=4)), device="cpu")
+    assert ex.out_dim == 4 * 512
     with pytest.raises(ValueError):
         port.build_index(np.eye(4, dtype=np.float32), port.IndexConfig(dba_nqe=2),
                          device="cpu")

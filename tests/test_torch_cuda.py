@@ -11,11 +11,24 @@ import pytest
 import torch
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+    blockmax_topk_search,
     fused_topk_plain,
     fused_topk_search,
     gem_l2n_fused,
     gem_l2n_fused_rect,
     gem_l2n_plain,
+    netvlad_fused,
+    netvlad_fused_rect,
+    netvlad_plain,
+    scores_blockmax,
+    scores_blockmax_plain,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (
+    NEG_INF,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+    knn_search,
+    score_matrix,
 )
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +88,83 @@ def test_fused_topk_exact_ties_lower_index_first(dev):
     q = torch.ones((3, 32), device=dev)
     _, i = fused_topk_search(gallery, q, 100)
     assert torch.equal(i, torch.arange(100, device=dev, dtype=torch.int32).expand(3, -1))
+
+
+def _netvlad_inputs(dev, B, H, W, C, K, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn((B, H, W, C), generator=g))
+    # image 0 lies along one direction: most clusters get exactly zero mass
+    x[0] = 100.0 * torch.randn(C, generator=g).abs() + 0.1 * x[0]
+    c = torch.randn((K, C), generator=g)
+    w = torch.randn((C, K), generator=g) / C ** 0.5
+    b = 0.1 * torch.randn(K, generator=g)
+    return [t.to(dev).contiguous() for t in (x, c, w, b)]
+
+
+@pytest.mark.parametrize("K", [8, 64, 100])
+def test_netvlad_kernels_match_plain(dev, K):
+    B, H, W, C = 5, 9, 13, 96  # N = 117 is not a multiple of the kernel's tiles
+    x, c, w, b = _netvlad_inputs(dev, B, H, W, C, K, K)
+    sizes = torch.tensor([[9, 13], [0, 0], [4, 13], [9, 5], [1, 1]], dtype=torch.int32,
+                         device=dev)
+    got = netvlad_fused_rect(x, c, w, b, sizes=sizes)
+    want = netvlad_plain(x, c, w, b, sizes)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.all(got[1] == 0)
+    rows = got[0].reshape(K, C)
+    zero = torch.all(rows == 0, dim=1)
+    assert torch.equal(zero, torch.all(want[0].reshape(K, C) == 0, dim=1))
+    if K > 8:
+        assert 0 < int(zero.sum()) < K
+    torch.testing.assert_close(netvlad_fused(x, c, w, None), netvlad_plain(x, c, w, None),
+                               rtol=0, atol=1e-5)
+    # [B, N, C] input and a deterministic second run
+    x3 = x.reshape(B, H * W, C)
+    assert torch.equal(netvlad_fused(x3, c, w, b), netvlad_fused(x3, c, w, b))
+
+
+def test_netvlad_kernel_refuses_grad_and_large_k(dev):
+    x, c, w, b = _netvlad_inputs(dev, 1, 2, 2, 8, 4, 1)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        netvlad_fused(x.requires_grad_(), c, w, b)
+    x, c, w, b = _netvlad_inputs(dev, 1, 2, 2, 8, 129, 1)
+    with pytest.raises(ValueError, match="K <= 128"):
+        netvlad_fused(x, c, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scores_blockmax_matches_plain(dev, dtype):
+    g = torch.Generator().manual_seed(3)
+    gallery = torch.randn((1000, 200), generator=g).to(dev).to(dtype)  # 1000 = 15.6 blocks
+    q = torch.randn((70, 200), generator=g).to(dev)
+    s, bmax = scores_blockmax(gallery, q)
+    ps, pb = scores_blockmax_plain(gallery, q)
+    assert s.shape == (70, 1024) and bmax.shape == (70, 16)
+    torch.testing.assert_close(s, ps, rtol=0, atol=1e-4)
+    assert torch.all(s[:, 1000:] == NEG_INF)
+    assert torch.equal(bmax, s.view(70, 16, 64).amax(-1))
+    torch.testing.assert_close(bmax, pb, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [37, 200, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_shortlist_search_exact_with_duplicates(dev, dtype, k):
+    g = torch.Generator().manual_seed(4)
+    base = torch.randn((900, 64), generator=g)
+    gallery = torch.cat([base, base[::5], base[::7]], 0)
+    gallery = gallery[torch.randperm(gallery.shape[0], generator=g)]
+    gallery = gallery.to(dev).to(dtype).contiguous()
+    q = torch.randn((33, 64), generator=g).to(dev)
+    scores = score_matrix(gallery, q)
+    want = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
+    s, i = knn_search(gallery, q, k, chunk=512)  # three chunks, carried merge
+    # every score is one fmaf chain, so duplicate rows tie bit for bit: the
+    # order is exact wherever the dense product's scores are separated
+    gap = torch.cat([s[:, :-1] - s[:, 1:], torch.ones_like(s[:, :1])], 1)
+    clear = (gap > 1e-4) & torch.cat([torch.ones_like(gap[:, :1], dtype=torch.bool),
+                                      gap[:, :-1] > 1e-4], 1)
+    assert torch.equal(i.long()[clear], want[clear])
+    ordered = (s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))
+    assert bool(ordered.all())
+    s1, i1 = blockmax_topk_search(gallery, q.to(dtype).float(), k)
+    assert torch.equal(i1, i) and torch.equal(s1, s)  # one chunk or three: the same list

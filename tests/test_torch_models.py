@@ -1,5 +1,6 @@
-"""Port parity: ResNet trunks, the weights converter and RetrievalNet
-against the JAX package, with weights from ``tests/torch_oracles.py``."""
+"""Port parity: ResNet and VGG-16 trunks, the weights converter and
+RetrievalNet (GeM and NetVLAD heads) against the JAX package, with weights
+from ``tests/torch_oracles.py`` or the port's seeded init."""
 
 import numpy as np
 import jax
@@ -9,11 +10,13 @@ import torch
 
 from irtpu.models import ResNetTrunk as JTrunk
 from irtpu.models import RetrievalNet as JNet
-from irtpu.models.torch_port import port_resnet_trunk, port_retrieval_net
+from irtpu.models.torch_port import port_resnet_trunk, port_retrieval_net, port_vgg_trunk
+from irtpu.models.vgg import VGGTrunk as JVGGTrunk
 
 from image_retrieval_for_image_based_localization_tpu_torch.models import (
     ResNetTrunk,
     RetrievalNet,
+    VGGTrunk,
     init_random_,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
@@ -132,3 +135,98 @@ def test_mask_stride_is_not_always_32():
         got = port(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
     want = np.asarray(jnet.apply(variables, jnp.asarray(x), mask=jnp.asarray(mask)))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
+
+
+def test_vgg16_trunk_parity():
+    """The JAX suite's own torch-vs-flax bound for VGG-16 (tests/test_models.py)."""
+    from torch_oracles import VGG16Torch
+
+    tm = VGG16Torch()
+    port = VGGTrunk()
+    port.load_state_dict(tm.features.state_dict())  # torchvision indices load natively
+    port = port.eval().to(memory_format=torch.channels_last)
+    x = _x((1, 64, 64, 3), 7)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).permute(0, 3, 1, 2)
+                   .contiguous(memory_format=torch.channels_last))
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert got.shape == (1, 4, 4, 512)  # stride 16: the final max-pool is stripped
+    v = port_vgg_trunk(tm.state_dict())
+    want = np.asarray(JVGGTrunk().apply({"params": v["params"]}, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+
+
+def _vgg_netvlad_pair(seed=11, clusters=8):
+    port = RetrievalNet("vgg16", "netvlad", use_kernel=True, netvlad_clusters=clusters)
+    init_random_(port, torch.Generator().manual_seed(seed))
+    variables = jax.tree.map(jnp.asarray, port_retrieval_net(port.state_dict(), "vgg16"))
+    jnet = JNet(arch="vgg16", pooling="netvlad", netvlad_clusters=clusters, use_pallas=True)
+    return port.eval(), jnet, variables
+
+
+def test_vgg_netvlad_flax_round_trip():
+    """port state_dict -> JAX port_retrieval_net -> variables_to_state_dict
+    gives every key back, bit for bit, and the JAX model accepts the tree."""
+    port, jnet, variables = _vgg_netvlad_pair()
+    want_tree = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    assert (jax.tree.map(lambda a: a.shape, want_tree)
+            == jax.tree.map(lambda a: a.shape, dict(variables)))
+    sd = variables_to_state_dict(jax.tree.map(np.asarray, variables), "vgg16")
+    fresh = RetrievalNet("vgg16", "netvlad", netvlad_clusters=8)
+    fresh.load_state_dict(sd)  # strict: every key present, none extra
+    for key, v in port.state_dict().items():
+        np.testing.assert_array_equal(fresh.state_dict()[key].numpy(), v.numpy(), err_msg=key)
+    assert port.out_dim == 8 * 512
+
+
+@pytest.mark.parametrize("use_mask", [True, False], ids=["padded_bucket", "unmasked"])
+def test_retrieval_net_vgg_netvlad_head(use_mask):
+    """use_pallas (Pallas interpret, rect kernel on the bucket) vs use_kernel
+    (the kernels' plain version on CPU)."""
+    port, jnet, variables = _vgg_netvlad_pair()
+    x = _x((3, 96, 64, 3), 12)
+    mask = np.zeros((3, 96, 64), bool)
+    mask[0] = True
+    mask[1, :64, :48] = True
+    mask[2, :16, :64] = True
+    x = x * mask[..., None]
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(mask) if use_mask else None).numpy()
+    want = np.asarray(jnet.apply(variables, jnp.asarray(x),
+                                 mask=jnp.asarray(mask) if use_mask else None))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+
+
+def test_netvlad_nonrect_mask_takes_the_oracle_branch(monkeypatch):
+    """A mask that is not a top-left rectangle gives the JAX package's
+    oracle-branch result, and the rect kernel is not called for it."""
+    from image_retrieval_for_image_based_localization_tpu_torch.models import retrieval_net
+
+    def refuse(*a, **k):
+        raise AssertionError("rect kernel called for a non-rectangular mask")
+
+    port, jnet, variables = _vgg_netvlad_pair(seed=13)
+    rng = np.random.RandomState(14)
+    x = rng.rand(2, 64, 96, 3).astype(np.float32)
+    mask = rng.rand(2, 64, 96) > 0.35
+    mask[:, 0, 0] = True
+    monkeypatch.setattr(retrieval_net, "netvlad_fused_rect", refuse)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    want = np.asarray(jnet.apply(variables, jnp.asarray(x), mask=jnp.asarray(mask)))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
+
+
+def test_init_random_is_reproducible_for_vgg_netvlad():
+    """Every parameter comes from the explicit generator: the same seed
+    twice gives bit-identical weights, whatever the global RNG does."""
+    sds = []
+    for global_seed in (0, 1):
+        torch.manual_seed(global_seed)
+        net = RetrievalNet("vgg16", "netvlad", netvlad_clusters=8, whiten_dim=16)
+        sds.append(init_random_(net, torch.Generator().manual_seed(5)).state_dict())
+    for key, v in sds[0].items():
+        assert torch.equal(v, sds[1][key]), key
+    assert sds[0]["features.0.bias"].abs().sum() > 0
+    assert torch.all(sds[0]["pool.conv.bias"] == 0)

@@ -1,6 +1,8 @@
 """The whole slice against the JAX package: multi-scale extraction over
 uint8 buckets -> PCA index -> exact top-k -> full ranks -> revisited mAP,
-with the same weights on the same synthetic corpus (CPU)."""
+with the same weights on the same synthetic corpus (CPU). Graded config 2
+(resnet + GeM, three scales) and, in small form, graded config 3 (VGG-16 +
+NetVLAD, one scale, PCA truncated to ``whiten_dims``)."""
 
 import numpy as np
 import jax
@@ -149,3 +151,96 @@ def test_unmasked_call_matches_jax():
         model=jcfg.ModelConfig(arch="resnet18", use_pallas=True), scales=SCALES),
         variables=variables)(x)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+# -- graded config 3 in small form: vgg16 + NetVLAD (K=8) at 96 px ----------
+
+C3_DIMS = 8  # whiten_dims: fewer than the gallery's PCA directions, so it truncates
+
+
+@pytest.fixture(scope="module")
+def config3_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("synth3")
+    ds = make_synthetic_dataset(str(root), n_scenes=3, views_per_scene=3,
+                                n_distractors=3, image_hw=(64, 96), seed=1)
+    net = RetrievalNet("vgg16", "netvlad", netvlad_clusters=8)
+    init_random_(net, torch.Generator().manual_seed(0))
+    sd = net.state_dict()
+    variables = jax.tree.map(jnp.asarray, port_retrieval_net(sd, "vgg16"))
+    g3 = port.GRADED_CONFIGS[3]
+    index_cfg = port.IndexConfig(whitening="pca", whiten_dims=C3_DIMS)
+
+    cfg_t = port.ExtractConfig(
+        model=port.ModelConfig(arch="vgg16", pooling="netvlad", netvlad_clusters=8,
+                               use_pallas=True),
+        image_size=96, scales=g3.extract.scales, batch_size=4)
+    ex_t = port.Extractor(cfg_t, state_dict=sd, device="cpu")
+    res_t = evaluate_dataset(ds, cfg_t, index_cfg, extractor=ex_t, device="cpu")
+
+    cfg_j = jcfg.ExtractConfig(
+        model=jcfg.ModelConfig(arch="vgg16", pooling="netvlad", netvlad_clusters=8,
+                               use_pallas=True),
+        image_size=96, scales=g3.extract.scales, batch_size=4, native_preproc=False)
+    ex_j = JExtractor(cfg_j, variables=variables)
+    res_j = j_evaluate(ds, cfg_j, jcfg.IndexConfig(whitening="pca", whiten_dims=C3_DIMS),
+                       extractor=ex_j)
+    return res_t, res_j
+
+
+def test_config3_descriptors_match(config3_runs):
+    res_t, res_j = config3_runs
+    for key in ("db", "queries"):
+        assert res_t[key].shape[1] == 8 * 512
+        np.testing.assert_allclose(res_t[key], res_j[key], rtol=0, atol=2e-4)
+        np.testing.assert_allclose(np.linalg.norm(res_t[key], axis=1), 1.0, atol=1e-5)
+
+
+def test_config3_query_indices_and_map_identical(config3_runs):
+    res_t, res_j = config3_runs
+    assert res_t["index"].gallery.shape == (len(res_t["db"]), C3_DIMS)
+    assert res_t["index"].P.shape[0] > C3_DIMS  # the truncation is exercised
+    _, i_t = res_t["index"].query(res_t["queries"], k=10)
+    _, i_j = res_j["index"].query(res_j["queries"], k=10)
+    np.testing.assert_array_equal(i_t, np.asarray(i_j))
+    # both indexes built from the same descriptors (see test_query_indices_identical)
+    s_jt, i_jt = JIndex.build(
+        res_t["db"], jcfg.IndexConfig(whitening="pca", whiten_dims=C3_DIMS)).query(
+        res_t["queries"], k=10)
+    s_t, i_t = res_t["index"].query(res_t["queries"], k=10)
+    np.testing.assert_array_equal(i_t, np.asarray(i_jt))
+    np.testing.assert_allclose(s_t, np.asarray(s_jt), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(res_t["index"].ranks(res_t["queries"]),
+                                  res_j["index"].ranks(res_j["queries"]))
+    for proto in ("easy", "medium", "hard"):
+        assert res_t["results"][proto]["map"] == res_j["results"][proto]["map"]
+
+
+def test_config3_index_at_full_width_round_trips(tmp_path):
+    """Config 3's index at its real width: PCA learned on 32,768-d NetVLAD
+    descriptors through the dual N < D path, truncated to 4,096 dims (here
+    to the N rows the dual path keeps), equal to the JAX index and loadable
+    by either package."""
+    rng = np.random.RandomState(3)
+    db = rng.randn(24, 64 * 512).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    qd = db[:5] + 0.01 * rng.randn(5, 64 * 512).astype(np.float32)
+    cfg3 = port.GRADED_CONFIGS[3].index
+    t = port.build_index(db, cfg3, device="cpu")
+    j = JIndex.build(db, jcfg.GRADED_CONFIGS[3].index)
+    assert cfg3.whiten_dims == 4096 and t.P.shape == (24, 64 * 512)
+    np.testing.assert_allclose(t.P, j.P, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t.gallery, np.asarray(j.gallery), rtol=0, atol=1e-5)
+    _, i_t = t.query(qd, k=10)
+    _, i_j = j.query(qd, k=10)
+    np.testing.assert_array_equal(i_t, np.asarray(i_j))
+    t.save(str(tmp_path / "t.npz"))
+    back_j = JIndex.load(str(tmp_path / "t.npz"))
+    assert back_j.dims == 4096
+    np.testing.assert_array_equal(back_j.P, t.P)
+    np.testing.assert_array_equal(np.asarray(back_j.gallery), t.gallery)
+    j.save(str(tmp_path / "j.npz"))
+    back_t = Index.load(str(tmp_path / "j.npz"), device="cpu")
+    assert back_t.dims == 4096
+    np.testing.assert_array_equal(back_t.P, np.asarray(j.P))
+    _, i_b = back_t.query(qd, k=10)
+    np.testing.assert_array_equal(i_b, np.asarray(i_j))
