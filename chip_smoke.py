@@ -16,10 +16,16 @@ Phases (any failure exits non-zero):
        100,000 x 2048, f32 and bf16), and the exact long-shortlist search
        (blockmax_topk_search, knn_search) at k=200 and 1000, with planted
        duplicate rows;
-  4. three paths at full width, each with the launch counts set to 0 just
-     before it and read just after it, on an in-memory clustered corpus of
-     100 images in three aspect ratios and 20 queries, random weights from
-     a seeded torch.Generator:
+     - adc_scores at 256 queries x 100,000 codes x M=64 and 64 x 10,000 x
+       M=256 (the sliced LUT), planted duplicate code rows, and
+       adc_topk_core's tie order;
+     - bottleneck_fused at resnet50's four stride-1 block shapes of a
+       16-image 1024 px bucket and at layer1 of a 720 x 1024 bucket, with
+       random biases;
+  4. five paths at full width, each with the launch counts set to 0 just
+     before it and read just after it; the extraction paths run on an
+     in-memory clustered corpus of 100 images in three aspect ratios and 20
+     queries, random weights from a seeded torch.Generator:
      - graded config 2 (resnet50 + GeM, fused head, 1024 px, scales 1,
        1/sqrt(2), 1/2, f32): extract_features -> build_index(pca) ->
        Index.query(k=10) through the fused top-k kernel -> Index.ranks -> mAP;
@@ -27,6 +33,18 @@ Phases (any failure exits non-zero):
        scale, f32): the same through build_index(pca, whiten_dims=4096);
      - exact search with a long shortlist: Index.query(k=1000) over a
        100,000 x 2048 gallery, through the score/block-max kernel;
+     - compressed-gallery search (path A) on the JAX package's ANN-bench
+       corpus (100,000 x 2048 clustered, 256 queries): IVFIndex (C = 316)
+       at nprobe C/8 and C, PQIndex(m=64) with and without refine=400, OPQ
+       (opq_iters cut to 2 for time), IVFPQIndex.from_ivf(m=64) at nprobe
+       C/4 with refine=400, recall@10/100 against exact Index.query(k=100);
+       each search is timed on its second call (the first uploads the
+       index); then a second point where the corpus keeps its cells (D=512,
+       noise scaled to the row, M=16, no OPQ), and at both points the card's
+       PQ, OPQ and IVF-PQ results for 32 queries held against the same
+       indexes searched on the CPU;
+     - graded config 2 again with fuse_blocks=True (path B): the fused
+       bottleneck trunk, descriptors held against the unfused run;
   5. timings (CUDA events, median of 20) beside each kernel's bound;
 each config's extraction also runs once more under torch.profiler, which
 gives the card's busy and idle share of the wall time and the device time
@@ -47,9 +65,12 @@ import sys
 import time
 import traceback
 
-# H100 SXM data-sheet peaks: HBM bytes/s and f32 (non-tensor-core) flop/s
+# H100 SXM data-sheet peaks: HBM bytes/s and f32 (non-tensor-core) flop/s;
+# shared-memory lookups: 132 SMs x 32 a clock x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+BOTTLENECK_TOL = 1e-5  # max|err| / max|plain| per block: f32 sums in another order
 GEM_TOL = 1e-5
 TOPK_TOL = 1e-5
 NETVLAD_TOL = 1e-5   # unit-norm 32,768-d output: expf and summation order
@@ -102,6 +123,7 @@ def profile_window(fn):
         spans.append((start, end))
         n = e.name.lower()
         g = ("head kernel" if "gem_" in n or "netvlad" in n else
+             "bottleneck kernel" if "bottleneck" in n else
              "layout transform" if "nhwctonchw" in n or "nchwtonhwc" in n else
              "convolution / gemm" if any(k in n for k in ("conv", "implicit", "xmma", "cudnn",
                                                           "winograd", "fft", "gemm", "cutlass",
@@ -406,6 +428,115 @@ def check_long_topk(dev):
     return err
 
 
+def _adc_inputs(dev, nq, n, M, seed):
+    """Random LUTs (unit-scale scores) and codes with each 7th row of the
+    second half a copy of row 3."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    lut = (torch.randn((nq, M, 256), generator=gen) / M ** 0.5).to(dev)
+    codes = torch.randint(0, 256, (n, M), generator=gen, dtype=torch.uint8)
+    codes[n // 2 :: 7] = codes[3]
+    return lut, codes.to(dev)
+
+
+def check_adc(dev):
+    """The ADC kernel against its plain version at the path-A shape (M=64)
+    and the sliced-LUT shape (M=256); returns the path-A inputs and errors."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        adc_scores,
+        adc_scores_plain,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (
+        NEG_INF,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import (
+        adc_topk_core,
+    )
+
+    err, main = 0.0, None
+    for nq, n, M in ((256, 100_000, 64), (64, 10_000, 256)):
+        lut, codes = _adc_inputs(dev, nq, n, M, seed=8)
+        s, bmax = adc_scores(lut, codes)
+        ps, _ = adc_scores_plain(lut, codes)
+        torch.cuda.synchronize()
+        nb = -(-n // 64)
+        e = (s - ps).abs().max().item()
+        dup = torch.nonzero((codes == codes[3]).all(1)).flatten()
+        log(f"[check] adc_scores {nq} x {n} x M={M}: max|score err| {e:.3e}, "
+            f"{len(dup)} duplicate rows")
+        if e > TOPK_TOL:
+            raise AssertionError("adc_scores disagrees with its plain version")
+        if not torch.equal(bmax, s.view(nq, nb, 64).amax(-1)):
+            raise AssertionError("adc bmax is not the max of the kernel's own scores")
+        if s.shape[1] != nb * 64 or not bool(torch.all(s[:, n:] == NEG_INF)):
+            raise AssertionError("adc pad columns must score NEG_INF")
+        if len(dup) < 2 or not bool(torch.all(s[:, dup] == s[:, dup[:1]])):
+            raise AssertionError("duplicate code rows must score bit-equal")
+        top, idx = adc_topk_core(lut, codes, k=100, chunk=65536)
+        tv, iv = top.cpu(), idx.cpu()
+        ordered = (tv[:, :-1] > tv[:, 1:]) | ((tv[:, :-1] == tv[:, 1:]) & (iv[:, :-1] < iv[:, 1:]))
+        if not bool(ordered.all()):
+            raise AssertionError("adc_topk_core is not in (score desc, row asc) order")
+        err = max(err, e)
+        if main is None:
+            main = (lut, codes)
+    same = torch.full((3000, 64), 17, dtype=torch.uint8, device=dev)
+    _, i = adc_topk_core(main[0][:4].contiguous(), same, k=200, chunk=1024)
+    if not torch.equal(i, torch.arange(200, device=dev, dtype=torch.int32).expand(4, -1)):
+        raise AssertionError("adc_topk_core does not put the lower row first on ties")
+    log("[check] adc_topk_core: (score desc, row asc), equal rows lower-row first")
+    return {"lut": main[0], "codes": main[1], "err": err}
+
+
+# resnet50's stride-1 identity blocks on a 16-image 1024 px bucket (scale 1),
+# [B, H, W, Cin] and Cm, and layer1 of a 720 x 1024 bucket
+BOTTLENECK_SHAPES = (((16, 256, 256, 256), 64), ((16, 128, 128, 512), 128),
+                     ((16, 64, 64, 1024), 256), ((16, 32, 32, 2048), 512),
+                     ((16, 180, 256, 256), 64))
+
+
+def _bottleneck_inputs(dev, shape, cm, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    cin = shape[3]
+    x = torch.relu(torch.randn(shape, generator=gen))
+    w1 = torch.randn((cin, cm), generator=gen) * (2 / cin) ** 0.5
+    w2 = torch.randn((3, 3, cm, cm), generator=gen) * (2 / (9 * cm)) ** 0.5
+    w3 = torch.randn((cm, cin), generator=gen) * (2 / cm) ** 0.5
+    b1, b2, b3 = (0.1 * torch.randn(c, generator=gen) for c in (cm, cm, cin))
+    return [t.to(dev).contiguous() for t in (x, w1, b1, w2, b2, w3, b3)]
+
+
+def check_bottleneck(dev):
+    """The fused bottleneck against its plain version (three cuDNN convs)
+    at every stride-1 block shape of resnet50; returns the max errors."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        bottleneck_fused,
+        bottleneck_plain,
+    )
+
+    err = rel = 0.0
+    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES):
+        args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
+        got = bottleneck_fused(*args)
+        want = bottleneck_plain(*args)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        r = e / want.abs().max().item()
+        log(f"[check] bottleneck_fused {list(shape)} Cm={cm}: max|err| {e:.3e}, "
+            f"relative to max|plain| {r:.3e}")
+        if not r <= BOTTLENECK_TOL:
+            raise AssertionError(f"bottleneck_fused {shape} disagrees with its plain version")
+        err, rel = max(err, e), max(rel, r)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return err, rel
+
+
 def make_corpus(n_scenes=20, views=5, seed=0):
     """Clustered in-memory corpus, max side 1024 (so no resize, no PIL):
     each scene is a low-frequency textured prototype; its views are crops
@@ -433,9 +564,10 @@ def make_corpus(n_scenes=20, views=5, seed=0):
     return images, np.asarray(labels), np.stack(queries)
 
 
-def main_path_phase(dev, graded_id, expect):
+def main_path_phase(dev, graded_id, expect, fuse_blocks=None):
     """One graded config end to end; ``expect`` names the kernels its run
-    must launch. Counts are set to 0 just before the run and read after."""
+    must launch. Counts are set to 0 just before the run and read after.
+    Returns the launch counts, the measurements and the db descriptors."""
     import dataclasses
 
     import numpy as np
@@ -456,10 +588,11 @@ def main_path_phase(dev, graded_id, expect):
     images, labels, q_u8 = make_corpus()
     graded = GRADED_CONFIGS[graded_id]
     mc = dataclasses.replace(graded.extract.model, use_pallas=True)
-    cfg = dataclasses.replace(graded.extract, model=mc, batch_size=16)
-    tag = f"config {graded_id}"
+    cfg = dataclasses.replace(graded.extract, model=mc, batch_size=16, fuse_blocks=fuse_blocks)
+    tag = f"config {graded_id}" + (" fused trunk" if fuse_blocks else "")
     q_pixels = ((q_u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
-    log(f"[{tag}] {graded.name}: {mc.arch} {mc.pooling} fused head, {cfg.image_size} px, "
+    log(f"[{tag}] {graded.name}: {mc.arch} {mc.pooling} fused head, fuse_blocks "
+        f"{cfg.fuse_blocks}, {cfg.image_size} px, "
         f"scales {tuple(round(s, 4) for s in cfg.scales)}, index {graded.index}, "
         f"{len(images)} db images, {len(q_u8)} queries")
 
@@ -536,7 +669,7 @@ def main_path_phase(dev, graded_id, expect):
                       "extract_warm_img_per_s": len(images) / t_warm,
                       "query_q_per_s": len(qd) / t_query, "map": mAP, "d_err": d_err,
                       "topk_main_err": e_main, "descriptor_dim": int(db.shape[1]),
-                      "index_dim": int(index.gallery.shape[1]), "profile": prof}
+                      "index_dim": int(index.gallery.shape[1]), "profile": prof}, db
 
 
 def long_search_phase(dev):
@@ -569,10 +702,212 @@ def long_search_phase(dev):
     return launches, {"long_query_q_per_s": len(q_np) / t_query, "long_query_err": e}
 
 
-def timing_phase(dev, gem_in, nv_in, launches, errs):
+def ann_corpus(n=100_000, d=2048, nq=256, seed=0, noise_per_row=False):
+    """The JAX package's ANN-bench corpus (benchmarks.py run_ann_bench):
+    gaussian cells of 0.35 around max(32, n / 256) random unit centers;
+    queries are noisy (0.15) members. The bench's noise is per component,
+    so at D=2048 a cell's spread (norm ~16) swamps its unit center.
+    ``noise_per_row`` scales it by 1/sqrt(d): the noise's norm is then 0.35
+    (0.15) of the center's, and exact neighbours share a cell."""
+    import numpy as np
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.normalization import l2n
+
+    def unit(a):
+        return l2n(torch.from_numpy(a)).numpy()
+
+    rng = np.random.RandomState(seed)
+    scale = d ** -0.5 if noise_per_row else 1.0
+    n_cells = max(32, n // 256)
+    centers = unit(rng.randn(n_cells, d).astype(np.float32))
+    assign = rng.randint(0, n_cells, size=n)
+    g = unit(centers[assign] + 0.35 * scale * rng.randn(n, d).astype(np.float32))
+    q = unit(g[rng.choice(n, nq, replace=False)]
+             + 0.15 * scale * rng.randn(nq, d).astype(np.float32))
+    return g, q
+
+
+def _agree_where_separated(s, i, ref_s, ref_i, tol=TOPK_TOL):
+    """Two top-k lists agree: scores within ``tol`` everywhere, and indices
+    equal at every place whose reference score is more than ``tol`` from
+    both neighbours (the last place has an unseen neighbour, so only its
+    score is held)."""
+    import numpy as np
+
+    gap = ref_s[:, :-1] - ref_s[:, 1:]
+    gap_n = np.concatenate([gap, np.zeros_like(ref_s[:, :1])], 1)
+    gap_p = np.concatenate([np.full_like(ref_s[:, :1], np.inf), gap], 1)
+    clear = (gap_n > tol) & (gap_p > tol)
+    return bool(np.array_equal(i[clear], ref_i[clear]) and np.abs(s - ref_s).max() <= tol)
+
+
+def ann_phase(dev):
+    """Path A: compressed-gallery search at full width. Each index is built
+    and searched through the public entry points; the counts are set to 0
+    before the phase and read after it, and each PQIndex.search's own
+    launches are read around it. Two points: the ANN bench's corpus at its
+    operating point (D=2048, M=64) and one that keeps its cells (D=512,
+    M=16, noise scaled to the row), where recall can tell a sound index
+    from a weak one."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    rows = {}
+    C = _ann_point(dev, rows, d=2048, m=64, suffix="", noise_per_row=False, with_opq=True)
+    c2 = _ann_point(dev, rows, d=512, m=16, suffix="_d512", noise_per_row=True, with_opq=False)
+    launches = kernels.launch_counts()  # this phase's counting window
+    log(f"[ann] launches {launches}")
+    # where exact neighbours share a cell, a sound index finds most of them
+    for name, least in ((f"ivf_nprobe{c2 // 8}_d512", 0.9), ("pq_m16_refine400_d512", 0.9),
+                        (f"ivfpq_m16_nprobe{c2 // 4}_refine400_d512", 0.9)):
+        if rows[name]["recall_at_100"] < least:
+            raise AssertionError(f"{name} recall@100 {rows[name]['recall_at_100']:.4f} is "
+                                 f"below {least}")
+    return launches, {"ann_rows": rows, "clusters": C}
+
+
+def _ann_point(dev, rows, d, m, suffix, noise_per_row, with_opq):
+    """Build and search every index of path A on one corpus; ``rows`` gains
+    a row per search (names end in ``suffix``). Returns the IVF's C."""
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    g, q = ann_corpus(d=d, noise_per_row=noise_per_row)
+    log(f"[ann{suffix}] corpus {g.shape} + {q.shape[0]} queries, noise per "
+        f"{'row' if noise_per_row else 'component'}, made in {time.perf_counter() - t0:.1f} s")
+    gd = torch.from_numpy(g).to(dev)  # the f32 gallery refine reads, uploaded once
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    exact = port.build_index(g, port.IndexConfig(whitening=None), device=dev)
+    exact.device_gallery()
+    exact_s = time.perf_counter() - t1
+    es, ei = exact.query(q, k=100)                  # the recall anchor
+    results = {}
+
+    def measure(name, build_s, fn, expect=None):
+        name += suffix
+        before = kernels.launch_counts()
+        fn()  # warm: the first search uploads the index and meets its shapes once
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, i = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        rec = {kk: float(np.mean([len(set(a[:kk]) & set(b[:kk])) / kk for a, b in zip(i, ei)]))
+               for kk in (10, 100)}
+        r = {"build_s": build_s, "q_per_s": len(q) / dt, "recall_at_10": rec[10],
+             "recall_at_100": rec[100]}
+        if expect:  # this search's own window, inside the phase's
+            win = {kk: v - before[kk] for kk, v in kernels.launch_counts().items()}
+            r["launches"] = win
+            if win[expect] <= 0:
+                raise AssertionError(f"{expect} was not launched by {name}")
+        log(f"[ann] {name}: {json.dumps(r)}")
+        rows[name] = r
+        results[name] = (s, i)
+        return s, i
+
+    measure("exact_k100", exact_s, lambda: exact.query(q, k=100))
+    t1 = time.perf_counter()
+    ivf = port.IVFIndex.build(g, device=dev)
+    ivf_s = time.perf_counter() - t1
+    C = ivf.centroids.shape[0]
+    log(f"[ann{suffix}] IVFIndex: C={C}, L={ivf.partitions.shape[1]}, "
+        f"pad ratio {ivf.pad_ratio:.3f}")
+    for nprobe in (C // 8, C):
+        measure(f"ivf_nprobe{nprobe}", ivf_s, lambda p=nprobe: ivf.search(q, k=100, nprobe=p))
+    # full probe is exact search wherever the exact scores are separated
+    if not _agree_where_separated(*results[f"ivf_nprobe{C}{suffix}"], es, ei):
+        raise AssertionError("IVF at nprobe = C is not exact search")
+
+    # (name, card index, its copy on the CPU, search arguments)
+    cross = []
+    t1 = time.perf_counter()
+    pq = port.PQIndex.build(g, m=m, device=dev)
+    pq_s = time.perf_counter() - t1
+    measure(f"pq_m{m}_adc", pq_s, lambda: pq.search(q, k=100), expect="adc_scores")
+    measure(f"pq_m{m}_refine400", pq_s, lambda: pq.search(q, k=100, refine=400, gallery=gd),
+            expect="adc_scores")
+    cross += [(f"pq_m{m}_adc", pq, {}), (f"pq_m{m}_refine400", pq, {"refine": 400})]
+    opq = None
+    if with_opq:
+        t1 = time.perf_counter()
+        opq = port.PQIndex.build(g, m=m, opq_iters=2, device=dev)  # opq_iters cut to 2 for time
+        opq_s = time.perf_counter() - t1
+        measure(f"opq2_m{m}_adc", opq_s, lambda: opq.search(q, k=100), expect="adc_scores")
+        measure(f"opq2_m{m}_refine400", opq_s,
+                lambda: opq.search(q, k=100, refine=400, gallery=gd), expect="adc_scores")
+        cross += [(f"opq2_m{m}_adc", opq, {})]
+    t1 = time.perf_counter()
+    ivfpq = port.IVFPQIndex.from_ivf(ivf, m=m, device=dev)
+    ivfpq_s = ivf_s + time.perf_counter() - t1
+    name = f"ivfpq_m{m}_nprobe{C // 4}_refine400"
+    measure(name, ivfpq_s, lambda: ivfpq.search(q, k=100, nprobe=C // 4, refine=400, gallery=gd))
+    cross += [(name, ivfpq, {"nprobe": C // 4, "refine": 400, "chunk": 8})]
+    if rows[f"pq_m{m}_refine400{suffix}"]["recall_at_10"] < rows[f"pq_m{m}_adc{suffix}"][
+            "recall_at_10"]:
+        raise AssertionError("refine lowered PQ recall")
+
+    # the card's results against the same indexes searched on the CPU (the
+    # plain versions: no launch), first 32 queries
+    nc = 32
+    for name, index, kw in cross:
+        if isinstance(index, port.PQIndex):
+            cpu = port.PQIndex(index.codebooks, index.codes, index.n, rotation=index.rotation,
+                               device="cpu")
+        else:
+            cpu = port.IVFPQIndex(index.centroids, index.codes, index.lengths, index.row_ids,
+                                  index.codebooks, index.n, rotation=index.rotation, device="cpu")
+        if "refine" in kw:
+            kw = dict(kw, gallery=g)
+        t1 = time.perf_counter()
+        cs, ci = cpu.search(q[:nc], k=100, **kw)
+        s, i = results[name + suffix]
+        ok = _agree_where_separated(s[:nc], i[:nc], cs, ci)
+        log(f"[ann{suffix}] {name} card vs CPU, {nc} queries: max|score diff| "
+            f"{np.abs(s[:nc] - cs).max():.3e}, indices equal {np.array_equal(i[:nc], ci)} "
+            f"({time.perf_counter() - t1:.1f} s on the CPU)")
+        if not ok:
+            raise AssertionError(f"{name}{suffix} on the card disagrees with the CPU search")
+    del ivf, pq, opq, ivfpq, exact, gd, cross
+    torch.cuda.empty_cache()
+    return C
+
+
+def fused_trunk_phase(dev, db_unfused):
+    """Path B: graded config 2 with fuse_blocks=True, descriptors held
+    against the unfused config-2 run on the same weights."""
+    import numpy as np
+
+    launches, main, db = main_path_phase(
+        dev, 2, ("bottleneck_fused", "gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"),
+        fuse_blocks=True)
+    # 12 stride-1 blocks in resnet50, once per batch and scale; the gem head
+    # runs once per batch and scale too
+    want = 12 * (launches["gem_l2n_fused_rect"] + launches["gem_l2n_fused"])
+    if launches["bottleneck_fused"] != want:
+        raise AssertionError(f"bottleneck_fused launched {launches['bottleneck_fused']} "
+                             f"times, want {want}")
+    d_err = float(np.abs(db - db_unfused).max())
+    log(f"[config 2 fused trunk] vs unfused config 2, same weights: max|descriptor err| "
+        f"{d_err:.3e}")
+    if d_err > HEAD_TOL:
+        raise AssertionError("fused-trunk descriptors disagree with the unfused run")
+    main["vs_unfused_err"] = d_err
+    return launches, main
+
+
+def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        adc_scores,
+        adc_scores_plain,
         blockmax_topk_search,
+        bottleneck_fused,
+        bottleneck_plain,
         fused_topk_plain,
         fused_topk_search,
         gem_l2n_fused,
@@ -590,9 +925,11 @@ def timing_phase(dev, gem_in, nv_in, launches, errs):
     out_bytes = B * C * 4
     rows = []
 
-    def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms):
+    def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms, lookups=0):
+        # operations: f32 FMA work at the f32 rate, or shared-memory lookups
+        # at the lookup rate, whichever takes longer
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOP_PER_S * 1e3
+        t_ops = max(flops / F32_FLOP_PER_S, lookups / SMEM_LOOKUPS_PER_S) * 1e3
         r = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -653,6 +990,55 @@ def timing_phase(dev, gem_in, nv_in, launches, errs):
     log(f"[timing] blockmax_topk_search at {Nq} x {Ng} x {D} f32 k=1000: {search_ms:.3f} ms "
         f"({Nq / search_ms * 1e3:.1f} q/s), of which scores_blockmax {rows[-1]['ms']:.3f} ms "
         f"and block selection, gather and candidate sort the rest")
+    del g, q
+
+    # ADC at path A's shape: N M nq lookups; reads codes and LUT once,
+    # writes scores and block maxima. The one-call yardstick is
+    # embedding_bag(mode='sum') over the LUT laid out as [M * 256, nq] rows,
+    # which gives the scores [n, nq] without the block maxima; its index
+    # offsets and table layout are made outside the timed call
+    lut, codes = adc_in["lut"], adc_in["codes"]
+    nq, M, _ = lut.shape
+    n = codes.shape[0]
+    n_pad = -(-n // 64) * 64
+    bag_idx = codes.long() + 256 * torch.arange(M, device=dev)
+    bag_tab = lut.permute(1, 2, 0).reshape(M * 256, nq).contiguous()
+
+    def library():
+        return torch.nn.functional.embedding_bag(bag_idx, bag_tab, mode="sum")
+
+    lib_err = (library().T - adc_scores(lut, codes)[0][:, :n]).abs().max().item()
+    log(f"[timing] adc_scores vs embedding_bag(mode='sum'): max|score diff| {lib_err:.3e}")
+    if lib_err > TOPK_TOL:
+        raise AssertionError("adc_scores disagrees with embedding_bag's sums")
+    row("adc_scores", CSRC + "adc.cu", PALLAS + "adc_mxu.py:125",
+        time_ms(lambda: adc_scores(lut, codes)),
+        time_ms(lambda: adc_scores_plain(lut, codes), reps=5),
+        n * M + lut.numel() * 4 + nq * n_pad * 4 + nq * (n_pad // 64) * 4, 0,
+        time_ms(library), lookups=n * M * nq)
+    del bag_idx, bag_tab
+    log(f"[timing] adc_scores at {nq} x {n} x M={M}: {rows[-1]['ms']:.4f} ms, "
+        f"{n * M * nq / rows[-1]['ms'] / 1e9:.3f} G lookups/ms, embedding_bag "
+        f"{rows[-1]['library_ms']:.4f} ms")
+
+    # the fused bottleneck: 2 B H W (2 Cin Cm + 9 Cm^2) flop; reads x and the
+    # weights once, writes out; the plain version is three cuDNN convs. The
+    # row is layer1 of the 1024 px bucket; every shape is logged.
+    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES):
+        args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
+        B, H, W, cin = shape
+        flops = 2 * B * H * W * (2 * cin * cm + 9 * cm * cm)
+        byts = 2 * B * H * W * cin * 4 + (2 * cin * cm + 9 * cm * cm + 2 * cm + cin) * 4
+        ms = time_ms(lambda: bottleneck_fused(*args))
+        plain_ms = time_ms(lambda: bottleneck_plain(*args))
+        bound = max(flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        log(f"[timing] bottleneck_fused {list(shape)} Cm={cm}: {ms:.3f} ms, plain (three "
+            f"cuDNN convs) {plain_ms:.3f} ms, bound {bound:.3f} ms, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+        if i == 0:
+            row("bottleneck_fused", CSRC + "bottleneck.cu", PALLAS + "bottleneck_block.py:204",
+                ms, plain_ms, byts, flops, None)
+        del args
     return rows
 
 
@@ -673,21 +1059,29 @@ def main() -> int:
     nv_in = check_netvlad(dev)
     sb_err = check_scores_blockmax(dev)
     long_err = check_long_topk(dev)
-    launches2, main2 = main_path_phase(
+    adc_in = check_adc(dev)
+    bn_err, bn_rel = check_bottleneck(dev)
+    launches2, main2, db2 = main_path_phase(
         dev, 2, ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"))
-    launches3, main3 = main_path_phase(
+    launches3, main3, _ = main_path_phase(
         dev, 3, ("netvlad_fused_rect", "netvlad_fused", "fused_topk_search"))
     launches_long, long_main = long_search_phase(dev)
+    launches_ann, ann_main = ann_phase(dev)
+    launches_b, main_b = fused_trunk_phase(dev, db2)
+    by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
+               "ann": launches_ann, "config2_fused_trunk": launches_b}
     # each kernel's launches, summed over the paths' own counting windows
-    launches = {n: launches2[n] + launches3[n] + launches_long[n] for n in launches2}
+    launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
-                fused_topk_search=max(topk_err, main2["topk_main_err"], main3["topk_main_err"]),
-                scores_blockmax=max(sb_err, long_err, long_main["long_query_err"]))
-    rows = timing_phase(dev, gem_in, nv_in, launches, errs)
+                fused_topk_search=max(topk_err, main2["topk_main_err"], main3["topk_main_err"],
+                                      main_b["topk_main_err"]),
+                scores_blockmax=max(sb_err, long_err, long_main["long_query_err"]),
+                adc_scores=adc_in["err"], bottleneck_fused=bn_err)
+    rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs)
     log(json.dumps({"main_path": {"config2": main2, "config3": main3, "long_search": long_main,
-                                  "launches_by_path": {"config2": launches2,
-                                                       "config3": launches3,
-                                                       "long_search": launches_long}}}))
+                                  "ann": ann_main, "config2_fused_trunk": main_b,
+                                  "bottleneck_rel_err": bn_rel,
+                                  "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

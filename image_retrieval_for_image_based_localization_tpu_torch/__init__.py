@@ -8,6 +8,7 @@ in ``csrc/`` and are built with nvcc at first use (``ops.kernels``).
     extract_features(images, cfg)  -> [N, D] descriptors
     build_index(descriptors, cfg)  -> Index (whitening + gallery)
     query(index, qdescriptors, k)  -> (scores, indices)
+    IVFIndex / PQIndex / IVFPQIndex -> compressed-gallery search
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -20,6 +21,14 @@ from image_retrieval_for_image_based_localization_tpu_torch.api import (  # noqa
     extract_features,
     extract_vectors,
     query,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.ivf import (  # noqa: F401
+    IVFIndex,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import (  # noqa: F401
+    IVFPQIndex,
+    PQIndex,
+    load_pq_artifact,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (  # noqa: F401
     GRADED_CONFIGS,

@@ -23,9 +23,14 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
     IMAGENET_STD,
     make_batches,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.models.fused_trunk import (
+    fold_trunk,
+    trunk_apply_fused,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.models.init import init_random_
 from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
     RetrievalNet,
+    feature_mask,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
@@ -86,6 +91,10 @@ class Extractor:
         ``models.flax_port`` for flax variables). None: random weights from
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
       device: "cuda" (default) or "cpu".
+
+    ``cfg.fuse_blocks=True`` (bottleneck resnets) folds the trunk's BN once
+    here and runs it through ``models.fused_trunk``, the fused bottleneck
+    kernel included; the head then runs on the precomputed features.
     """
 
     def __init__(self, cfg: ExtractConfig, state_dict: Optional[Dict] = None,
@@ -102,6 +111,8 @@ class Extractor:
         else:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        # None stays off, as in the JAX package
+        self._folded = fold_trunk(self.model.features) if cfg.fuse_blocks else None
         self.scales = tuple(sorted(cfg.scales, reverse=True))
         # u8 -> f32 normalize as one scale-and-shift, constants from float64
         std = np.asarray(IMAGENET_STD, np.float64)
@@ -133,7 +144,11 @@ class Extractor:
                                    align_corners=False, antialias=False).permute(0, 2, 3, 1)
             if mask is not None:
                 mask = resize_mask_nearest(mask, size)
-        return self.model(pixels, mask)
+        if self._folded is None:
+            return self.model(pixels, mask)
+        feats = trunk_apply_fused(self._folded, pixels)
+        fmask = None if mask is None else feature_mask(mask, pixels.shape[1:3], feats.shape[1:3])
+        return self.model.head(feats, fmask)
 
     @torch.no_grad()
     def forward(self, pixels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -127,10 +127,17 @@ class RetrievalNet(nn.Module):
         return self.features(x).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NHWC pixels (+ pixel mask) -> [B, D]."""
         feats = self.trunk_nhwc(x)
         fmask = None
         if mask is not None:
             fmask = feature_mask(mask, x.shape[1:3], feats.shape[1:3])
+        return self.head(feats, fmask)
+
+    def head(self, feats: torch.Tensor, fmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pooling, L2N and whitening of an NHWC feature map [B, h, w, C]
+        (the trunk's, or the fused trunk's from ``models.fused_trunk``);
+        ``fmask`` is at feature resolution."""
         if self.pooling == "netvlad":
             desc = self._netvlad(feats.float(), fmask)
         elif self.pooling == "gem" and self.use_kernel:

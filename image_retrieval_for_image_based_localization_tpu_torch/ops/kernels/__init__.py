@@ -5,6 +5,15 @@ launches its kernel (never on the CPU path), so a run can show which
 kernels it went through.
 """
 
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.adc import (  # noqa: F401
+    adc_scores,
+    adc_scores_plain,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (  # noqa: F401
+    bottleneck_fused,
+    bottleneck_plain,
+    fold_bn,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_topk_plain,
     fused_topk_search,
@@ -20,13 +29,14 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad 
     netvlad_plain,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (  # noqa: F401
+    blockmax_select,
     blockmax_topk_search,
     scores_blockmax,
     scores_blockmax_plain,
 )
 
 KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search, netvlad_fused_rect,
-           netvlad_fused, scores_blockmax)
+           netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused)
 
 
 def reset_launch_counts() -> None:

@@ -47,6 +47,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, stream
         "scores_blockmax_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "adc": {
+        # lut, codes, scores, bmax, nq, n, n_valid, M, n_pad, stream
+        "adc_scores_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "bottleneck": {
+        # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cm, stream
+        "bottleneck_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,8 @@ NEG_INF and takes the per-64-column block maxima while the tile is still in
 registers (the fusion Mosaic refused on the TPU).
 
 :func:`blockmax_topk_search` is the exact top-k on top of it, as
-``pallas_topk_search``: the kernel is stage 1; stages 2-3 are plain tensor
+``pallas_topk_search``: the kernel is stage 1; stages 2-3
+(:func:`blockmax_select`, which the ADC search shares) are plain tensor
 code, as XLA ran them. The top ``kb = min(k, nb)`` blocks by maximum are
 taken with a stable descending sort, re-sorted by block id, gathered, and a
 stable sort of the candidates gives the top k. Each selected block holds an
@@ -94,16 +95,13 @@ def scores_blockmax(gallery: torch.Tensor,
     return scores, bmax
 
 
-def blockmax_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
-                         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k through :func:`scores_blockmax` (the counterpart of the
-    JAX package's ``pallas_topk_search``). Returns (scores [Nq, k] f32,
-    indices [Nq, k] int32), best first, ties lower-index first; k is
-    clamped to the gallery size."""
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    scores, bmax = scores_blockmax(gallery, queries)
-    k = min(k, gallery.shape[0])
+def blockmax_select(scores: torch.Tensor, bmax: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages 2-3 of the exact search on a padded score matrix and its
+    block maxima (the output contract of :func:`scores_blockmax` and of
+    ``ops.kernels.adc.adc_scores``): scores [Nq, nb * 64], bmax [Nq, nb].
+    Returns (scores [Nq, k'] f32, columns [Nq, k'] int32), best first, ties
+    lower column first, with k' = min(k, nb * 64)."""
     Nq, nb = bmax.shape
     kb = min(k, nb)
     order = torch.sort(bmax, dim=1, descending=True, stable=True).indices[:, :kb]
@@ -114,6 +112,18 @@ def blockmax_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
             + torch.arange(BLOCK, device=bidx.device)).reshape(Nq, kb * BLOCK)
     top, pos = torch.sort(cand, dim=1, descending=True, stable=True)
     return top[:, :k].contiguous(), torch.gather(cidx, 1, pos[:, :k]).to(torch.int32)
+
+
+def blockmax_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
+                         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k through :func:`scores_blockmax` (the counterpart of the
+    JAX package's ``pallas_topk_search``). Returns (scores [Nq, k] f32,
+    indices [Nq, k] int32), best first, ties lower-index first; k is
+    clamped to the gallery size."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    scores, bmax = scores_blockmax(gallery, queries)
+    return blockmax_select(scores, bmax, min(k, gallery.shape[0]))
 
 
 scores_blockmax.launches = 0

@@ -26,6 +26,16 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_to
 )
 
 NEG_INF = float(np.finfo(np.float32).min)
+INT32_MAX = int(np.iinfo(np.int32).max)  # row sentinel of pad slots on the device
+
+
+def sanitize_fill_rows(scores, rows) -> np.ndarray:
+    """Host-boundary fill contract: slots that never matched a real gallery
+    row (score NEG_INF; real scores are finite) return row -1, never a
+    fabricated id. The IVF family can under-fill when k exceeds the probed
+    rows."""
+    scores = np.asarray(scores)
+    return np.where(scores <= NEG_INF / 2, -1, np.asarray(rows))
 
 
 def score_matrix(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -42,10 +52,18 @@ def score_matrix(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q, gallery.float().T)
 
 
-def _stable_topk(scores: torch.Tensor, idx: torch.Tensor, k: int):
-    """Top-k of each row by score; equal scores keep their order in the row."""
-    top, pos = torch.sort(scores, dim=1, descending=True, stable=True)
-    return top[:, :k], torch.gather(idx, 1, pos[:, :k])
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, equal values in index order (``lax.top_k``)."""
+    top, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return top[..., :k], pos[..., :k]
+
+
+def merge_topk(scores: torch.Tensor, idx: torch.Tensor, k: int):
+    """Top-k of each row by score with their ids; equal scores keep their
+    order in the row, so candidate lists laid out in ascending id order
+    merge with lower-id-wins (the JAX package's ``merge_topk``)."""
+    top, pos = stable_topk(scores, k)
+    return top, torch.gather(idx, 1, pos)
 
 
 def auto_chunk(Ng: int, Nq: int, budget_bytes: int = 256 * 1024 * 1024) -> int:
@@ -88,7 +106,7 @@ def knn_search(
         if best_s is not None:
             s = torch.cat([best_s, s], dim=1)
             ids = torch.cat([best_i, ids], dim=1)
-        best_s, best_i = _stable_topk(s, ids, k)
+        best_s, best_i = merge_topk(s, ids, k)
     return best_s.contiguous(), best_i.to(torch.int32).contiguous()
 
 

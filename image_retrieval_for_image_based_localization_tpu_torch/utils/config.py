@@ -3,8 +3,9 @@
 Copied from the JAX package's ``utils/config.py`` (same fields, defaults and
 graded configs), so a config written for one package means the same thing in
 the other. Fields that select TPU-only machinery (``s2d_stem``,
-``fuse_blocks``, ``native_preproc``) are kept for compatibility and rejected
-by :func:`check_supported` when set to anything but their default.
+``native_preproc``) are kept for compatibility and rejected by
+:func:`check_supported` when set to anything but their default;
+``fuse_blocks`` is taken for bottleneck resnets.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ class ExtractConfig:
     native_preproc: Optional[bool] = None  # C++ decode/resize: not ported
     upscale: bool = False
     resize_filter: str = "lanczos"  # 'lanczos' (reference) | 'bilinear'
-    fuse_blocks: Optional[bool] = None  # fused bottleneck trunk: not ported
+    # fused bottleneck trunk (bottleneck resnets only); None stays off
+    fuse_blocks: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +120,7 @@ GRADED_CONFIGS = {
 # what this package runs so far; the rest of the JAX package's options come
 # with later parts of the port
 _SUPPORTED_POOLING = ("gem", "mac", "spoc", "netvlad")
+_BOTTLENECK_ARCHS = ("resnet50", "resnet101", "resnet152")
 
 
 def check_supported(cfg: ExtractConfig) -> None:
@@ -125,8 +128,9 @@ def check_supported(cfg: ExtractConfig) -> None:
     mc = cfg.model
     if mc.s2d_stem:
         raise ValueError("s2d_stem is a TPU layout rewrite; not supported")
-    if cfg.fuse_blocks:
-        raise ValueError("fuse_blocks (fused bottleneck trunk) is not supported")
+    if cfg.fuse_blocks and mc.arch not in _BOTTLENECK_ARCHS:
+        raise ValueError(f"fuse_blocks (fused bottleneck trunk) needs a bottleneck resnet "
+                         f"{_BOTTLENECK_ARCHS}, not {mc.arch!r}")
     if cfg.native_preproc:
         raise ValueError("native_preproc is not supported; images go through PIL")
     if mc.dtype != "float32":

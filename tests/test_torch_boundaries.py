@@ -52,7 +52,8 @@ def _needs_no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["Extractor", "extract_features", "build_index",
-                                   "Index.load"])
+                                   "Index.load", "IVFIndex.build", "PQIndex.build",
+                                   "load_pq_artifact"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     _needs_no_cuda()
     cfg = port.ExtractConfig(model=port.ModelConfig(arch="resnet18"), image_size=64)
@@ -62,6 +63,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             [np.zeros((64, 64, 3), np.uint8)], cfg),
         "build_index": lambda: port.build_index(np.eye(4, dtype=np.float32)),
         "Index.load": lambda: port.retrieval.index.Index.load(str(tmp_path / "none")),
+        "IVFIndex.build": lambda: port.IVFIndex.build(np.eye(4, dtype=np.float32)),
+        "PQIndex.build": lambda: port.PQIndex.build(np.eye(4, dtype=np.float32), m=2),
+        "load_pq_artifact": lambda: port.load_pq_artifact(str(tmp_path / "none")),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -74,8 +78,12 @@ def test_unported_options_raise():
                port.ModelConfig(arch="vgg16", pooling="gemmp")):
         with pytest.raises(ValueError):
             port.Extractor(port.ExtractConfig(model=mc), device="cpu")
-    with pytest.raises(ValueError):
-        port.Extractor(port.ExtractConfig(fuse_blocks=True), device="cpu")
+    # the fused bottleneck trunk takes bottleneck resnets only
+    for arch in ("resnet18", "vgg16"):
+        with pytest.raises(ValueError, match="fuse_blocks"):
+            port.Extractor(port.ExtractConfig(model=port.ModelConfig(arch=arch),
+                                              fuse_blocks=True), device="cpu")
+    assert port.Extractor(port.ExtractConfig(fuse_blocks=True), device="cpu")._folded
     # graded config 3's model is ported
     cfg3 = port.GRADED_CONFIGS[3].extract
     ex = port.Extractor(dataclasses.replace(cfg3, model=dataclasses.replace(

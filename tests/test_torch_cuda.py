@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+    adc_scores,
+    adc_scores_plain,
     blockmax_topk_search,
+    bottleneck_fused,
+    bottleneck_plain,
     fused_topk_plain,
     fused_topk_search,
     gem_l2n_fused,
@@ -30,6 +34,8 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import
     knn_search,
     score_matrix,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import adc_topk_core
+from image_retrieval_for_image_based_localization_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +44,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    return resolve_device("cuda")  # the package's device rule: TF32 off
 
 
 def _rand(shape, seed, dev, dtype=torch.float32):
@@ -168,3 +174,57 @@ def test_long_shortlist_search_exact_with_duplicates(dev, dtype, k):
     assert bool(ordered.all())
     s1, i1 = blockmax_topk_search(gallery, q.to(dtype).float(), k)
     assert torch.equal(i1, i) and torch.equal(s1, s)  # one chunk or three: the same list
+
+
+@pytest.mark.parametrize("nq,n,m", [(33, 1000, 64), (5, 700, 256), (9, 130, 8)])
+def test_adc_scores_match_plain_bitwise(dev, nq, n, m):
+    """Kernel and plain version add the subquantizers in the same order:
+    equal bits, the M > 64 sliced LUT and the byte-load path (M = 8) too."""
+    g = torch.Generator().manual_seed(5)
+    lut = torch.randn((nq, m, 256), generator=g).to(dev)
+    codes = torch.randint(0, 256, (n, m), generator=g, dtype=torch.uint8)
+    codes[n // 2 :: 9] = codes[1]  # duplicate rows tie bit for bit
+    codes = codes.to(dev)
+    dup = torch.nonzero((codes == codes[1]).all(1)).flatten()
+    for n_valid in (n, n - 17):
+        s, bmax = adc_scores(lut, codes, n_valid=n_valid)
+        ps, pb = adc_scores_plain(lut, codes, n_valid=n_valid)
+        assert torch.equal(s, ps) and torch.equal(bmax, pb)
+        assert torch.all(s[:, n_valid:] == NEG_INF)
+        live = dup[dup < n_valid]
+        assert len(live) > 2 and torch.all(s[:, live] == s[:, live[:1]])
+
+
+def test_adc_topk_core_ties_lower_row_first(dev):
+    lut = torch.randn((4, 64, 256), generator=torch.Generator().manual_seed(6)).to(dev)
+    codes = torch.full((3000, 64), 17, dtype=torch.uint8, device=dev)
+    s, i = adc_topk_core(lut, codes, k=200, chunk=1024)
+    assert torch.equal(i, torch.arange(200, device=dev, dtype=torch.int32).expand(4, -1))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 32), (1, 23, 13, 256, 64),
+                                   (1, 9, 7, 2048, 512), (2, 33, 40, 512, 128)])
+def test_bottleneck_matches_plain(dev, shape):
+    B, H, W, cin, cm = shape
+    g = torch.Generator().manual_seed(7)
+    x = torch.relu(torch.randn((B, H, W, cin), generator=g))
+    w1 = torch.randn((cin, cm), generator=g) * (2 / cin) ** 0.5
+    w2 = torch.randn((3, 3, cm, cm), generator=g) * (2 / (9 * cm)) ** 0.5
+    w3 = torch.randn((cm, cin), generator=g) * (2 / cm) ** 0.5
+    b1, b2, b3 = (0.1 * torch.randn(c, generator=g) for c in (cm, cm, cin))
+    args = [t.to(dev).contiguous() for t in (x, w1, b1, w2, b2, w3, b3)]
+    got = bottleneck_fused(*args)
+    want = bottleneck_plain(*args)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_bottleneck_refuses_grad_and_odd_channels(dev):
+    x = torch.zeros((1, 4, 4, 64), device=dev, requires_grad=True)
+    w = [torch.zeros(s, device=dev) for s in ((64, 32), (32,), (3, 3, 32, 32), (32,),
+                                               (32, 64), (64,))]
+    with pytest.raises(RuntimeError, match="inference-only"):
+        bottleneck_fused(x, *w)
+    w = [torch.zeros(s, device=dev) for s in ((64, 20), (20,), (3, 3, 20, 20), (20,),
+                                               (20, 64), (64,))]
+    with pytest.raises(ValueError, match="multiples of 32"):
+        bottleneck_fused(x.detach(), *w)

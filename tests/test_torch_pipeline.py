@@ -244,3 +244,55 @@ def test_config3_index_at_full_width_round_trips(tmp_path):
     np.testing.assert_array_equal(back_t.P, np.asarray(j.P))
     _, i_b = back_t.query(qd, k=10)
     np.testing.assert_array_equal(i_b, np.asarray(i_j))
+
+
+# -- the ANN branch of evaluate_dataset (tests/test_eval_map.py:66-108) ------
+
+
+@pytest.fixture(scope="module")
+def ann_setup(tmp_path_factory):
+    ds = make_synthetic_dataset(str(tmp_path_factory.mktemp("annsynth")), n_scenes=4,
+                                views_per_scene=4, n_distractors=6, image_hw=(48, 64), seed=2)
+    cfg = port.ExtractConfig(model=port.ModelConfig(arch="resnet18"), image_size=64,
+                             batch_size=8)
+    ex = port.Extractor(cfg, seed=0, device="cpu")
+    icfg = port.IndexConfig(whitening=None)
+    exact = evaluate_dataset(ds, cfg, icfg, extractor=ex, device="cpu")
+    return ds, cfg, ex, icfg, exact
+
+
+def _map(res):
+    return res["results"]["medium"]["map"]
+
+
+@pytest.mark.parametrize("ann,kw", [("ivf", {"n_clusters": 4, "nprobe": 4}),
+                                    ("pq", {"m": 8})])
+def test_ann_full_coverage_equals_exact_map(ann_setup, ann, kw):
+    """nprobe = C (or refine over the whole gallery) with K = N: the ANN
+    shortlist is the exact ranking, so mAP is the exact mAP."""
+    ds, cfg, ex, icfg, exact = ann_setup
+    kw = dict(kw, refine=ds.n) if ann == "pq" else kw
+    full = evaluate_dataset(ds, cfg, icfg, extractor=ex, ann=ann, ann_kwargs=kw,
+                            shortlist_k=ds.n, device="cpu")
+    assert _map(full) == pytest.approx(_map(exact), abs=1e-9)
+
+
+def test_ann_starved_shortlist_is_a_lower_bound(ann_setup):
+    ds, cfg, ex, icfg, exact = ann_setup
+    starved = evaluate_dataset(ds, cfg, icfg, extractor=ex, ann="ivf",
+                               ann_kwargs={"n_clusters": 8, "nprobe": 1}, shortlist_k=5,
+                               device="cpu")
+    assert _map(starved) <= _map(exact) + 1e-9
+    pq = evaluate_dataset(ds, cfg, icfg, extractor=ex, ann="pq",
+                          ann_kwargs={"m": 8, "opq_iters": 1}, shortlist_k=5, device="cpu")
+    assert 0.0 <= _map(pq) <= 1.0
+
+
+@pytest.mark.parametrize("bad", [{"ann": "ivf", "qe_nqe": 3}, {"ann": "pq", "diffusion": True},
+                                 {"ann": "ivf", "use_sharded_index": True},
+                                 {"ann": "approx"}, {"ann": "hnsw"}])
+def test_ann_refusals(ann_setup, bad):
+    ds, cfg, ex, icfg, _ = ann_setup
+    match = {"approx": "not ported", "hnsw": "unknown ann"}.get(bad["ann"], "ann evaluation")
+    with pytest.raises(ValueError, match=match):
+        evaluate_dataset(ds, cfg, icfg, extractor=ex, device="cpu", **bad)
