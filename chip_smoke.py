@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
      - fused_topk and scores_blockmax at the search shape (256 queries x
        100,000 x 2048, f32 and bf16), and the exact long-shortlist search
        (blockmax_topk_search, knn_search) at k=200 and 1000, with planted
-       duplicate rows;
+       duplicate rows; the two kernels' scores bit for bit against each
+       other (they share one mainloop), and both at ragged shapes (Nq 1,
+       20, 257 x Ng 1, 63, 65, 100,003 x D 2048, 4096, 100, 37, f32 and
+       bf16, plus galleries that are not 16-byte aligned);
      - adc_scores at 256 queries x 100,000 codes x M=64 and 64 x 10,000 x
        M=256 (the sliced LUT), planted duplicate code rows, and
        adc_topk_core's tie order;
@@ -45,7 +48,8 @@ Phases (any failure exits non-zero):
        indexes searched on the CPU;
      - graded config 2 again with fuse_blocks=True (path B): the fused
        bottleneck trunk, descriptors held against the unfused run;
-  5. timings (CUDA events, median of 20) beside each kernel's bound;
+  5. timings (CUDA events, median of 20) beside each kernel's bound, and
+     fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
 each config's extraction also runs once more under torch.profiler, which
 gives the card's busy and idle share of the wall time and the device time
 of the head kernels, the convolutions and cuDNN's layout transforms;
@@ -426,6 +430,121 @@ def check_long_topk(dev):
                 log(f"[check] {name} {dtype} k={k}: max|score err| {e:.3e}, "
                     f"indices and duplicate order ok")
     return err
+
+
+def check_search_bitwise(dev):
+    """Both exact-search kernels run one mainloop (csrc/sgemm_tile.cuh): at
+    the search shape every score fused_topk_search returns must equal
+    scores_blockmax's at the same (query, row) bit for bit."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        fused_topk_search,
+        scores_blockmax,
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        g, q, _ = _topk_inputs(dev, dtype)
+        s, i = fused_topk_search(g, q, 100)
+        full, _ = scores_blockmax(g, q.to(dtype).float())
+        same = torch.equal(s, torch.gather(full, 1, i.long()))
+        log(f"[check] fused_topk vs scores_blockmax {dtype} {tuple(q.shape)} x {tuple(g.shape)} "
+            f"k=100: scores bit-equal {same}")
+        if not same:
+            raise AssertionError(f"fused_topk and scores_blockmax disagree in bits ({dtype})")
+        del full
+
+
+# ragged search shapes; every combination runs in f32 and bf16
+RAGGED_NQ = (1, 20, 257)
+RAGGED_NG = (1, 63, 65, 100_003)
+RAGGED_D = (2048, 4096, 100, 37)
+
+
+def _ragged_search_case(dev, dtype, nq, ng, d, layout, seed):
+    """Unit-norm rows made on the card. ``slice``: rows 1.. of a larger
+    gallery; ``offset``: the gallery starts one element into a flat buffer;
+    neither is 16-byte aligned, so the kernels take their scalar-load path."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.nn.functional.normalize(torch.randn((ng + 1, d), generator=gen, device=dev), dim=1)
+    q = torch.nn.functional.normalize(torch.randn((nq, d), generator=gen, device=dev), dim=1)
+    g = g.to(dtype)
+    if layout == "slice":
+        return g[1:], q
+    if layout == "offset":
+        flat = torch.empty(ng * d + 1, dtype=dtype, device=dev)
+        gallery = flat[1:].view(ng, d)
+        gallery.copy_(g[1:])
+        return gallery, q
+    return g[1:].clone(), q
+
+
+def _check_search_case(s, i, ps, pi):
+    """Scores within TOPK_TOL, indices equal where the plain scores are
+    separated, strict (score desc, index asc) order."""
+    import torch
+
+    err = (s - ps).abs().max().item()
+    big = torch.full_like(ps[:, :1], float("inf"))
+    gap_next = torch.cat([ps[:, :-1] - ps[:, 1:], big], 1)
+    gap_prev = torch.cat([big, ps[:, :-1] - ps[:, 1:]], 1)
+    clear = (gap_next > TOPK_TOL) & (gap_prev > TOPK_TOL)
+    ordered = (s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))
+    ok = err <= TOPK_TOL and torch.equal(i[clear], pi[clear]) and bool(ordered.all())
+    return ok, err
+
+
+def check_search_shapes(dev):
+    """Both exact-search kernels against their plain versions at ragged Nq,
+    Ng and D in f32 and bf16, and on galleries that are not 16-byte
+    aligned. Returns the max errors {kernel: err}."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        fused_topk_plain,
+        fused_topk_search,
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (
+        NEG_INF,
+    )
+
+    cases = [(nq, ng, d, "rows") for nq in RAGGED_NQ for ng in RAGGED_NG for d in RAGGED_D]
+    cases += [(20, 100_003, 37, "slice"), (257, 100_003, 100, "slice"),
+              (257, 100_003, 2048, "offset")]
+    errs = {"fused_topk_search": 0.0, "scores_blockmax": 0.0}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, (nq, ng, d, layout) in enumerate(cases):
+            g, q = _ragged_search_case(dev, dtype, nq, ng, d, layout, seed=20 + n)
+            ng, d = g.shape
+            aligned = g.data_ptr() % 16 == 0
+            s, bmax = scores_blockmax(g, q)
+            ps, _ = scores_blockmax_plain(g, q)
+            nb = -(-ng // 64)
+            e_sb = (s[:, :ng] - ps[:, :ng]).abs().max().item()
+            ok_sb = (e_sb <= TOPK_TOL and s.shape == (nq, nb * 64)
+                     and bool(torch.all(s[:, ng:] == NEG_INF))
+                     and torch.equal(bmax, s.view(nq, nb, 64).amax(-1)))
+            k = min(100, ng)
+            fs, fi = fused_topk_search(g, q, k)
+            ok_ft, e_ft = _check_search_case(fs, fi, *fused_topk_plain(g, q, k))
+            if not (ok_sb and ok_ft):
+                raise AssertionError(f"{dtype} Nq={nq} Ng={ng} D={d} {layout} (aligned "
+                                     f"{aligned}): scores_blockmax ok {ok_sb} err {e_sb:.3e}, "
+                                     f"fused_topk ok {ok_ft} err {e_ft:.3e}")
+            errs["scores_blockmax"] = max(errs["scores_blockmax"], e_sb)
+            errs["fused_topk_search"] = max(errs["fused_topk_search"], e_ft)
+            if layout != "rows":
+                log(f"[check] search {dtype} Nq={nq} Ng={ng} D={d} {layout}, 16-byte aligned "
+                    f"{aligned}: scores_blockmax {e_sb:.3e}, fused_topk k={k} {e_ft:.3e}")
+            del g, q, s, ps, bmax
+    torch.cuda.empty_cache()
+    log(f"[check] search kernels at {len(cases)} shapes x 2 dtypes (Nq {RAGGED_NQ}, Ng "
+        f"{RAGGED_NG}, D {RAGGED_D}, plus unaligned): max|err| {json.dumps(errs)}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 def _adc_inputs(dev, nq, n, M, seed):
@@ -960,6 +1079,15 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         Ng * D * 4 + Nq * D * 4 + Nq * k * 8, 2 * Nq * Ng * D, lib_ms)
     log(f"[timing] fused_topk at {Nq} x {Ng} x {D} f32 k={k}: "
         f"{Nq / rows[-1]['ms'] * 1e3:.1f} q/s")
+    # serving batches are small: q/s at a few batch sizes, the kernel beside
+    # its one-call yardstick
+    for nq in (1, 32, 256):
+        qs = q[:nq].contiguous()
+        ms_k = time_ms(lambda: fused_topk_search(g, qs, k))
+        ms_l = time_ms(lambda: torch.topk(qs @ g.T, k, dim=1))
+        log(f"[timing] fused_topk sweep Nq={nq} x {Ng} x {D} f32 k={k}: kernel {ms_k:.4f} ms "
+            f"({nq / ms_k * 1e3:.1f} q/s), torch.topk(q @ g.T) {ms_l:.4f} ms "
+            f"({nq / ms_l * 1e3:.1f} q/s)")
 
     # NetVLAD at config 3's head width: reads the valid rows of x, the
     # parameters and writes [B, K*C]; logits and aggregation are 2 N C K
@@ -1059,6 +1187,8 @@ def main() -> int:
     nv_in = check_netvlad(dev)
     sb_err = check_scores_blockmax(dev)
     long_err = check_long_topk(dev)
+    check_search_bitwise(dev)
+    shape_errs = check_search_shapes(dev)
     adc_in = check_adc(dev)
     bn_err, bn_rel = check_bottleneck(dev)
     launches2, main2, db2 = main_path_phase(
@@ -1074,8 +1204,9 @@ def main() -> int:
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
                 fused_topk_search=max(topk_err, main2["topk_main_err"], main3["topk_main_err"],
-                                      main_b["topk_main_err"]),
-                scores_blockmax=max(sb_err, long_err, long_main["long_query_err"]),
+                                      main_b["topk_main_err"], shape_errs["fused_topk_search"]),
+                scores_blockmax=max(sb_err, long_err, long_main["long_query_err"],
+                                    shape_errs["scores_blockmax"]),
                 adc_scores=adc_in["err"], bottleneck_fused=bn_err)
     rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs)
     log(json.dumps({"main_path": {"config2": main2, "config3": main3, "long_search": long_main,

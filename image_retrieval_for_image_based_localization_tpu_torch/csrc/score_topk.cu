@@ -14,88 +14,64 @@
 // against 0.82 GB of gallery and 0.10 GB of scores (0.28 ms). The scores are
 // f32 FMA chains, which run on the CUDA cores.
 //
-// Design (simple and exact first): a block of 256 threads computes a tile
-// of 64 queries x 128 gallery rows. Query and gallery slices of 32 dims are
-// staged through shared memory, transposed; each thread keeps a register
-// tile of 4 queries x 8 gallery rows (two runs of 4 columns, one in each
-// 64-column block of the tile). Every score is one sequential fmaf chain
-// over d = 0..D-1 started from 0, so the score of a gallery row does not
-// depend on where the row sits (duplicate rows tie bit for bit, and the
-// scores equal csrc/fused_topk.cu's). The epilogue runs on the registers:
-// columns past Ng become NEG_INF first, then the 16 lanes that share a
-// query row reduce their 64-column block to its maximum with shuffles, and
-// the tile and its maxima are written. Query tiles vary fastest across the
-// grid, so the blocks that read one gallery tile run together and share it
-// through L2.
+// Design: one block of 256 threads computes a 128 x 128 tile of scores on
+// the mainloop of csrc/sgemm_tile.cuh (8 x 8 registers a thread, 16-byte
+// global loads, double-buffered shared stages, one barrier a K step; each
+// score one sequential fmaf chain over d, so scores equal
+// csrc/fused_topk.cu's bit for bit). What held the previous kernel back,
+// and what this one does about it: its global loads were scalar and staged
+// into one buffer between two barriers, so no load overlapped an FMA; here
+// the next step's loads are in flight during the FMAs. Its 64 x 128 tile
+// read each gallery tile twice per 256 queries from L2; the 128 x 128 tile
+// halves that. The epilogue runs on the registers: columns past Ng become
+// NEG_INF first; a thread's 8 columns are 4 in each of the tile's two
+// 64-column blocks, so the 16 lanes that share a query row reduce one block
+// to its maximum with shuffles and no block spans two lane groups; float4
+// stores. Query tiles vary fastest across the grid, so the blocks that read
+// one gallery tile run together and share it through L2.
+//
+// Registers and shared memory (nvcc -Xptxas -v, sm_90a, kept in the build
+// log): 122-127 registers, no spills, under __launch_bounds__(256, 2);
+// 16,896 bytes of static shared memory; two blocks an SM.
 //
 // Each entry returns cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <float.h>
-#include <stdint.h>
 
-#define BM 64       // queries per block
-#define BN 128      // gallery rows per block
-#define KD 32       // dims staged per step
-#define NT 256      // threads per block
+#include "sgemm_tile.cuh"
+
 #define BLOCK 64    // columns per block maximum
 #define FULL 0xffffffffu
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+using sgemm::BM;
+using sgemm::BN;
+using sgemm::NT;
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(NT, 2)
 scores_blockmax_kernel(const float* __restrict__ Q, const T* __restrict__ G,
                        float* __restrict__ scores, float* __restrict__ bmax, int Nq, int Ng,
                        int D, int ng_pad) {
-  __shared__ __align__(16) float qs[KD][BM + 4];
-  __shared__ __align__(16) float gs[KD][BN + 4];
+  __shared__ __align__(16) sgemm::Smem sm;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. +3 and 64 + tx*4 .. +3 of the tile
-  const int ty = tid / 16;  // query rows ty*4 .. +3 of the tile
+  const int tx = tid % 16;
+  const int ty = tid / 16;
   const int q0 = blockIdx.x * BM;
   const int g0 = blockIdx.y * BN;
 
-  float acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += KD) {
-    for (int e = tid; e < BM * KD; e += NT) {
-      const int r = e / KD, dd = e % KD;
-      const int q = q0 + r, d = d0 + dd;
-      qs[dd][r] = (q < Nq && d < D) ? Q[(size_t)q * D + d] : 0.f;
-    }
-    for (int e = tid; e < BN * KD; e += NT) {
-      const int r = e / KD, dd = e % KD;
-      const int g = g0 + r, d = d0 + dd;
-      gs[dd][r] = (g < Ng && d < D) ? to_f32(G[(size_t)g * D + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int dd = 0; dd < KD; ++dd) {
-      const float4 q4 = *reinterpret_cast<const float4*>(&qs[dd][ty * 4]);
-      const float4 lo = *reinterpret_cast<const float4*>(&gs[dd][tx * 4]);
-      const float4 hi = *reinterpret_cast<const float4*>(&gs[dd][BLOCK + tx * 4]);
-      const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
-      const float gv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(qv[a], gv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
+  sgemm::Stager<T, VEC> st;
+  int stage = 0;
+  st.load(Q, G, q0, g0, 0, Nq, Ng, D, tid);
+  st.store(sm, stage, tid);
+  __syncthreads();
+  float acc[8][8];
+  sgemm::gemm_tile<T, VEC>(0, acc, st, sm, stage, Q, G, q0, g0, -1, Nq, Ng, D, tid, ty, tx);
 
   const int nb = ng_pad / BLOCK;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int q = q0 + ty * 4 + a;
+  for (int i = 0; i < 8; ++i) {
+    const int q = q0 + sgemm::tile_row(i, ty);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gb = g0 + BLOCK * h + tx * 4;  // first column of this run
@@ -103,7 +79,7 @@ scores_blockmax_kernel(const float* __restrict__ Q, const T* __restrict__ G,
       float m = -FLT_MAX;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        v[j] = gb + j < Ng ? acc[a][4 * h + j] : -FLT_MAX;  // pad columns never win
+        v[j] = gb + j < Ng ? acc[i][4 * h + j] : -FLT_MAX;  // pad columns never win
         m = fmaxf(m, v[j]);
       }
 #pragma unroll
@@ -121,8 +97,14 @@ template <typename T>
 static int launch(const void* q, const void* g, void* scores, void* bmax, int Nq, int Ng,
                   int D, int ng_pad, void* stream) {
   dim3 grid((Nq + BM - 1) / BM, (ng_pad + BN - 1) / BN);
-  scores_blockmax_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const T*)g, (float*)scores, (float*)bmax, Nq, Ng, D, ng_pad);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (sgemm::vec_ok<T>(q, g, D)) {
+    scores_blockmax_kernel<T, true><<<grid, NT, 0, s>>>(
+        (const float*)q, (const T*)g, (float*)scores, (float*)bmax, Nq, Ng, D, ng_pad);
+  } else {
+    scores_blockmax_kernel<T, false><<<grid, NT, 0, s>>>(
+        (const float*)q, (const T*)g, (float*)scores, (float*)bmax, Nq, Ng, D, ng_pad);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -134,7 +116,7 @@ extern "C" {
 int scores_blockmax_forward(const void* queries, const void* gallery, void* scores,
                             void* bmax, int Nq, int Ng, int D, int ng_pad, int is_bf16,
                             void* stream) {
-  if (Nq < 1 || Ng < 1 || ng_pad != BLOCK * ((Ng + BLOCK - 1) / BLOCK)) {
+  if (Nq < 1 || Ng < 1 || D < 1 || ng_pad != BLOCK * ((Ng + BLOCK - 1) / BLOCK)) {
     return (int)cudaErrorInvalidValue;
   }
   if (is_bf16) {

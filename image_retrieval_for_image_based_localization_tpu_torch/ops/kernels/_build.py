@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/torch_kernels/<name>-<hash>.so``
 at the root of the checkout, and loaded with ``ctypes``. The hash is the
-source's SHA-256, so an edited source is rebuilt on its next use and a
-stale library is never loaded. Nothing is built at import time: a library is
+SHA-256 of the source and of every shared header ``csrc/*.cuh`` it may
+include, so an edited source or header is rebuilt on its next use and a
+stale library is never loaded. ``nvcc``'s output, with ``-Xptxas -v``'s
+registers, shared memory and spills per kernel, is kept beside each
+library as ``<name>-<hash>.log``. Nothing is built at import time: a library is
 built at its first use, or all of them at once (one ``nvcc`` per source,
 started together) by :func:`build_all`.
 """
@@ -23,7 +26,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,10 +75,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source and every
+    ``csrc/*.cuh`` (an edited header rebuilds every library)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):
@@ -99,6 +106,8 @@ def _finish_build(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    with open(out[: -len(".so")] + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent reader never sees a partial file
 
 

@@ -1,11 +1,13 @@
 """Exact top-k search with no score matrix: CUDA kernel and its plain version.
 
 Replaces the JAX package's ``ops/pallas/fused_topk.py::fused_topk_search``.
-The kernel is ``csrc/fused_topk.cu``: bound by its f32 FMA work, it streams
-gallery chunks through shared memory, scores them against a tile of 32
-queries and keeps each query's running top-k sorted in shared memory; the
-gallery is split across blocks to fill the card and a second pass merges
-the splits' lists. Results follow the strict order (score desc, index asc),
+The kernel is ``csrc/fused_topk.cu``: bound by its f32 FMA work, it scores
+128-row gallery tiles against a tile of 128 queries on the register-blocked
+mainloop of ``csrc/sgemm_tile.cuh`` and keeps each query's running top-k
+sorted in shared memory, taking only the scores that beat a query's k-th
+entry out of registers. The gallery is split into runs of whole tiles
+across blocks to fill the card (:func:`_plan`), and a second pass merges the
+splits' lists. Results follow the strict order (score desc, index asc),
 so ties go to the lower gallery index, as ``retrieval.knn`` promises.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -14,6 +16,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -21,8 +24,36 @@ import torch
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
 
 LANES = 128   # largest k, as on the TPU
-_TQ = 32      # queries per block of the first pass, csrc/fused_topk.cu TQ
-_CH = 64      # gallery rows per chunk, csrc/fused_topk.cu CH
+_BM = 128     # queries per block of the first pass, csrc/sgemm_tile.cuh BM
+_BN = 128     # gallery rows per tile, csrc/sgemm_tile.cuh BN
+
+
+def _plan(nq: int, ng: int, sms: int) -> Tuple[int, int]:
+    """Grid of the first pass: ``(q_tiles, n_splits)``.
+
+    A first-pass block fills an SM (512 threads at 128 registers each), so
+    query tiles times gallery splits fill the ``sms`` SMs where the shape
+    allows it; a split is never empty, so there are at most as many splits
+    as gallery tiles. :func:`_split_rows` gives each split's rows, the same
+    formula as the kernel's ``split_tiles``."""
+    q_tiles = -(-nq // _BM)
+    g_tiles = -(-ng // _BN)
+    n_splits = max(1, min(g_tiles, -(-sms // q_tiles)))
+    return q_tiles, n_splits
+
+
+def _split_rows(split: int, n_splits: int, ng: int) -> Tuple[int, int]:
+    """Gallery rows ``[start, end)`` of a split: a balanced partition of the
+    ``ceil(ng / 128)`` whole tiles, so every split starts on a tile."""
+    g_tiles = -(-ng // _BN)
+    t0 = split * g_tiles // n_splits
+    t1 = (split + 1) * g_tiles // n_splits
+    return t0 * _BN, min(ng, t1 * _BN)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _prepare(gallery: torch.Tensor, queries: torch.Tensor, k: int):
@@ -75,9 +106,7 @@ def fused_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
     if Nq == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_tiles = -(-Nq // _TQ)
-    n_splits = max(1, min(-(-Ng // _CH), -(-4 * sms // q_tiles)))
+    _, n_splits = _plan(Nq, Ng, _sms(dev.index))
     part_v = torch.empty((Nq, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Nq, n_splits, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((Nq, k), dtype=torch.float32, device=dev)

@@ -1,0 +1,63 @@
+"""The kernel build's cache key: a library is rebuilt when its source or a
+shared header changes, and only then. No nvcc needed: only the paths are
+computed."""
+
+import os
+import shutil
+
+import pytest
+
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+
+NAMES = sorted(_build.SIGNATURES)
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A private copy of ``csrc/`` that the build reads instead."""
+    d = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, d)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(d))
+    return d
+
+
+def _append(path, text):
+    with open(path, "a") as f:
+        f.write(text)
+
+
+def test_every_library_has_a_source_and_a_header_exists(csrc):
+    for name in NAMES:
+        assert os.path.exists(csrc / f"{name}.cu")
+    assert os.path.exists(csrc / "sgemm_tile.cuh")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_header_edit_changes_every_library_path(csrc, name):
+    before = _build.library_path(name)
+    _append(csrc / "sgemm_tile.cuh", "\n// edited\n")
+    after = _build.library_path(name)
+    assert after != before and os.path.dirname(after) == os.path.dirname(before)
+    assert os.path.basename(after).startswith(f"{name}-") and after.endswith(".so")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_own_source_edit_changes_library_path(csrc, name):
+    before = _build.library_path(name)
+    _append(csrc / f"{name}.cu", "\n// edited\n")
+    assert _build.library_path(name) != before
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_unrelated_edit_keeps_library_path(csrc, name):
+    before = _build.library_path(name)
+    other = next(n for n in NAMES if n != name)
+    _append(csrc / f"{other}.cu", "\n// edited\n")
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert _build.library_path(name) == before
+
+
+def test_new_header_changes_library_path(csrc):
+    before = _build.library_path("score_topk")
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.library_path("score_topk") != before

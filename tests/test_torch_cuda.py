@@ -228,3 +228,96 @@ def test_bottleneck_refuses_grad_and_odd_channels(dev):
                                                (20, 64), (64,))]
     with pytest.raises(ValueError, match="multiples of 32"):
         bottleneck_fused(x.detach(), *w)
+
+
+# Ragged and unaligned shapes of the two exact-search kernels, which share
+# the mainloop of csrc/sgemm_tile.cuh: (Nq, Ng, D, gallery layout). "offset"
+# starts the gallery 4 bytes into its buffer, so it is not 16-byte aligned
+# and the scalar-load variant runs even where D is a multiple of the vector.
+SEARCH_SHAPES = [(1, 100_003, 37, "rows"), (20, 63, 2048, "rows"), (257, 65, 100, "rows"),
+                 (257, 1, 4096, "rows"), (20, 100_003, 100, "rows"), (1, 65, 2048, "rows"),
+                 (257, 1000, 2048, "offset"), (20, 777, 37, "slice")]
+
+
+def _search_inputs(dev, dtype, nq, ng, d, layout, seed=11):
+    """Unit-norm rows (scores in [-1, 1]) with row 0 planted again at the
+    end; ``slice`` takes rows 1.. of a larger gallery, ``offset`` starts the
+    gallery one element into a flat buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.nn.functional.normalize(torch.randn((ng + 1, d), generator=gen), dim=1)
+    if ng > 2:
+        g[-1] = g[1]
+    q = torch.nn.functional.normalize(torch.randn((nq, d), generator=gen), dim=1).to(dev)
+    g = g.to(dev).to(dtype)
+    if layout == "slice":
+        gallery = g[1:]
+    elif layout == "offset":
+        flat = torch.empty(ng * d + 1, dtype=dtype, device=dev)
+        gallery = flat[1:].view(ng, d)
+        gallery.copy_(g[1:])
+    else:
+        gallery = g[1:].clone()
+    assert gallery.is_contiguous()
+    aligned = gallery.data_ptr() % 16 == 0
+    assert aligned == (layout != "offset") or layout == "slice"
+    return gallery, q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SEARCH_SHAPES)
+def test_scores_blockmax_ragged_and_unaligned(dev, dtype, shape):
+    gallery, q = _search_inputs(dev, dtype, *shape)
+    nq, ng = q.shape[0], gallery.shape[0]
+    nb = -(-ng // 64)
+    s, bmax = scores_blockmax(gallery, q)
+    ps, pb = scores_blockmax_plain(gallery, q)
+    assert s.shape == (nq, nb * 64) and bmax.shape == (nq, nb)
+    torch.testing.assert_close(s[:, :ng], ps[:, :ng], rtol=0, atol=1e-5)
+    assert torch.all(s[:, ng:] == NEG_INF)
+    assert torch.equal(bmax, s.view(nq, nb, 64).amax(-1))
+    torch.testing.assert_close(bmax, pb, rtol=0, atol=1e-5)
+    if ng > 2:  # the planted duplicate (rows 0 and ng - 1) scores bit for bit
+        assert torch.equal(s[:, 0], s[:, ng - 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SEARCH_SHAPES)
+def test_fused_topk_ragged_and_unaligned(dev, dtype, shape):
+    gallery, q = _search_inputs(dev, dtype, *shape)
+    for k in (1, 100, 128):
+        s, i = fused_topk_search(gallery, q, k)
+        ps, pi = fused_topk_plain(gallery, q, k)
+        kk = min(k, gallery.shape[0])
+        assert s.shape == (q.shape[0], kk) and i.shape == (q.shape[0], kk)
+        torch.testing.assert_close(s, ps, rtol=0, atol=1e-5)
+        gap = torch.cat([ps[:, :-1] - ps[:, 1:], torch.full_like(ps[:, :1], 1.0)], 1)
+        clear = (gap > 1e-5) & torch.cat([torch.ones_like(gap[:, :1], dtype=torch.bool),
+                                          gap[:, :-1] > 1e-5], 1)
+        assert torch.equal(i[clear], pi[clear])
+        ordered = (s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))
+        assert bool(ordered.all())
+        assert int(i.min()) >= 0 and int(i.max()) < gallery.shape[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 100])
+def test_exact_search_kernels_agree_bit_for_bit(dev, dtype, d):
+    """Both kernels run one mainloop: every score fused_topk returns equals
+    scores_blockmax's at the same (query, row) bit for bit, and duplicate
+    rows tie exactly."""
+    gallery, q = _search_inputs(dev, dtype, 70, 5000, d, "rows")
+    s, i = fused_topk_search(gallery, q, 128)
+    full, _ = scores_blockmax(gallery, q.to(dtype).float())
+    assert torch.equal(s, torch.gather(full, 1, i.long()))
+    assert torch.equal(full[:, 0], full[:, gallery.shape[0] - 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_search_kernels_deterministic(dev, dtype):
+    gallery, q = _search_inputs(dev, dtype, 257, 20_000, 100, "slice")
+    a = fused_topk_search(gallery, q, 100)
+    b = fused_topk_search(gallery, q, 100)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    a = scores_blockmax(gallery, q)
+    b = scores_blockmax(gallery, q)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

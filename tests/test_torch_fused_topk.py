@@ -13,6 +13,10 @@ from irtpu.retrieval.knn import knn_search as j_knn
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     fused_topk_search,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (
+    _plan,
+    _split_rows,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
     knn_search,
     score_matrix,
@@ -99,3 +103,25 @@ def test_chunked_knn_matches_jax(storage):
     full = score_matrix(tg, torch.from_numpy(q)).numpy()
     want = np.argsort(-full, axis=1, kind="stable")[:, :200]
     np.testing.assert_array_equal(i.numpy(), want)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("ng", [1, 63, 128, 129, 100_000])
+@pytest.mark.parametrize("nq", [1, 20, 256, 257])
+def test_split_plan_covers_gallery_in_whole_tiles(nq, ng, sms):
+    """The first pass's grid: every gallery row in exactly one split, splits
+    start on 128-row tiles and are never empty, and the grid fills the card
+    where the shape allows."""
+    q_tiles, n_splits = _plan(nq, ng, sms)
+    g_tiles = -(-ng // 128)
+    assert q_tiles == -(-nq // 128)
+    assert 1 <= n_splits <= g_tiles
+    bounds = [_split_rows(s, n_splits, ng) for s in range(n_splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == ng
+    for (s0, e0), (s1, _) in zip(bounds, bounds[1:]):
+        assert e0 == s1  # contiguous: each row in exactly one split
+    for start, end in bounds:
+        assert start % 128 == 0 and end > start
+    assert q_tiles * n_splits >= min(sms, q_tiles * g_tiles)
+    sizes = [-(-(e - s) // 128) for s, e in bounds]
+    assert max(sizes) - min(sizes) <= 1  # balanced: no split waits on another
