@@ -23,8 +23,9 @@ Phases (any failure exits non-zero):
        M=256 (the sliced LUT), planted duplicate code rows, and
        adc_topk_core's tie order;
      - bottleneck_fused at resnet50's four stride-1 block shapes of a
-       16-image 1024 px bucket and at layer1 of a 720 x 1024 bucket, with
-       random biases;
+       16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
+       batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
+       with random biases;
   4. five paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
@@ -50,6 +51,8 @@ Phases (any failure exits non-zero):
        bottleneck trunk, descriptors held against the unfused run;
   5. timings (CUDA events, median of 20) beside each kernel's bound, and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
+     the bottleneck at each block shape and summed over resnet50's 12
+     stride-1 blocks at the 1024 px bucket, beside three cuDNN convs;
 each config's extraction also runs once more under torch.profiler, which
 gives the card's busy and idle share of the wall time and the device time
 of the head kernels, the convolutions and cuDNN's layout transforms;
@@ -73,6 +76,9 @@ import traceback
 # shared-memory lookups: 132 SMs x 32 a clock x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# dense TF32 on the tensor cores (NVIDIA H100 SXM data sheet); a 3xTF32
+# product costs three of these flop
+TF32_FLOP_PER_S = 495e12
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 BOTTLENECK_TOL = 1e-5  # max|err| / max|plain| per block: f32 sums in another order
 GEM_TOL = 1e-5
@@ -610,10 +616,15 @@ def check_adc(dev):
 
 
 # resnet50's stride-1 identity blocks on a 16-image 1024 px bucket (scale 1),
-# [B, H, W, Cin] and Cm, and layer1 of a 720 x 1024 bucket
+# [B, H, W, Cin] and Cm, and layer1 of a 720 x 1024 bucket; layers 1-4 hold
+# 2, 3, 5 and 2 of the 12 blocks
 BOTTLENECK_SHAPES = (((16, 256, 256, 256), 64), ((16, 128, 128, 512), 128),
                      ((16, 64, 64, 1024), 256), ((16, 32, 32, 2048), 512),
                      ((16, 180, 256, 256), 64))
+BOTTLENECK_MIX = (2, 3, 5, 2, 0)
+# checked too: 128-pixel tiles that span small images, where a 3x3 tap that
+# leaked across an image border would show
+BOTTLENECK_SPANNING = ((37, 5, 7, 256), 64)
 
 
 def _bottleneck_inputs(dev, shape, cm, seed):
@@ -631,7 +642,8 @@ def _bottleneck_inputs(dev, shape, cm, seed):
 
 def check_bottleneck(dev):
     """The fused bottleneck against its plain version (three cuDNN convs)
-    at every stride-1 block shape of resnet50; returns the max errors."""
+    at every stride-1 block shape of resnet50 and at tiles spanning images;
+    returns the max errors."""
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         bottleneck_fused,
@@ -639,7 +651,7 @@ def check_bottleneck(dev):
     )
 
     err = rel = 0.0
-    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES):
+    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES + (BOTTLENECK_SPANNING,)):
         args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
         got = bottleneck_fused(*args)
         want = bottleneck_plain(*args)
@@ -996,9 +1008,10 @@ def _ann_point(dev, rows, d, m, suffix, noise_per_row, with_opq):
     return C
 
 
-def fused_trunk_phase(dev, db_unfused):
-    """Path B: graded config 2 with fuse_blocks=True, descriptors held
-    against the unfused config-2 run on the same weights."""
+def fused_trunk_phase(dev, db_unfused, unfused):
+    """Path B: graded config 2 with fuse_blocks=True, descriptors, self top-1
+    (checked 1.0 on both paths) and mAP held against the unfused config-2
+    run on the same weights (``unfused`` is its measurements)."""
     import numpy as np
 
     launches, main, db = main_path_phase(
@@ -1015,6 +1028,14 @@ def fused_trunk_phase(dev, db_unfused):
         f"{d_err:.3e}")
     if d_err > HEAD_TOL:
         raise AssertionError("fused-trunk descriptors disagree with the unfused run")
+    if main["map"] != unfused["map"]:
+        raise AssertionError(f"fused-trunk mAP {main['map']} != unfused {unfused['map']}")
+    pf, pu = main["profile"], unfused["profile"]
+    log(f"[config 2 fused trunk] vs unfused: warm {main['extract_warm_img_per_s']:.2f} / "
+        f"{unfused['extract_warm_img_per_s']:.2f} img/s, cold {main['extract_img_per_s']:.2f} / "
+        f"{unfused['extract_img_per_s']:.2f}, busy {pf['busy_ms']:.1f} / {pu['busy_ms']:.1f} ms, "
+        f"idle share {pf['idle_share']:.4f} / {pu['idle_share']:.4f}, mAP {main['map']:.4f} "
+        f"(equal), self top-1 1.000 (both)")
     main["vs_unfused_err"] = d_err
     return launches, main
 
@@ -1044,16 +1065,21 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     out_bytes = B * C * 4
     rows = []
 
-    def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms, lookups=0):
-        # operations: f32 FMA work at the f32 rate, or shared-memory lookups
-        # at the lookup rate, whichever takes longer
+    def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms, lookups=0,
+            tf32x3_flops=0):
+        # operations: f32 FMA work at the f32 rate, shared-memory lookups at
+        # the lookup rate, or 3xTF32 work as three TF32 tensor-core flop each,
+        # whichever takes longer
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = max(flops / F32_FLOP_PER_S, lookups / SMEM_LOOKUPS_PER_S) * 1e3
+        t_ops = max(flops / F32_FLOP_PER_S, lookups / SMEM_LOOKUPS_PER_S,
+                    3 * tf32x3_flops / TF32_FLOP_PER_S) * 1e3
         r = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
              "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": library_ms}
+        if tf32x3_flops:
+            r["bound_note"] = "3xTF32 on the tensor cores at 495 TFLOP/s, or the bytes"
         log(json.dumps({"kernel_timing": r}))
         rows.append(r)
 
@@ -1149,24 +1175,35 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         f"{n * M * nq / rows[-1]['ms'] / 1e9:.3f} G lookups/ms, embedding_bag "
         f"{rows[-1]['library_ms']:.4f} ms")
 
-    # the fused bottleneck: 2 B H W (2 Cin Cm + 9 Cm^2) flop; reads x and the
-    # weights once, writes out; the plain version is three cuDNN convs. The
-    # row is layer1 of the 1024 px bucket; every shape is logged.
-    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES):
+    # the fused bottleneck: 2 B H W (2 Cin Cm + 9 Cm^2) flop, three TF32
+    # tensor-core products each; reads x and the weights once, writes out;
+    # the plain version is three cuDNN convs. The row is layer1 of the
+    # 1024 px bucket; every shape is logged, with the f32-FMA bound beside
+    # the tensor-core one, and summed over resnet50's 12-block mix.
+    mix = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "f32_bound_ms": 0.0}
+    for i, ((shape, cm), n_blocks) in enumerate(zip(BOTTLENECK_SHAPES, BOTTLENECK_MIX)):
         args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
         B, H, W, cin = shape
         flops = 2 * B * H * W * (2 * cin * cm + 9 * cm * cm)
         byts = 2 * B * H * W * cin * 4 + (2 * cin * cm + 9 * cm * cm + 2 * cm + cin) * 4
         ms = time_ms(lambda: bottleneck_fused(*args))
         plain_ms = time_ms(lambda: bottleneck_plain(*args))
-        bound = max(flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        bound = max(3 * flops / TF32_FLOP_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        f32_bound = max(flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S) * 1e3
         log(f"[timing] bottleneck_fused {list(shape)} Cm={cm}: {ms:.3f} ms, plain (three "
-            f"cuDNN convs) {plain_ms:.3f} ms, bound {bound:.3f} ms, "
-            f"{flops / ms / 1e9:.2f} TFLOP/s")
+            f"cuDNN convs) {plain_ms:.3f} ms, bound {bound:.3f} ms (3xTF32 tensor cores; "
+            f"f32-FMA bound {f32_bound:.3f} ms), {flops / ms / 1e9:.2f} TFLOP/s (f32 flop)")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                       ("f32_bound_ms", f32_bound)):
+            mix[key] += n_blocks * v
         if i == 0:
             row("bottleneck_fused", CSRC + "bottleneck.cu", PALLAS + "bottleneck_block.py:204",
-                ms, plain_ms, byts, flops, None)
+                ms, plain_ms, byts, 0, None, tf32x3_flops=flops)
         del args
+    log(f"[timing] bottleneck_fused over resnet50's 12 stride-1 blocks at the 1024 px bucket "
+        f"(layers 1-4: {', '.join(map(str, BOTTLENECK_MIX[:4]))} blocks): kernel "
+        f"{mix['ms']:.3f} ms, plain (three cuDNN convs) {mix['plain_ms']:.3f} ms, bound "
+        f"{mix['bound_ms']:.3f} ms (f32-FMA bound {mix['f32_bound_ms']:.3f} ms)")
     return rows
 
 
@@ -1197,7 +1234,7 @@ def main() -> int:
         dev, 3, ("netvlad_fused_rect", "netvlad_fused", "fused_topk_search"))
     launches_long, long_main = long_search_phase(dev)
     launches_ann, ann_main = ann_phase(dev)
-    launches_b, main_b = fused_trunk_phase(dev, db2)
+    launches_b, main_b = fused_trunk_phase(dev, db2, main2)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b}
     # each kernel's launches, summed over the paths' own counting windows

@@ -55,8 +55,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "adc_scores_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "bottleneck": {
-        # x, w1, b1, w2, b2, w3, b3, out, B, H, W, Cin, Cm, stream
-        "bottleneck_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # x, w1, b1, w2, b2, w3, b3, wt, y1, y2, out, B, H, W, Cin, Cm, stream
+        "bottleneck_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P),
     },
 }
 

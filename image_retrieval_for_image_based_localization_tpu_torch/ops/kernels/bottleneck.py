@@ -3,13 +3,14 @@ plain version, and the BatchNorm fold.
 
 Replaces the JAX package's ``ops/pallas/bottleneck_block.py::bottleneck_fused``
 (with ``fold_bn`` and ``bottleneck_oracle``). The kernel is
-``csrc/bottleneck.cu``: bound by its f32 FMA work, it runs the three
-BN-folded convolutions of a block per output tile of one image with the
-intermediates ``y1`` (over the tile's one-pixel halo, zeroed outside the
-image) and ``y2`` in shared memory, so only the block's input is read and
-its output written. The tile shape follows the shared-memory budget, so
-every stride-1 identity block of resnet50/101/152 at every size goes
-through it, layer4 (Cin 2048, Cm 512) included.
+``csrc/bottleneck.cu`` on the mainloop ``csrc/tf32x3_gemm.cuh``: the three
+BN-folded convolutions of a block run as implicit GEMMs over the whole
+batch on the tensor cores, each f32 product taken as three TF32 products
+(:func:`split_tf32` is the operand split written out) with f32 sums, so the
+result stays within 1e-5 of max|out| of three f32 convolutions. The
+intermediates ``y1`` and ``y2`` and the weights' split planes go through
+device memory, in scratch the wrapper allocates (:func:`_plan`). Every
+stride-1 identity block of resnet50/101/152 at every size goes through it.
 
 Layouts are the JAX package's: x [B, H, W, Cin] NHWC, w1 [Cin, Cm], w2 [3,
 3, Cm, Cm] (HWIO), w3 [Cm, Cin], biases f32. A wrapper given CPU tensors
@@ -37,6 +38,43 @@ def fold_bn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """
     a = (scale / torch.sqrt(var + eps)).float()
     return kernel.float() * a, (bias - mean * a).float()
+
+
+_BM, _BN = 128, 64   # pixels x channels of a block's tile, csrc/tf32x3_gemm.cuh
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's operand split: ``hi = tf32(t)``, ``lo = tf32(t - hi)``.
+
+    ``tf32`` rounds an f32 to 10 mantissa bits, to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does (bit arithmetic on the int32
+    view; the low 13 bits come out zero). ``hi + lo`` rebuilds ``t`` to
+    2^-22 relative, and the kernel takes ``a * b`` as ``lo_a hi_b + hi_a
+    lo_b + hi_a hi_b``.
+    """
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        u = v.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+    t = t.float()
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def _plan(B: int, H: int, W: int, cin: int, cm: int) -> dict:
+    """The kernel's scratch and grid, the same formula as ``csrc/bottleneck.cu``.
+
+    Three phases, each a GEMM over ``M = B H W`` pixels: ``(N, K, blocks)``
+    for conv1 (N = Cm, K = Cin), the 3x3 conv (N = Cm, K = 9 Cm) and conv1
+    with the skip (N = Cin, K = Cm), a block owning 128 pixels by 64
+    channels. Scratch: ``split_weights`` floats (each weight's hi and lo
+    planes) and ``y1``, ``y2`` of shape ``scratch`` each.
+    """
+    M = B * H * W
+    phases = tuple((n, k, -(-M // _BM) * -(-n // _BN))
+                   for n, k in ((cm, cin), (cm, 9 * cm), (cin, cm)))
+    return {"phases": phases, "split_weights": 2 * (2 * cin * cm + 9 * cm * cm),
+            "scratch": (B, H, W, cm)}
 
 
 def _check(x, w1, b1, w2, b2, w3, b3) -> None:
@@ -93,11 +131,16 @@ def bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
     out = torch.empty_like(x)
     if B == 0 or H == 0 or W == 0:
         return out
+    plan = _plan(B, H, W, cin, cm)
+    wt = torch.empty(plan["split_weights"], dtype=torch.float32, device=x.device)
+    y1 = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
+    y2 = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
     lib = _build.load("bottleneck")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bottleneck_forward(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                                      b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+                                     wt.data_ptr(), y1.data_ptr(), y2.data_ptr(),
                                      out.data_ptr(), B, H, W, cin, cm, stream)
     _build.check(err, "bottleneck_forward")
     bottleneck_fused.launches += 1

@@ -1,7 +1,9 @@
 """Port parity for the fused bottleneck and the fused trunk: the kernel's
 plain version against the JAX package's ``bottleneck_oracle`` and
 ``bottleneck_fused`` in interpret mode (1e-5, the shapes of
-``tests/test_pallas_kernels.py``), ``fold_bn`` against the JAX fold, the
+``tests/test_pallas_kernels.py``); the kernel's 3xTF32 rule written out
+(``split_tf32`` and three convolutions of hi/lo terms) against both; the
+kernel's scratch and grid plan; ``fold_bn`` against the JAX fold, the
 port's ``trunk_apply_fused`` against the JAX one (resnet50, randomized BN
 statistics carried across by ``models/flax_port.py``) and against the
 port's own unfused trunk, and ``Extractor(fuse_blocks=True)`` against the
@@ -14,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from irtpu.models.fused_trunk import fold_trunk_variables
 from irtpu.models.fused_trunk import trunk_apply_fused as j_trunk_apply_fused
@@ -35,6 +38,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     bottleneck_fused,
     bottleneck_plain,
     fold_bn,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
+    _plan,
+    split_tf32,
 )
 
 
@@ -182,3 +189,128 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="w2 must be"):
         bottleneck_fused(x, w1, b1, torch.zeros((3, 3, 32, 16)), b1, torch.zeros((32, 64)),
                          torch.zeros(64))
+
+
+# The kernel's arithmetic, written out on the CPU: each f32 operand split into
+# TF32 hi and lo (round to nearest, ties away from zero, at 10 mantissa
+# bits), each product taken as lo_a hi_b + hi_a lo_b + hi_a hi_b.
+
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 7.5e4, 3e37])
+def test_split_tf32_rounds_to_tf32_and_rebuilds(scale):
+    t = torch.from_numpy((np.random.RandomState(30).randn(20000) * scale).astype(np.float32))
+    hi, lo = split_tf32(t)
+    assert hi.dtype == lo.dtype == torch.float32
+    for part in (hi, lo):  # TF32 keeps 10 of 23 mantissa bits: the low 13 are zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    t64 = t.double()
+    assert torch.all((hi.double() + lo.double() - t64).abs() <= 2.0 ** -22 * t64.abs())
+    assert torch.all((hi.double() - t64).abs() <= 2.0 ** -11 * t64.abs())
+
+
+def test_split_tf32_ties_go_away_from_zero():
+    one = 1.0
+    half_ulp = 2.0 ** -11  # half of TF32's ulp at 1
+    t = torch.tensor([one + half_ulp, -(one + half_ulp), one + half_ulp * 0.99, 0.0, -0.0,
+                      one + 3 * half_ulp], dtype=torch.float32)
+    hi, lo = split_tf32(t)
+    np.testing.assert_array_equal(
+        hi.numpy(), np.float32([one + 2 * half_ulp, -(one + 2 * half_ulp), one, 0.0, -0.0,
+                                one + 4 * half_ulp]))
+    exact = [0, 1, 3, 4, 5]  # there t - hi is itself a TF32 value: lo holds it whole
+    np.testing.assert_array_equal((hi.double() + lo.double()).numpy()[exact],
+                                  t.double().numpy()[exact])
+
+
+def _conv_tf32x3(x, w, **kw):
+    """conv2d with every product taken as the kernel takes it."""
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(w)
+    return F.conv2d(xl, wh, **kw) + F.conv2d(xh, wl, **kw) + F.conv2d(xh, wh, **kw)
+
+
+def _bottleneck_tf32x3(x, w1, b1, w2, b2, w3, b3):
+    xc = x.permute(0, 3, 1, 2)
+    y = F.relu(_conv_tf32x3(xc, w1.t()[:, :, None, None]) + b1[:, None, None])
+    y = F.relu(_conv_tf32x3(y, w2.permute(3, 2, 0, 1), padding=1) + b2[:, None, None])
+    y = _conv_tf32x3(y, w3.t()[:, :, None, None]) + b3[:, None, None]
+    return F.relu(y + xc).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 128, 32), (2, 32, 16, 128, 32),
+                                   (1, 24, 40, 128, 32), (3, 5, 7, 64, 32)])
+def test_tf32x3_rule_matches_plain_and_jax(shape):
+    """Three convolutions of hi/lo terms stay within 1e-5 of max|plain| of
+    the f32 block (the port's plain version and the JAX oracle), the
+    tolerance the kernel is held to on the card."""
+    args = _block_args(*shape, np.random.RandomState(31))
+    targs = [torch.from_numpy(a) for a in args]
+    got = _bottleneck_tf32x3(*targs).numpy()
+    plain = bottleneck_plain(*targs).numpy()
+    oracle = np.asarray(j_bottleneck_oracle(*(jnp.asarray(a) for a in args)))
+    tol = 1e-5 * np.abs(plain).max()
+    assert np.abs(got - plain).max() <= tol
+    assert np.abs(got - oracle).max() <= tol
+
+
+def test_tf32x3_rule_is_closer_than_one_tf32_product():
+    """The rule is what keeps f32 accuracy: one TF32 product (hi_a hi_b)
+    misses 1e-5 of max|plain| where three products hold it."""
+    args = [torch.from_numpy(a) for a in _block_args(2, 12, 10, 128, 64,
+                                                     np.random.RandomState(32))]
+    plain = bottleneck_plain(*args)
+    x, w1, b1, w2, b2, w3, b3 = args
+
+    def hi(t):
+        return split_tf32(t)[0]
+
+    xc = hi(x).permute(0, 3, 1, 2)
+    y = F.relu(F.conv2d(xc, hi(w1).t()[:, :, None, None], b1))
+    y = F.relu(F.conv2d(hi(y), hi(w2).permute(3, 2, 0, 1), b2, padding=1))
+    y = F.conv2d(hi(y), hi(w3).t()[:, :, None, None], b3)
+    one = F.relu(y + x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    scale = plain.abs().max()
+    assert (one - plain).abs().max() > 1e-5 * scale
+    assert (_bottleneck_tf32x3(*args) - plain).abs().max() <= 1e-5 * scale
+
+
+# chip_smoke.py's five block shapes (resnet50 at a 16-image 1024 px bucket,
+# layers 1-4, and layer1 at 720 x 1024), its image-spanning check shape, and
+# ragged ones
+@pytest.mark.parametrize("shape", [(16, 256, 256, 256, 64), (16, 128, 128, 512, 128),
+                                   (16, 64, 64, 1024, 256), (16, 32, 32, 2048, 512),
+                                   (16, 180, 256, 256, 64), (37, 5, 7, 256, 64),
+                                   (1, 1, 1, 32, 32), (3, 11, 9, 256, 64), (2, 6, 9, 160, 96),
+                                   (1, 23, 13, 2048, 512)])
+def test_plan_covers_every_output_once(shape):
+    B, H, W, cin, cm = shape
+    plan = _plan(B, H, W, cin, cm)
+    M = B * H * W
+    assert plan["scratch"] == (B, H, W, cm)
+    assert plan["split_weights"] == 2 * (cin * cm + 9 * cm * cm + cm * cin)
+    (n1, k1, g1), (n2, k2, g2), (n3, k3, g3) = plan["phases"]
+    assert (n1, k1, n2, k2, n3, k3) == (cm, cin, cm, 9 * cm, cin, cm)
+    for n, k, blocks in plan["phases"]:
+        assert k % 32 == 0                   # whole 32-deep stages, never across a tap
+        m_tiles, n_tiles = -(-M // 128), -(-n // 64)
+        assert blocks == m_tiles * n_tiles   # 128 x 64 tiles cover [M, N] once
+        assert (m_tiles - 1) * 128 < M <= m_tiles * 128
+        assert (n_tiles - 1) * 64 < n <= n_tiles * 64
+        assert blocks < 2 ** 31              # a one-dimensional grid
+
+
+def test_plan_matches_the_kernel_source():
+    """The plan's tile is the mainloop's (csrc/tf32x3_gemm.cuh), whose
+    shared memory lets two blocks share an SM."""
+    import re
+
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+
+    src = open(f"{_build.CSRC_DIR}/tf32x3_gemm.cuh").read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["BM"], const["BN"], const["BK"]) == (128, 64, 32)
+    assert _plan(1, 1, 1, 64, 64)["phases"][0][2] == 1
+    assert _plan(1, 130, 1, 64, 64)["phases"][0][2] == 2  # 130 pixels: two 128-row tiles
+    a_bytes = const["BM"] * (const["BK"] + 4) * 4
+    smem = const["STAGES"] * (a_bytes + 2 * const["BN"] * const["BK"] * 4) + 1024
+    # 227 KB a block at most; 228 KB an SM, 1 KB of it reserved for each block
+    assert 2 * (smem + 1024) <= 228 * 1024

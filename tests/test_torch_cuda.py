@@ -202,8 +202,13 @@ def test_adc_topk_core_ties_lower_row_first(dev):
     assert torch.equal(i, torch.arange(200, device=dev, dtype=torch.int32).expand(4, -1))
 
 
+# the last five: B H W not a multiple of 128, H = W = 1, Cin = Cm = 32, a
+# tile spanning distinct small images (a 3x3 tap leaking across an image
+# border shows), and column tiles that do not divide N (Cm = 96, Cin = 160)
 @pytest.mark.parametrize("shape", [(2, 16, 16, 128, 32), (1, 23, 13, 256, 64),
-                                   (1, 9, 7, 2048, 512), (2, 33, 40, 512, 128)])
+                                   (1, 9, 7, 2048, 512), (2, 33, 40, 512, 128),
+                                   (3, 11, 9, 256, 64), (5, 1, 1, 256, 64), (2, 12, 10, 32, 32),
+                                   (3, 5, 7, 128, 32), (2, 6, 9, 160, 96)])
 def test_bottleneck_matches_plain(dev, shape):
     B, H, W, cin, cm = shape
     g = torch.Generator().manual_seed(7)
