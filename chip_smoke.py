@@ -6,10 +6,12 @@
 Phases (any failure exits non-zero):
   1. device: name and power limit;
   2. build every CUDA kernel of the port with nvcc (one process per source,
-     started together) into build/torch_kernels/;
+     started together) into build/torch_kernels/; one line says whether the
+     port's native preproc library (native/preproc.cpp, host decode of path
+     inputs) built too, for information only;
   3. each kernel against its plain PyTorch version on the card:
      - gem_l2n at the GeM head's full width (B=16, 32x32 map, C=2048, f32
-       and bf16, ragged extents);
+       and bf16, ragged extents), and a second call bit for bit;
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
        ragged extents with a (0, 0) row, one image with zero-mass clusters);
      - fused_topk and scores_blockmax at the search shape (256 queries x
@@ -19,9 +21,10 @@ Phases (any failure exits non-zero):
        other (they share one mainloop), and both at ragged shapes (Nq 1,
        20, 257 x Ng 1, 63, 65, 100,003 x D 2048, 4096, 100, 37, f32 and
        bf16, plus galleries that are not 16-byte aligned);
-     - adc_scores at 256 queries x 100,000 codes x M=64 and 64 x 10,000 x
-       M=256 (the sliced LUT), planted duplicate code rows, and
-       adc_topk_core's tie order;
+     - adc_scores bit for bit at 256 queries x 100,000 codes x M=64, 64 x
+       10,000 x M=256 (many LUT slices) and 33 x 5,003 x M=16 (queries and
+       rows ragged against the kernel's groups), planted duplicate code
+       rows, and adc_topk_core's tie order;
      - bottleneck_fused at resnet50's four stride-1 block shapes of a
        16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
@@ -49,7 +52,10 @@ Phases (any failure exits non-zero):
        indexes searched on the CPU;
      - graded config 2 again with fuse_blocks=True (path B): the fused
        bottleneck trunk, descriptors held against the unfused run;
-  5. timings (CUDA events, median of 20) beside each kernel's bound, and
+  5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n
+     and adc_scores also the kernel's device time from torch.profiler, and
+     on a log line the launch plan the built kernel reports) beside each
+     kernel's bound, and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
      the bottleneck at each block shape and summed over resnet50's 12
      stride-1 blocks at the 1024 px bucket, beside three cuDNN convs;
@@ -111,6 +117,18 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str):
+    """Device ms per call of ``kernel`` launched by ``fn``, from
+    tools/search_kernel_bench.py's ``kernel_ms`` (torch.profiler), or None if
+    the profiler recorded none. Taken in phase 3: on an H100 with torch 2.11,
+    profiler sessions after phase 4's profiled extractions recorded no
+    kernel."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from search_kernel_bench import kernel_ms
+
+    return kernel_ms(fn).get(kernel)
 
 
 def profile_window(fn):
@@ -178,6 +196,12 @@ def build_phase():
     for name in _build.SIGNATURES:
         _build.load(name)
     log(f"[build] {sorted(_build.SIGNATURES)} built/loaded in {time.perf_counter() - t0:.1f} s")
+    # informational: path inputs decode with native/preproc.cpp where it builds
+    # (the corpus here is in memory, so no phase depends on it)
+    from image_retrieval_for_image_based_localization_tpu_torch.data import native
+
+    log(f"[native] port's native preproc library (native/preproc.cpp) built and loaded: "
+        f"{native.native_available()}")
 
 
 def check_gem(dev):
@@ -208,17 +232,26 @@ def check_gem(dev):
         e_rect = (got - want).abs().max().item()
         got_u = gem_l2n_fused(x, p)
         e_un = (got_u - gem_l2n_plain(x, p)).abs().max().item()
+        same = (torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
+                and torch.equal(got_u, gem_l2n_fused(x, p)))
         torch.cuda.synchronize()
-        log(f"[check] gem_l2n {dtype}: rect max|err| {e_rect:.3e}, unmasked {e_un:.3e}")
+        log(f"[check] gem_l2n {dtype}: rect max|err| {e_rect:.3e}, unmasked {e_un:.3e}, "
+            f"second call bit-equal {same}")
         if not (e_rect <= GEM_TOL and e_un <= GEM_TOL):
             raise AssertionError(f"gem_l2n {dtype} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"gem_l2n {dtype} is not deterministic")
         if got[1].abs().max().item() != 0.0:
             raise AssertionError("a (0, 0) row must give a zero descriptor")
         err["gem_l2n_fused_rect"] = max(err["gem_l2n_fused_rect"], e_rect)
         err["gem_l2n_fused"] = max(err["gem_l2n_fused"], e_un)
     valid = int((hs * ws).sum())
     log(f"[check] gem_l2n extents: {valid} of {B * H * W} positions valid")
-    return {"x": x32, "p": p, "sizes": sizes, "valid_positions": valid, "err": err}
+    dev_ms = {"gem_l2n_fused_rect": device_ms(lambda: gem_l2n_fused_rect(x32, p, sizes),
+                                              "gem_l2n_kernel"),
+              "gem_l2n_fused": device_ms(lambda: gem_l2n_fused(x32, p), "gem_l2n_kernel")}
+    return {"x": x32, "p": p, "sizes": sizes, "valid_positions": valid, "err": err,
+            "device_ms": dev_ms}
 
 
 _TOPK_CACHE = {}
@@ -581,18 +614,20 @@ def check_adc(dev):
     )
 
     err, main = 0.0, None
-    for nq, n, M in ((256, 100_000, 64), (64, 10_000, 256)):
+    # path A's shape, the sliced LUT at M = 256, and nq, n ragged against the
+    # kernel's query groups and row tiles at path A's second point (M = 16)
+    for nq, n, M in ((256, 100_000, 64), (64, 10_000, 256), (33, 5_003, 16)):
         lut, codes = _adc_inputs(dev, nq, n, M, seed=8)
         s, bmax = adc_scores(lut, codes)
-        ps, _ = adc_scores_plain(lut, codes)
+        ps, pb = adc_scores_plain(lut, codes)
         torch.cuda.synchronize()
         nb = -(-n // 64)
         e = (s - ps).abs().max().item()
         dup = torch.nonzero((codes == codes[3]).all(1)).flatten()
         log(f"[check] adc_scores {nq} x {n} x M={M}: max|score err| {e:.3e}, "
             f"{len(dup)} duplicate rows")
-        if e > TOPK_TOL:
-            raise AssertionError("adc_scores disagrees with its plain version")
+        if not (torch.equal(s, ps) and torch.equal(bmax, pb)):
+            raise AssertionError("adc_scores is not bit-equal to its plain version")
         if not torch.equal(bmax, s.view(nq, nb, 64).amax(-1)):
             raise AssertionError("adc bmax is not the max of the kernel's own scores")
         if s.shape[1] != nb * 64 or not bool(torch.all(s[:, n:] == NEG_INF)):
@@ -612,7 +647,8 @@ def check_adc(dev):
     if not torch.equal(i, torch.arange(200, device=dev, dtype=torch.int32).expand(4, -1)):
         raise AssertionError("adc_topk_core does not put the lower row first on ties")
     log("[check] adc_topk_core: (score desc, row asc), equal rows lower-row first")
-    return {"lut": main[0], "codes": main[1], "err": err}
+    return {"lut": main[0], "codes": main[1], "err": err,
+            "device_ms": device_ms(lambda: adc_scores(*main), "adc_scores_kernel")}
 
 
 # resnet50's stride-1 identity blocks on a 16-image 1024 px bucket (scale 1),
@@ -1059,6 +1095,10 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         scores_blockmax,
         scores_blockmax_plain,
     )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        adc,
+        gem_l2n as gem_mod,
+    )
 
     x, p, sizes = gem_in["x"], gem_in["p"], gem_in["sizes"]
     B, H, W, C = x.shape
@@ -1066,7 +1106,7 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     rows = []
 
     def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms, lookups=0,
-            tf32x3_flops=0):
+            tf32x3_flops=0, **extra):
         # operations: f32 FMA work at the f32 rate, shared-memory lookups at
         # the lookup rate, or 3xTF32 work as three TF32 tensor-core flop each,
         # whichever takes longer
@@ -1080,20 +1120,28 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
              "library_ms": library_ms}
         if tf32x3_flops:
             r["bound_note"] = "3xTF32 on the tensor cores at 495 TFLOP/s, or the bytes"
+        r.update(extra)
         log(json.dumps({"kernel_timing": r}))
         rows.append(r)
 
     src_gem = CSRC + "gem_l2n.cu"
     valid = gem_in["valid_positions"]
-    # the kernel reads only the valid rows of each rectangle; ~4 ops an element
+    # the kernel reads only the valid rows of each rectangle; ~4 ops an
+    # element. ms is through the wrapper (host work included), device_ms the
+    # kernel's own profiler interval (taken in phase 3, same inputs)
     row("gem_l2n_fused_rect", src_gem, PALLAS + "gem_l2n.py:238",
         time_ms(lambda: gem_l2n_fused_rect(x, p, sizes)),
         time_ms(lambda: gem_l2n_plain(x, p, sizes)),
-        valid * C * 4 + out_bytes + B * 8 + 4, 4 * valid * C, None)
+        valid * C * 4 + out_bytes + B * 8 + 4, 4 * valid * C, None,
+        device_ms=gem_in["device_ms"]["gem_l2n_fused_rect"])
     row("gem_l2n_fused", src_gem, PALLAS + "gem_l2n.py:218",
         time_ms(lambda: gem_l2n_fused(x, p)),
         time_ms(lambda: gem_l2n_plain(x, p)),
-        x.numel() * 4 + out_bytes + 4, 4 * x.numel(), None)
+        x.numel() * 4 + out_bytes + 4, 4 * x.numel(), None,
+        device_ms=gem_in["device_ms"]["gem_l2n_fused"])
+    # the plan as the built kernel reports it, with how many clusters the
+    # card holds at once: images past that run in a second wave
+    log(f"[timing] gem_l2n launch plan at C={C} f32: {json.dumps(gem_mod.launch_plan(C))}")
 
     g, q, _ = _topk_inputs(dev, torch.float32)
     Nq, D = q.shape
@@ -1169,11 +1217,13 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         time_ms(lambda: adc_scores(lut, codes)),
         time_ms(lambda: adc_scores_plain(lut, codes), reps=5),
         n * M + lut.numel() * 4 + nq * n_pad * 4 + nq * (n_pad // 64) * 4, 0,
-        time_ms(library), lookups=n * M * nq)
+        time_ms(library), lookups=n * M * nq,
+        device_ms=adc_in["device_ms"])
     del bag_idx, bag_tab
-    log(f"[timing] adc_scores at {nq} x {n} x M={M}: {rows[-1]['ms']:.4f} ms, "
+    log(f"[timing] adc_scores at {nq} x {n} x M={M}: {rows[-1]['ms']:.4f} ms "
+        f"(device {rows[-1]['device_ms']} ms), "
         f"{n * M * nq / rows[-1]['ms'] / 1e9:.3f} G lookups/ms, embedding_bag "
-        f"{rows[-1]['library_ms']:.4f} ms")
+        f"{rows[-1]['library_ms']:.4f} ms; launch plan {json.dumps(adc.launch_plan())}")
 
     # the fused bottleneck: 2 B H W (2 Cin Cm + 9 Cm^2) flop, three TF32
     # tensor-core products each; reads x and the weights once, writes out;

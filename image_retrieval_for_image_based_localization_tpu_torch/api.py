@@ -22,7 +22,9 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     make_batches,
+    make_batches_native,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.data.native import native_available
 from image_retrieval_for_image_based_localization_tpu_torch.models.fused_trunk import (
     fold_trunk,
     trunk_apply_fused,
@@ -185,12 +187,31 @@ class Extractor:
         return self.forward(x, m).cpu().numpy()
 
     def make_input_batches(self, images: Sequence, bbxs=None):
+        """The host pipeline for ``images`` (paths or HWC arrays), by the JAX
+        package's rule: all-path inputs go through the native C++ decode and
+        resize unless ``native_preproc`` is False, ``squarify`` is on, or the
+        library is unavailable (``native_preproc=True`` insists on it); the
+        rest go through PIL. One place decides, so both packages give the
+        same pixels for the same input."""
         cfg = self.cfg
+        bucket_multiple = 1 if cfg.exact else cfg.bucket_multiple
+        use_native = (cfg.native_preproc is not False and not cfg.squarify and len(images) > 0
+                      and all(isinstance(im, str) for im in images))
+        if use_native and (cfg.native_preproc is True or native_available()):
+            return make_batches_native(
+                images,
+                image_size=cfg.image_size,
+                batch_size=cfg.batch_size,
+                bucket_multiple=bucket_multiple,
+                bbxs=bbxs,
+                upscale=cfg.upscale,
+                resize_filter=cfg.resize_filter,
+            )
         return make_batches(
             images,
             image_size=cfg.image_size,
             batch_size=cfg.batch_size,
-            bucket_multiple=1 if cfg.exact else cfg.bucket_multiple,
+            bucket_multiple=bucket_multiple,
             bbxs=bbxs,
             squarify=cfg.squarify,
             upscale=cfg.upscale,

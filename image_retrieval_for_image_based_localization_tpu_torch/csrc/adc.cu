@@ -17,23 +17,33 @@
 //
 // Bound on this card: shared-memory lookups. At the search shape (256
 // queries, 100,000 rows, M = 64) there are 1.64e9 lookups, 0.20 ms at 132 SMs
-// x 32 lookups a clock x 1.98 GHz, against ~0.13 GB of codes, LUT and scores
-// through HBM (0.04 ms).
+// x 32 four-byte lookups a clock x 1.98 GHz, against ~0.13 GB of codes, LUT
+// and scores through HBM (0.04 ms). Random codes land on random banks, so a
+// gather of one f32 per lane costs ~3.5 shared-memory wavefronts for its 32
+// lookups where the bound counts one.
 //
-// Design (simple and exact first): a block owns one query and a run of row
-// tiles. It stages that query's LUT in shared memory, 64 subquantizers
-// (64 KB) at a time; with M <= 64 the LUT is staged once and stays, with
-// M > 64 (M = 256 for 32,768-d NetVLAD descriptors, a 256 KB LUT) each tile
-// walks the slices in order and every row keeps its partial sum in a register
-// between slices. A tile is 1,024 rows: each warp owns 128 consecutive rows,
-// four per lane, so a 64-column block maximum is one warp reduction of two
-// values a lane. A lane reads its row's codes 16 bytes at a time (rows of
-// other queries' blocks are read again from L2, 6.4 MB at N = 100k, M = 64).
-// Every score is one sequential f32 sum over m = 0..M-1 started from 0, so
-// rows with equal codes tie bit for bit and the plain PyTorch version, which
-// adds the subquantizers in the same order, gives the same bits. The lookups'
-// bank conflicts (random codes) are accepted. Blocks of one row run vary by
-// query fastest, so they read the same codes together through L2.
+// Design: a block owns QB = 4 queries and one tile of 2,048 rows. It stages
+// the four queries' LUTs into shared memory interleaved, so entry (m, code)
+// is one float4, in slices of 64 KB (16 subquantizers; three blocks an SM).
+// A lane reads its row's codes 16 bytes at a time and makes four lookups
+// with each float4 load: a quarter-warp's eight loads fall on eight random
+// 16-byte bank groups, ~2.6 wavefronts for 32 lookups, with about a third of
+// the instructions a lookup and the codes read from L2 once per four queries.
+// (Two queries a block, float2 entries and 32-subquantizer slices, measured
+// 0.76 ms against 0.65 at the search shape; eight rows a lane with two
+// blocks an SM, or four rows a lane, were slower too.)
+// Each lane owns eight rows (eight independent sums per query in flight);
+// each warp owns 256 consecutive rows, so a 64-column block maximum is one
+// warp reduction of two values a lane. Every query's sum of a row stays in
+// its own register across slices and adds the subquantizers in order
+// m = 0..M-1 from 0, so rows with equal codes tie bit for bit and the plain
+// PyTorch version, which adds them in the same order, gives the same bits.
+// Queries past nq (nq not a multiple of QB) are staged as zeros and never
+// written. Blocks vary by query group fastest, so blocks that read the same
+// codes run together. Past grid.y's 65,535 row tiles (134M rows) the entry
+// launches once more for each further 65,535 (a loop over tiles inside the
+// kernel measured 2 % slower on an H100 at M = 64: it spilled 100 bytes
+// more).
 //
 // Each entry returns cudaGetLastError() after its launch.
 
@@ -41,97 +51,119 @@
 #include <float.h>
 #include <stdint.h>
 
-#define NT 256             // threads per block
-#define V 256              // codebook entries (uint8 codes)
-#define MS 64              // subquantizers staged per LUT slice: 64 KB
-#define ROWS_PER_WARP 128  // two 64-column blocks
-#define TILE (NT / 32 * ROWS_PER_WARP)  // rows per tile (1,024)
-#define BLOCK 64           // columns per block maximum
+#define QB 4                         // queries a block: one float4 LUT entry
+#define NT 256                       // threads per block
+#define MIN_BLOCKS 3                 // blocks an SM: 3 x 64 KB of shared memory
+#define V 256                        // codebook entries (uint8 codes)
+#define SLICE_BYTES 65536            // LUT slice staged in shared memory
+#define MS (SLICE_BYTES / (V * QB * 4))  // subquantizers a slice (16)
+#define RPL 8                        // rows per lane
+#define ROWS_PER_WARP (32 * RPL)     // 256: four 64-column blocks
+#define TILE (NT / 32 * ROWS_PER_WARP)  // rows per block (2,048)
+#define BLOCK 64                     // columns per block maximum
+#define MAX_GRID_Y 65535             // row tiles a launch (grid.y's limit)
 #define FULL 0xffffffffu
 
-__device__ __forceinline__ void stage_slice(float* lut_s, const float* lq, int m0, int ms) {
-  const float4* src = reinterpret_cast<const float4*>(lq + (size_t)m0 * V);
-  float4* dst = reinterpret_cast<float4*>(lut_s);
-  for (int e = threadIdx.x; e < ms * V / 4; e += NT) dst[e] = src[e];
+static_assert(MS % 16 == 0 && MS * V * QB * 4 == SLICE_BYTES,
+              "a slice holds whole 16-code groups of QB-wide entries");
+static_assert(MIN_BLOCKS * (SLICE_BYTES + 1024) <= 228 * 1024,
+              "MIN_BLOCKS slices fit an SM (1 KB of it reserved a block)");
+static_assert(ROWS_PER_WARP % BLOCK == 0, "a warp's rows are whole 64-column blocks");
+
+// a[i] += lut_s[slot][i] for the four queries, one 16-byte load
+__device__ __forceinline__ void add_entry(float (&a)[QB], const float* lut_s, int slot) {
+  const float4 t = reinterpret_cast<const float4*>(lut_s)[slot];
+  a[0] = a[0] + t.x;
+  a[1] = a[1] + t.y;
+  a[2] = a[2] + t.z;
+  a[3] = a[3] + t.w;
 }
 
-// Adds the lookups of subquantizers m0 .. m0 + ms - 1 of one row to ``a``, in order.
-__device__ __forceinline__ float lookup_slice(const float* lut_s, const uint8_t* c, int ms,
-                                              bool vec16, float a) {
-  if (vec16) {
-    for (int j = 0; j < ms; j += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(c + j);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        a = a + lut_s[(j + b) * V + ((w[b >> 2] >> (8 * (b & 3))) & 0xff)];
-      }
-    }
-  } else {
-    for (int j = 0; j < ms; ++j) a = a + lut_s[j * V + c[j]];
-  }
-  return a;
+// byte b (0..15) of a row's 16 codes
+__device__ __forceinline__ int code_byte(const uint4& c, int b) {
+  const uint32_t w = (b >> 2) == 0 ? c.x : (b >> 2) == 1 ? c.y : (b >> 2) == 2 ? c.z : c.w;
+  return (w >> (8 * (b & 3))) & 0xff;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 adc_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-                  float* __restrict__ scores, float* __restrict__ bmax, int n_valid, int M,
-                  int n_pad, int tiles_per_block) {
-  extern __shared__ __align__(16) float lut_s[];  // [min(M, MS)][V]
-  const int q = blockIdx.x;
+                  float* __restrict__ scores, float* __restrict__ bmax, int nq, int n_valid,
+                  int M, int n_pad, int tile0) {
+  extern __shared__ __align__(16) float lut_s[];  // [min(M, MS)][V][QB]
+  const int q0 = blockIdx.x * QB;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* lq = lut + (size_t)q * M * V;
-  const int nb = n_pad / BLOCK;
-  const int n_slices = (M + MS - 1) / MS;
-  const int n_tiles = (n_pad + TILE - 1) / TILE;
-  const int t0 = blockIdx.y * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, n_tiles);
+  const int base = (tile0 + blockIdx.y) * TILE + (threadIdx.x >> 5) * ROWS_PER_WARP;
   const bool vec16 = (M & 15) == 0;
 
-  if (n_slices == 1) {
-    stage_slice(lut_s, lq, 0, M);
-    __syncthreads();
-  }
-  for (int t = t0; t < t1; ++t) {
-    const int base = t * TILE + warp * ROWS_PER_WARP;  // first row of this warp
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < n_slices; ++s) {
-      const int m0 = s * MS;
-      const int ms = min(MS, M - m0);
-      if (n_slices > 1) {
-        __syncthreads();  // every lane is done with the previous slice
-        stage_slice(lut_s, lq, m0, ms);
-        __syncthreads();
-      }
+  float acc[RPL][QB];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = base + 32 * r + lane;
-        if (row < n_valid) {
-          acc[r] = lookup_slice(lut_s, codes + (size_t)row * M + m0, ms, vec16, acc[r]);
+  for (int r = 0; r < RPL; ++r) {
+#pragma unroll
+    for (int i = 0; i < QB; ++i) acc[r][i] = 0.f;
+  }
+  for (int m0 = 0; m0 < M; m0 += MS) {
+    const int ms = min(MS, M - m0);
+    if (m0 > 0) __syncthreads();  // every lane is done with the previous slice
+    // interleave: slot e = m * V + code holds the QB queries' entries
+    for (int e = threadIdx.x; e < ms * V; e += NT) {
+      float v[QB];
+#pragma unroll
+      for (int i = 0; i < QB; ++i) {
+        v[i] = q0 + i < nq ? lut[((size_t)(q0 + i) * M + m0) * V + e] : 0.f;
+      }
+      reinterpret_cast<float4*>(lut_s)[e] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+    if (vec16) {
+      for (int j = 0; j < ms; j += 16) {
+        uint4 c[RPL];  // 16 codes of each row, all loads in flight together
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          const int row = base + 32 * r + lane;
+          c[r] = row < n_valid
+                     ? *reinterpret_cast<const uint4*>(codes + (size_t)row * M + m0 + j)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+#pragma unroll
+          for (int r = 0; r < RPL; ++r) {
+            add_entry(acc[r], lut_s, (j + b) * V + code_byte(c[r], b));
+          }
+        }
+      }
+    } else {
+      for (int j = 0; j < ms; ++j) {
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          const int row = base + 32 * r + lane;
+          const int code = row < n_valid ? codes[(size_t)row * M + m0 + j] : 0;
+          add_entry(acc[r], lut_s, j * V + code);
         }
       }
     }
-    float v[4];
+  }
+
+  const int nb = n_pad / BLOCK;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) v[r] = base + 32 * r + lane < n_valid ? acc[r] : -FLT_MAX;
-    float ma = fmaxf(v[0], v[1]);  // rows base .. base + 63
-    float mb = fmaxf(v[2], v[3]);  // rows base + 64 .. base + 127
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, o));
-      mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, o));
-    }
+  for (int i = 0; i < QB; ++i) {
+    const int q = q0 + i;
+    if (q >= nq) break;  // uniform across the block
     float* srow = scores + (size_t)q * n_pad;
+    float v[RPL];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RPL; ++r) {
       const int row = base + 32 * r + lane;
+      v[r] = row < n_valid ? acc[r][i] : -FLT_MAX;
       if (row < n_pad) srow[row] = v[r];
     }
-    if (lane == 0) {
-      const int j = base / BLOCK;
-      if (j < nb) bmax[(size_t)q * nb + j] = ma;
-      if (j + 1 < nb) bmax[(size_t)q * nb + j + 1] = mb;
+#pragma unroll
+    for (int k = 0; k < RPL / 2; ++k) {  // rows base + 64 k .. base + 64 k + 63
+      float mx = fmaxf(v[2 * k], v[2 * k + 1]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const int j = base / BLOCK + k;
+      if (lane == 0 && j < nb) bmax[(size_t)q * nb + j] = mx;
     }
   }
 }
@@ -147,22 +179,29 @@ int adc_scores_forward(const void* lut, const void* codes, void* scores, void* b
       n_pad != BLOCK * ((n + BLOCK - 1) / BLOCK)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = (M < MS ? M : MS) * V * (int)sizeof(float);
+  const int smem = (M < MS ? M : MS) * V * QB * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(adc_scores_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // about four waves of three 64 KB blocks an SM; one LUT staging serves a
-  // whole run of tiles
-  const int n_tiles = (n_pad + TILE - 1) / TILE;
-  const int target = 4 * 3 * 132;
-  int splits = (target + nq - 1) / nq;
-  splits = splits < 1 ? 1 : (splits > n_tiles ? n_tiles : splits);
-  const int tiles_per_block = (n_tiles + splits - 1) / splits;
-  dim3 grid(nq, (n_tiles + tiles_per_block - 1) / tiles_per_block);
-  adc_scores_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)lut, (const uint8_t*)codes, (float*)scores, (float*)bmax, n_valid, M, n_pad,
-      tiles_per_block);
-  return (int)cudaGetLastError();
+  const int tiles = (n_pad + TILE - 1) / TILE;
+  for (int t0 = 0; t0 < tiles; t0 += MAX_GRID_Y) {  // one launch below 134M rows
+    dim3 grid((nq + QB - 1) / QB, tiles - t0 < MAX_GRID_Y ? tiles - t0 : MAX_GRID_Y);
+    adc_scores_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const float*)lut, (const uint8_t*)codes, (float*)scores, (float*)bmax, nq, n_valid, M,
+        n_pad, t0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The launch plan, for the record: out[0..2] = queries a block, rows a block
+// (one row tile), subquantizers a staged LUT slice.
+int adc_plan(int* out) {
+  out[0] = QB;
+  out[1] = TILE;
+  out[2] = MS;
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ max-side-resized, then padded to its bucket's (H, W) (multiples of the trunk
 stride); a batch carries raw uint8 pixels and per-row valid (h, w) extents,
 and normalization and masking happen on the device. PIL is imported only
 inside the functions that use it: an array whose max side already equals
-``image_size`` never reaches PIL.
+``image_size`` never reaches PIL. Path inputs may instead go through the
+native C++ decoder (:func:`make_batches_native`, ``data/native.py``), the
+JAX package's default for them.
 """
 
 from __future__ import annotations
@@ -108,6 +110,78 @@ class ImageBatch:
 
 
 ImageSource = Union[str, np.ndarray]
+
+
+def probe_size(path: str) -> Tuple[int, int]:
+    """(h, w) from the image header without decoding pixels."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
+
+
+def make_batches_native(
+    paths: Sequence[str],
+    image_size: int,
+    batch_size: int,
+    bucket_multiple: int = 32,
+    bbxs: Optional[Sequence] = None,
+    upscale: bool = True,
+    resize_filter: str = "bilinear",
+) -> Iterable[ImageBatch]:
+    """Path-input batching with the native C++ decode and resize
+    (``data.native``), as the JAX package's ``make_batches_native``.
+
+    Buckets come from header-only size probes; the pixel work of each batch
+    is one multi-threaded native call. The buckets, their order, the sizes
+    and the indices are ``make_batches``'s; the pixels are the native
+    resize's.
+    """
+    from image_retrieval_for_image_based_localization_tpu_torch.data.native import (
+        preprocess_batch_native,
+    )
+
+    def target_hw(i: int) -> Tuple[int, int]:
+        h, w = probe_size(paths[i])
+        if bbxs is not None and bbxs[i] is not None:
+            x0, y0, x1, y1 = bbxs[i]
+            h = max(1, int(round(y1)) - int(round(y0)))
+            w = max(1, int(round(x1)) - int(round(x0)))
+        m = max(h, w)
+        if m != image_size and (upscale or m > image_size):
+            s = image_size / m
+            h, w = max(1, round(h * s)), max(1, round(w * s))
+        return h, w
+
+    buckets: dict[Tuple[int, int], List[int]] = {}
+    for i in range(len(paths)):
+        h, w = target_hw(i)
+        buckets.setdefault(bucket_shape(h, w, bucket_multiple), []).append(i)
+
+    for (H, W), members in sorted(buckets.items()):
+        for s in range(0, len(members), batch_size):
+            chunk = members[s : s + batch_size]
+            chunk_paths = [paths[i] for i in chunk]
+            chunk_bbxs = None if bbxs is None else [bbxs[i] for i in chunk]
+            pixels_v, sizes_v = preprocess_batch_native(
+                chunk_paths, image_size, H, W, bbxs=chunk_bbxs,
+                upscale=upscale, resize_filter=resize_filter,
+            )
+            pixels_u8 = np.zeros((batch_size, H, W, 3), np.uint8)
+            pixels_u8[: len(chunk)] = pixels_v
+            sizes = np.zeros((batch_size, 2), np.int32)
+            sizes[: len(chunk)] = sizes_v
+            for row in range(len(chunk)):
+                h, w = sizes[row]
+                if h == 0 or w == 0:
+                    raise IOError(f"failed to decode {chunk_paths[row]}")
+            yield ImageBatch(
+                pixels_u8=pixels_u8,
+                sizes=sizes,
+                indices=np.asarray(chunk, dtype=np.int64),
+                valid=len(chunk),
+            )
 
 
 def _prepare_one(

@@ -33,8 +33,10 @@ _I = ctypes.c_int
 # C signature of every entry point: (argtypes); all return an int error code
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "gem_l2n": {
-        # x, p, sizes, partial, out, B, N, W, C, n_splits, is_bf16, stream
-        "gem_l2n_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, p, sizes, out, B, N, W, C, is_bf16, stream
+        "gem_l2n_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # C, is_bf16, out (int[6])
+        "gem_l2n_plan": (_I, _I, _P),
     },
     "fused_topk": {
         # queries, gallery, part_v, part_i, out_v, out_i, Nq, Ng, D, k,
@@ -53,6 +55,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "adc": {
         # lut, codes, scores, bmax, nq, n, n_valid, M, n_pad, stream
         "adc_scores_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # out (int[3])
+        "adc_plan": (_P,),
     },
     "bottleneck": {
         # x, w1, b1, w2, b2, w3, b3, wt, y1, y2, out, B, H, W, Cin, Cm, stream

@@ -3,9 +3,11 @@ plain version.
 
 Replaces the JAX package's ``ops/pallas/adc_mxu.py::adc_scores_mxu`` (with
 ``prepare_lut_tables``). The kernel is ``csrc/adc.cu``: bound by its
-shared-memory lookups, it stages one query's LUT in shared memory (in
-64-subquantizer slices when M > 64) and scores rows as the exact f32 gather
-``score[q, r] = sum_m lut[q, m, codes[r, m]]``, one sequential sum over m.
+shared-memory lookups, a block stages ``QB`` queries' LUTs in shared memory
+interleaved (entry (m, code) one float4 at QB = 4, in 64 KB slices of
+subquantizers), so one vector load makes QB lookups, and scores rows as the
+exact f32 gather ``score[q, r] = sum_m lut[q, m, codes[r, m]]``, one
+sequential sum over m for each query.
 Its output has the contract of ``ops.kernels.score_topk.scores_blockmax``:
 pad columns score NEG_INF and the per-64-column maxima come with the
 scores, so ``blockmax_select`` selects exactly on them.
@@ -16,6 +18,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -101,3 +104,12 @@ def adc_scores(lut: torch.Tensor, codes: torch.Tensor,
 
 
 adc_scores.launches = 0
+
+
+def launch_plan() -> dict:
+    """The kernel's launch plan as ``csrc/adc.cu`` defines it. For the record
+    only: the launch needs none of it."""
+    keys = ("queries_a_block", "rows_a_block", "subquantizers_a_slice")
+    out = (ctypes.c_int * len(keys))()
+    _build.check(_build.load("adc").adc_plan(out), "adc_plan")
+    return dict(zip(keys, out))

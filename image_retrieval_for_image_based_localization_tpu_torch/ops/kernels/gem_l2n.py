@@ -2,10 +2,12 @@
 
 Replaces the JAX package's ``ops/pallas/gem_l2n.py::gem_l2n_fused`` and
 ``gem_l2n_fused_rect``. The kernel is ``csrc/gem_l2n.cu``: bound by the bytes
-of one read of the feature map, it sums ``clamp(x, 1e-6)^p`` in two
-deterministic passes (per-split partial sums, then one block per image that
-finishes the mean, the ``1/p`` power and the L2 norm), skipping the invalid
-rows of a padded rectangle instead of reading them.
+of one read of the feature map, it runs the whole function in one launch, a
+thread-block cluster of eight CTAs per image that sum ``clamp(x, 1e-6)^p``
+over equal runs of the image's valid positions (the invalid rows of a padded
+rectangle are never read) and reduce their sums in a fixed order through
+distributed shared memory, then the mean, the ``1/p`` power and the L2 norm.
+No scratch, no atomics: two calls give the same bits.
 
 Both entry points keep the TPU kernel's L2N exactly: ``pooled / (sqrt(sum
 pooled^2) + 1e-6)`` with no 1e-24 floor (unlike ``ops.normalization.l2n``).
@@ -17,6 +19,7 @@ training part of the port.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Union
 
 import torch
@@ -25,7 +28,18 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _
 
 GEM_EPS = 1e-6
 L2N_EPS = 1e-6
-_THREADS = 256  # channels per block of pass (a), csrc/gem_l2n.cu THREADS
+
+
+def launch_plan(C: int, bf16: bool = False) -> dict:
+    """The kernel's launch plan for a 16-byte-aligned map of C channels, as
+    ``csrc/gem_l2n.cu`` computes it, and how many of its clusters the current
+    CUDA device holds at once. For the record only: the launch needs none of
+    it."""
+    keys = ("cluster", "threads", "threads_across_channels", "row_lanes", "finish_slice",
+            "clusters_at_once")
+    out = (ctypes.c_int * len(keys))()
+    _build.check(_build.load("gem_l2n").gem_l2n_plan(C, int(bf16), out), "gem_l2n_plan")
+    return dict(zip(keys, out))
 
 
 def _as_p(p: Union[torch.Tensor, float], device: torch.device) -> torch.Tensor:
@@ -66,21 +80,16 @@ def _launch(feats3: torch.Tensor, p: torch.Tensor, sizes, W: int) -> torch.Tenso
         raise ValueError("feats, p and sizes must be on the same device")
     B, N, C = feats3.shape
     dev = feats3.device
-    if B == 0:
-        return torch.empty((0, C), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = B * -(-C // _THREADS)
-    n_splits = max(1, min(N, -(-8 * sms // blocks)))
-    partial = torch.empty((B, n_splits, C), dtype=torch.float32, device=dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
     lib = _build.load("gem_l2n")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gem_l2n_forward(
             feats3.data_ptr(), p.data_ptr(),
             None if sizes is None else sizes.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, N, W, C, n_splits,
-            int(feats3.dtype == torch.bfloat16), stream)
+            out.data_ptr(), B, N, W, C, int(feats3.dtype == torch.bfloat16), stream)
     _build.check(err, "gem_l2n_forward")
     return out
 

@@ -2,10 +2,10 @@
 
 Copied from the JAX package's ``utils/config.py`` (same fields, defaults and
 graded configs), so a config written for one package means the same thing in
-the other. Fields that select TPU-only machinery (``s2d_stem``,
-``native_preproc``) are kept for compatibility and rejected by
-:func:`check_supported` when set to anything but their default;
-``fuse_blocks`` is taken for bottleneck resnets.
+the other. A field that selects TPU-only machinery (``s2d_stem``) is kept
+for compatibility and rejected by :func:`check_supported` when set;
+``fuse_blocks`` is taken for bottleneck resnets, and ``native_preproc``
+selects the native C++ decoder for path inputs as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ class ExtractConfig:
     bucket_multiple: int = 32       # pad H/W up to multiples of this (stride)
     squarify: bool = False          # True: resize to square
     exact: bool = False             # no spatial padding (bucket_multiple 1)
-    native_preproc: Optional[bool] = None  # C++ decode/resize: not ported
+    # C++ decode/resize of path inputs: None uses it where the library loads,
+    # True insists on it, False keeps to PIL
+    native_preproc: Optional[bool] = None
     upscale: bool = False
     resize_filter: str = "lanczos"  # 'lanczos' (reference) | 'bilinear'
     # fused bottleneck trunk (bottleneck resnets only); None stays off
@@ -131,8 +133,6 @@ def check_supported(cfg: ExtractConfig) -> None:
     if cfg.fuse_blocks and mc.arch not in _BOTTLENECK_ARCHS:
         raise ValueError(f"fuse_blocks (fused bottleneck trunk) needs a bottleneck resnet "
                          f"{_BOTTLENECK_ARCHS}, not {mc.arch!r}")
-    if cfg.native_preproc:
-        raise ValueError("native_preproc is not supported; images go through PIL")
     if mc.dtype != "float32":
         raise ValueError(f"dtype {mc.dtype!r} is not supported; only float32")
     if mc.regional:

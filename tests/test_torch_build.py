@@ -3,6 +3,7 @@ shared header changes, and only then. No nvcc needed: only the paths are
 computed."""
 
 import os
+import re
 import shutil
 
 import pytest
@@ -61,3 +62,19 @@ def test_new_header_changes_library_path(csrc):
     before = _build.library_path("score_topk")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path("score_topk") != before
+
+
+def _source(name):
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_signatures_match_the_c_entries(name):
+    """Each ctypes signature has as many arguments as its C entry: a
+    parameter added to a kernel's entry and not to the wrapper's call shows
+    here, not as a crash on the card."""
+    src = _source(name)
+    for fn, argtypes in _build.SIGNATURES[name].items():
+        params = re.search(rf"\bint {fn}\(([^)]*)\)", src).group(1)
+        assert len(params.split(",")) == len(argtypes), fn

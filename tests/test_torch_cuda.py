@@ -52,16 +52,31 @@ def _rand(shape, seed, dev, dtype=torch.float32):
     return torch.randn(shape, generator=g).abs().to(dev).to(dtype)
 
 
+@pytest.mark.parametrize("C", [300, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gem_kernels_match_plain(dev, dtype):
-    x = _rand((6, 5, 7, 300), 0, dev, dtype)
-    sizes = torch.tensor([[5, 7], [0, 0], [3, 2], [1, 7], [5, 1], [2, 6]],
+def test_gem_kernels_match_plain(dev, dtype, C):
+    """One cluster of eight CTAs per image: (0, 0) rows, images with fewer
+    valid positions than the cluster has CTAs, C = 300 (bf16: the scalar
+    path), within 1e-5 of plain and the same bits on a second call."""
+    x = _rand((7, 5, 7, C), 0, dev, dtype)
+    sizes = torch.tensor([[5, 7], [0, 0], [3, 2], [1, 7], [5, 1], [2, 6], [1, 1]],
                          dtype=torch.int32, device=dev)
     p = torch.tensor([3.0], device=dev)
     got = gem_l2n_fused_rect(x, p, sizes)
     torch.testing.assert_close(got, gem_l2n_plain(x, p, sizes), rtol=0, atol=1e-5)
+    assert torch.all(got[1] == 0)
+    assert torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
     got = gem_l2n_fused(x, p)
     torch.testing.assert_close(got, gem_l2n_plain(x, p), rtol=0, atol=1e-5)
+    assert torch.equal(got, gem_l2n_fused(x, p))
+
+
+def test_gem_kernel_refuses_more_channels_than_a_cluster_holds(dev):
+    """C > 8,192 (8 channels x 1,024 threads) is refused by the C entry, not
+    computed wrong (ROADMAP C3)."""
+    x = _rand((1, 2, 2, 8200), 1, dev)
+    with pytest.raises(RuntimeError, match="gem_l2n_forward"):
+        gem_l2n_fused(x, 3.0)
 
 
 def test_gem_kernel_refuses_grad(dev):
@@ -176,10 +191,13 @@ def test_long_shortlist_search_exact_with_duplicates(dev, dtype, k):
     assert torch.equal(i1, i) and torch.equal(s1, s)  # one chunk or three: the same list
 
 
-@pytest.mark.parametrize("nq,n,m", [(33, 1000, 64), (5, 700, 256), (9, 130, 8)])
-def test_adc_scores_match_plain_bitwise(dev, nq, n, m):
+@pytest.mark.parametrize("m", [8, 16, 64, 256])
+@pytest.mark.parametrize("nq", [1, 3, 5, 33])
+def test_adc_scores_match_plain_bitwise(dev, nq, m):
     """Kernel and plain version add the subquantizers in the same order:
-    equal bits, the M > 64 sliced LUT and the byte-load path (M = 8) too."""
+    equal bits, with nq not a multiple of the queries a block, several LUT
+    slices (M >= 64) and the byte-load path (M = 8)."""
+    n = 700 if m < 256 else 300
     g = torch.Generator().manual_seed(5)
     lut = torch.randn((nq, m, 256), generator=g).to(dev)
     codes = torch.randint(0, 256, (n, m), generator=g, dtype=torch.uint8)
@@ -193,6 +211,20 @@ def test_adc_scores_match_plain_bitwise(dev, nq, n, m):
         assert torch.all(s[:, n_valid:] == NEG_INF)
         live = dup[dup < n_valid]
         assert len(live) > 2 and torch.all(s[:, live] == s[:, live[:1]])
+
+
+def test_adc_scores_past_the_grid_limit(dev):
+    """More than 65,535 row tiles of 2,048 (134M rows): the entry launches
+    again for the tiles past grid.y's limit, and every row still scores bit
+    for bit."""
+    nq, m = 5, 8
+    n = 65_535 * 2048 + 3 * 2048 + 37
+    g = torch.Generator(device=dev).manual_seed(7)
+    lut = torch.randn((nq, m, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, m), generator=g, device=dev, dtype=torch.uint8)
+    s, bmax = adc_scores(lut, codes)
+    ps, pb = adc_scores_plain(lut, codes)
+    assert torch.equal(s, ps) and torch.equal(bmax, pb)
 
 
 def test_adc_topk_core_ties_lower_row_first(dev):

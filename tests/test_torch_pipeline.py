@@ -33,8 +33,14 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index impo
 SCALES = (1.0, 2 ** -0.5, 0.5)
 
 
-@pytest.fixture(scope="module")
-def slice_runs(tmp_path_factory):
+# Path inputs decode through PIL (native_preproc=False) or, on the default,
+# through the native library where it builds; both packages take the same
+# setting, so each host pipeline is held against the JAX package's.
+NATIVE_PREPROC = dict(params=[False, None], ids=["pil", "default"])
+
+
+@pytest.fixture(scope="module", **NATIVE_PREPROC)
+def slice_runs(request, tmp_path_factory):
     root = tmp_path_factory.mktemp("synth")
     ds = make_synthetic_dataset(str(root), n_scenes=4, views_per_scene=3,
                                 n_distractors=3, image_hw=(72, 96), seed=0)
@@ -45,14 +51,14 @@ def slice_runs(tmp_path_factory):
 
     cfg_t = port.ExtractConfig(
         model=port.ModelConfig(arch="resnet18", use_pallas=True),
-        image_size=64, scales=SCALES, batch_size=4)
+        image_size=64, scales=SCALES, batch_size=4, native_preproc=request.param)
     ex_t = port.Extractor(cfg_t, state_dict=sd, device="cpu")
     res_t = evaluate_dataset(ds, cfg_t, port.IndexConfig(whitening="pca"),
                              extractor=ex_t, device="cpu")
 
     cfg_j = jcfg.ExtractConfig(
         model=jcfg.ModelConfig(arch="resnet18", use_pallas=True),
-        image_size=64, scales=SCALES, batch_size=4, native_preproc=False)
+        image_size=64, scales=SCALES, batch_size=4, native_preproc=request.param)
     ex_j = JExtractor(cfg_j, variables=variables)
     res_j = j_evaluate(ds, cfg_j, jcfg.IndexConfig(whitening="pca"), extractor=ex_j)
     return res_t, res_j
@@ -158,8 +164,8 @@ def test_unmasked_call_matches_jax():
 C3_DIMS = 8  # whiten_dims: fewer than the gallery's PCA directions, so it truncates
 
 
-@pytest.fixture(scope="module")
-def config3_runs(tmp_path_factory):
+@pytest.fixture(scope="module", **NATIVE_PREPROC)
+def config3_runs(request, tmp_path_factory):
     root = tmp_path_factory.mktemp("synth3")
     ds = make_synthetic_dataset(str(root), n_scenes=3, views_per_scene=3,
                                 n_distractors=3, image_hw=(64, 96), seed=1)
@@ -173,14 +179,16 @@ def config3_runs(tmp_path_factory):
     cfg_t = port.ExtractConfig(
         model=port.ModelConfig(arch="vgg16", pooling="netvlad", netvlad_clusters=8,
                                use_pallas=True),
-        image_size=96, scales=g3.extract.scales, batch_size=4)
+        image_size=96, scales=g3.extract.scales, batch_size=4,
+        native_preproc=request.param)
     ex_t = port.Extractor(cfg_t, state_dict=sd, device="cpu")
     res_t = evaluate_dataset(ds, cfg_t, index_cfg, extractor=ex_t, device="cpu")
 
     cfg_j = jcfg.ExtractConfig(
         model=jcfg.ModelConfig(arch="vgg16", pooling="netvlad", netvlad_clusters=8,
                                use_pallas=True),
-        image_size=96, scales=g3.extract.scales, batch_size=4, native_preproc=False)
+        image_size=96, scales=g3.extract.scales, batch_size=4,
+        native_preproc=request.param)
     ex_j = JExtractor(cfg_j, variables=variables)
     res_j = j_evaluate(ds, cfg_j, jcfg.IndexConfig(whitening="pca", whiten_dims=C3_DIMS),
                        extractor=ex_j)
