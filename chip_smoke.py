@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
      - gem_l2n at the GeM head's full width (B=16, 32x32 map, C=2048, f32
        and bf16, ragged extents), and a second call bit for bit;
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
-       ragged extents with a (0, 0) row, one image with zero-mass clusters);
+       ragged extents with a (0, 0) row, one image with zero-mass clusters),
+       and on the same map at K=256; a second call bit for bit;
      - fused_topk and scores_blockmax at the search shape (256 queries x
        100,000 x 2048, f32 and bf16), and the exact long-shortlist search
        (blockmax_topk_search, knn_search) at k=200 and 1000, with planted
@@ -52,8 +53,9 @@ Phases (any failure exits non-zero):
        indexes searched on the CPU;
      - graded config 2 again with fuse_blocks=True (path B): the fused
        bottleneck trunk, descriptors held against the unfused run;
-  5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n
-     and adc_scores also the kernel's device time from torch.profiler, and
+  5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
+     netvlad and adc_scores also the kernel's device time from torch.profiler
+     (netvlad: the kernels its entry launches, summed), and
      on a log line the launch plan the built kernel reports) beside each
      kernel's bound, and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
@@ -119,16 +121,17 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str):
-    """Device ms per call of ``kernel`` launched by ``fn``, from
-    tools/search_kernel_bench.py's ``kernel_ms`` (torch.profiler), or None if
-    the profiler recorded none. Taken in phase 3: on an H100 with torch 2.11,
-    profiler sessions after phase 4's profiled extractions recorded no
-    kernel."""
+def device_ms(fn, prefix: str):
+    """Device ms per call of the kernels launched by ``fn`` whose names start
+    with ``prefix``, summed, from tools/search_kernel_bench.py's
+    ``kernel_ms`` (torch.profiler), or None if the profiler recorded none.
+    Taken in phase 3: on an H100 with torch 2.11, profiler sessions after
+    phase 4's profiled extractions recorded no kernel."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     from search_kernel_bench import kernel_ms
 
-    return kernel_ms(fn).get(kernel)
+    own = [v for k, v in kernel_ms(fn).items() if k.startswith(prefix)]
+    return sum(own) if own else None
 
 
 def profile_window(fn):
@@ -363,7 +366,9 @@ def _netvlad_inputs(dev, B=16, H=64, W=64, C=512, K=64):
 
 
 def check_netvlad(dev):
-    """Both NetVLAD kernels against the plain version; returns inputs and errors."""
+    """Both NetVLAD kernels against the plain version at config 3's K = 64
+    and at K = 256 on the same map; each twice, bit for bit. Returns the
+    K = 64 inputs, the errors at both K and the kernels' device ms."""
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         netvlad_fused,
@@ -371,32 +376,50 @@ def check_netvlad(dev):
         netvlad_plain,
     )
 
-    nv = _netvlad_inputs(dev)
-    x, c, w, b, sizes = nv["x"], nv["c"], nv["w"], nv["b"], nv["sizes"]
-    K, C = c.shape
-    got = netvlad_fused_rect(x, c, w, b, sizes=sizes)
-    want = netvlad_plain(x, c, w, b, sizes)
-    e_rect = (got - want).abs().max().item()
-    got_u = netvlad_fused(x, c, w, b)
-    e_un = (got_u - netvlad_plain(x, c, w, b)).abs().max().item()
-    torch.cuda.synchronize()
-    zero = torch.all(got[2].reshape(K, C) == 0, dim=1)
-    B, H, W, _ = x.shape
-    log(f"[check] netvlad f32 [{B}, {H}x{W}, {C}] K={K}: rect max|err| {e_rect:.3e}, "
-        f"unmasked {e_un:.3e}; zero-mass clusters in image 2: {int(zero.sum())} of {K}; "
-        f"{nv['valid_positions']} of {B * H * W} positions valid")
-    if not (e_rect <= NETVLAD_TOL and e_un <= NETVLAD_TOL):
-        raise AssertionError("netvlad disagrees with its plain version")
-    if got[1].abs().max().item() != 0.0:
-        raise AssertionError("a (0, 0) row must give a zero descriptor")
-    if not (0 < int(zero.sum()) < K
-            and torch.equal(zero, torch.all(want[2].reshape(K, C) == 0, dim=1))):
-        raise AssertionError("zero-mass clusters must give zero rows, as in the plain version")
-    norms = got.norm(dim=1)
-    if (norms[[0] + list(range(2, len(norms)))] - 1).abs().max().item() > 1e-5:
-        raise AssertionError("netvlad descriptors are not unit-norm")
-    nv["err"] = {"netvlad_fused_rect": e_rect, "netvlad_fused": e_un}
-    return nv
+    errs = {"netvlad_fused_rect": 0.0, "netvlad_fused": 0.0}
+    for K in (64, 256):
+        nv = _netvlad_inputs(dev, K=K)
+        x, c, w, b, sizes = nv["x"], nv["c"], nv["w"], nv["b"], nv["sizes"]
+        C = c.shape[1]
+        got = netvlad_fused_rect(x, c, w, b, sizes=sizes)
+        want = netvlad_plain(x, c, w, b, sizes)
+        e_rect = (got - want).abs().max().item()
+        got_u = netvlad_fused(x, c, w, b)
+        e_un = (got_u - netvlad_plain(x, c, w, b)).abs().max().item()
+        same = (torch.equal(got, netvlad_fused_rect(x, c, w, b, sizes=sizes))
+                and torch.equal(got_u, netvlad_fused(x, c, w, b)))
+        torch.cuda.synchronize()
+        zero = torch.all(got[2].reshape(K, C) == 0, dim=1)
+        B, H, W, _ = x.shape
+        log(f"[check] netvlad f32 [{B}, {H}x{W}, {C}] K={K}: rect max|err| {e_rect:.3e}, "
+            f"unmasked {e_un:.3e}; zero-mass clusters in image 2: {int(zero.sum())} of {K}; "
+            f"{nv['valid_positions']} of {B * H * W} positions valid; second calls "
+            f"bit-equal {same}")
+        if not (e_rect <= NETVLAD_TOL and e_un <= NETVLAD_TOL):
+            raise AssertionError("netvlad disagrees with its plain version")
+        if not same:
+            raise AssertionError("netvlad gave other bits on a second call")
+        if got[1].abs().max().item() != 0.0:
+            raise AssertionError("a (0, 0) row must give a zero descriptor")
+        if not (0 < int(zero.sum()) < K
+                and torch.equal(zero, torch.all(want[2].reshape(K, C) == 0, dim=1))):
+            raise AssertionError("zero-mass clusters must give zero rows, as in the plain "
+                                 "version")
+        norms = got.norm(dim=1)
+        if (norms[[0] + list(range(2, len(norms)))] - 1).abs().max().item() > 1e-5:
+            raise AssertionError("netvlad descriptors are not unit-norm")
+        errs = {"netvlad_fused_rect": max(errs["netvlad_fused_rect"], e_rect),
+                "netvlad_fused": max(errs["netvlad_fused"], e_un)}
+        if K == 64:
+            nv64 = nv
+            # every kernel netvlad_forward launches, summed; phase 3 as for gem
+            nv64["device_ms"] = {
+                "netvlad_fused_rect": device_ms(
+                    lambda: netvlad_fused_rect(x, c, w, b, sizes=sizes), "netvlad_"),
+                "netvlad_fused": device_ms(lambda: netvlad_fused(x, c, w, b), "netvlad_")}
+        del nv, x, c, w, b, sizes, got, want, got_u
+    nv64["err"] = errs
+    return nv64
 
 
 def check_scores_blockmax(dev):
@@ -1165,21 +1188,28 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
 
     # NetVLAD at config 3's head width: reads the valid rows of x, the
     # parameters and writes [B, K*C]; logits and aggregation are 2 N C K
-    # flops each (the softmax's K exps a row are not counted)
+    # flops each (the softmax's K exps a row are not counted), taken as
+    # 3xTF32 on the tensor cores; the f32-FMA and the bytes bounds beside.
+    # ms is through the wrapper, device_ms the summed profiler intervals of
+    # the kernels netvlad_forward launches (phase 3, same inputs)
     xv, c, w, b, nsz = nv_in["x"], nv_in["c"], nv_in["w"], nv_in["b"], nv_in["sizes"]
     Bv, Hv, Wv, Cv = xv.shape
     K = c.shape[0]
     par_bytes = (2 * K * Cv + K) * 4 + Bv * K * Cv * 4
     nvalid = nv_in["valid_positions"]
     src_nv = CSRC + "netvlad.cu"
-    row("netvlad_fused_rect", src_nv, PALLAS + "netvlad_kernel.py:252",
-        time_ms(lambda: netvlad_fused_rect(xv, c, w, b, sizes=nsz)),
-        time_ms(lambda: netvlad_plain(xv, c, w, b, nsz)),
-        nvalid * Cv * 4 + par_bytes + Bv * 8, 4 * nvalid * Cv * K, None)
-    row("netvlad_fused", src_nv, PALLAS + "netvlad_kernel.py:287",
-        time_ms(lambda: netvlad_fused(xv, c, w, b)),
-        time_ms(lambda: netvlad_plain(xv, c, w, b)),
-        xv.numel() * 4 + par_bytes, 4 * Bv * Hv * Wv * Cv * K, None)
+    for name, replaces, fn, plain, byts, flops in (
+            ("netvlad_fused_rect", "netvlad_kernel.py:252",
+             lambda: netvlad_fused_rect(xv, c, w, b, sizes=nsz),
+             lambda: netvlad_plain(xv, c, w, b, nsz),
+             nvalid * Cv * 4 + par_bytes + Bv * 8, 4 * nvalid * Cv * K),
+            ("netvlad_fused", "netvlad_kernel.py:287", lambda: netvlad_fused(xv, c, w, b),
+             lambda: netvlad_plain(xv, c, w, b), xv.numel() * 4 + par_bytes,
+             4 * Bv * Hv * Wv * Cv * K)):
+        row(name, src_nv, PALLAS + replaces, time_ms(fn), time_ms(plain), byts, 0, None,
+            tf32x3_flops=flops, device_ms=nv_in["device_ms"][name],
+            f32_fma_bound_ms=max(flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S) * 1e3,
+            bytes_bound_ms=byts / HBM_BYTES_PER_S * 1e3)
 
     # scores + block maxima: the one-call yardstick is cuBLAS's f32 q @ g.T
     ng_pad = -(-Ng // 64) * 64

@@ -1,6 +1,7 @@
 // 3xTF32 tensor-core GEMM mainloop for Hopper (sm_90a), device code only:
 // warpgroup MMA (wgmma) with A in registers and B in shared memory.
-// csrc/bottleneck.cu runs its three convolutions on it.
+// csrc/bottleneck.cu runs its three convolutions on it, csrc/netvlad.cu its
+// two products (the aggregation on gemm_tile_at, below: A depth-major).
 //
 //   C[m, n] = sum_k A[m, k] * B[k, n]   for one 128 x 64 output tile
 //
@@ -229,6 +230,114 @@ __device__ __forceinline__ void for_each_pair(int M, int N, int m0, int n0, F&& 
       const int m = row + 8 * h, n = n0 + 8 * j + 2 * (lane % 4);
       if (m < M && n < N) f(4 * j + 2 * h, m, n);
     }
+}
+
+
+// ---- A transposed: gemm_tile_at ------------------------------------------
+// The same product with A stored depth-major: A[m, k] at a[k, m], rows of
+// the depth axis contiguous along m (csrc/netvlad.cu's aggregation: M =
+// channels, depth = feature rows, so A is the feature map itself). TF32
+// wgmma takes no shared-memory operand in that layout, so A stays the
+// register operand: each stage is copied as BK depth rows x BM columns,
+// 512 contiguous bytes a warp, into rows padded to AT_LD floats, and each
+// thread reads its fragments down the columns. The pad of 8 floats puts
+// the four t lanes of a fragment read 8 banks apart, beside the eight g
+// lanes of one row: 32 distinct banks, no conflict. B is as in gemm_tile,
+// with its own row pitch ldb (a plane's rows may be longer than K). The
+// pipeline, the split and the per-stage accumulator are gemm_tile's.
+constexpr int AT_LD = BM + 8;                            // A's shared row pitch in floats
+constexpr int AT_BYTES = BK * AT_LD * 4;                 // 17,408: a multiple of 1,024
+constexpr int AT_STAGE_BYTES = AT_BYTES + 2 * B_BYTES;
+constexpr int AT_SMEM_BYTES = STAGES * AT_STAGE_BYTES + 1024;  // 102,400
+static_assert(AT_BYTES % 1024 == 0, "B tiles must stay 1,024-aligned");
+static_assert((AT_LD * 4) % 16 == 0 && AT_LD % 32 == 8, "cp.async rows, conflict-free reads");
+
+// A's cp.async chunks: thread t moves 16 bytes of depth rows t / 32 + 8 i
+// (i = 0..3) at columns (t % 32) * 4 .. + 3 of each stage
+__device__ __forceinline__ int at_row(int i) { return threadIdx.x / 32 + 8 * i; }
+__device__ __forceinline__ int at_col() { return (threadIdx.x % 32) * 4; }
+
+// One 128 x 64 tile at (m0, n0) into acc, A depth-major. asrc.src(i, k0,
+// valid) returns the global address of this thread's A chunk: depth k0 +
+// at_row(i), columns m0 + at_col() .. + 3 (false: zeros land). bhi, blo:
+// B's split planes, row n at bhi + n ldb, K-contiguous. K % BK == 0;
+// ldb % 4 == 0 and 16-byte aligned planes.
+template <class ASrc>
+__device__ __forceinline__ void gemm_tile_at(const ASrc& asrc, const float* __restrict__ bhi,
+                                             const float* __restrict__ blo, size_t ldb, int N,
+                                             int K, int n0, char* smem_raw, float (&acc)[ACC]) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int KT = K / BK;
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  auto load = [&](int s, int kt) {
+    const int k0 = kt * BK;
+    char* st = smem + s * AT_STAGE_BYTES;
+    float* as = reinterpret_cast<float*>(st);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bool v;
+      const float* p = asrc.src(i, k0, v);
+      cp16(as + at_row(i) * AT_LD + at_col(), p, v);
+    }
+    char* bs = st + AT_BYTES;
+#pragma unroll
+    for (int j = 0; j < BN * 8 / NT; ++j) {
+      const int e = tid + j * NT, r = e / 8, c = e % 8;
+      const bool v = n0 + r < N;
+      const size_t off = (size_t)(v ? n0 + r : 0) * ldb + k0 + c * 4;
+      const int dst = r * 128 + ((c ^ (r & 7)) << 4);
+      cp16(bs + dst, bhi + off, v);
+      cp16(bs + B_BYTES + dst, blo + off, v);
+    }
+  };
+
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_commit();
+  }
+  // this thread's A fragment rows (columns of the stored stage), as in gemm_tile
+  const int am = (warp / 4) * 64 + (warp % 4) * 16 + g;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<STAGES - 2>();
+    fence_async_shared();
+    __syncthreads();
+    {
+      const int nk = kt + STAGES - 1;
+      if (nk < KT) load(nk % STAGES, nk);
+      cp_commit();
+    }
+    const char* st = smem + (kt % STAGES) * AT_STAGE_BYTES;
+    const float* ar = reinterpret_cast<const float*>(st) + t * AT_LD + am;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split(ar[kk * 8 * AT_LD], ah[kk][0], al[kk][0]);
+      split(ar[kk * 8 * AT_LD + 8], ah[kk][1], al[kk][1]);
+      split(ar[(kk * 8 + 4) * AT_LD], ah[kk][2], al[kk][2]);
+      split(ar[(kk * 8 + 4) * AT_LD + 8], ah[kk][3], al[kk][3]);
+    }
+    const uint64_t dhi = b_desc(st + AT_BYTES), dlo = b_desc(st + AT_BYTES + B_BYTES);
+    float part[ACC];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_n64(part, al[kk], dhi + 2 * kk, kk > 0);
+      wgmma_n64(part, ah[kk], dlo + 2 * kk, 1);
+      wgmma_n64(part, ah[kk], dhi + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) acc[e] += part[e];
+  }
+  cp_wait<0>();
 }
 
 }  // namespace tf32x3

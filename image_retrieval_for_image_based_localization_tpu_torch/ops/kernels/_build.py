@@ -44,9 +44,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "fused_topk_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "netvlad": {
-        # x, w, bias, centroids, sizes, part_agg, part_cnt, row_sq, out,
-        # B, N, W, C, K, n_splits, stream
-        "netvlad_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, w, bias, centroids, sizes, wt_hi, wt_lo, logits, a_hi, a_lo,
+        # mass, part, row_sq, out, B, N, W, C, K, n_chunks, stream
+        "netvlad_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _P),
     },
     "score_topk": {
         # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, stream

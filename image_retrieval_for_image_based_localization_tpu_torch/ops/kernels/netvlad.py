@@ -1,13 +1,16 @@
 """Fused NetVLAD aggregation: CUDA kernel and its plain version.
 
 Replaces the JAX package's ``ops/pallas/netvlad_kernel.py::netvlad_fused``
-and ``netvlad_fused_rect``. The kernel is ``csrc/netvlad.cu``: bound by its
-f32 FMA work (logits and aggregation, 2 N C K flops each), it keeps the soft
-assignment of a block's rows in shared memory (it never reaches device
-memory, as on the TPU), writes per-split partial ``a^T x`` and cluster mass,
-then finishes the residual, the per-cluster and the global L2N in two
-deterministic passes. Invalid rows of a padded rectangle are skipped, not
-read.
+and ``netvlad_fused_rect``. The kernel is ``csrc/netvlad.cu``: both products
+(the logits ``x W`` and the aggregation ``a^T x``, 2 N C K flops each) run
+as 3xTF32 tensor-core GEMMs on ``csrc/tf32x3_gemm.cuh``, with the soft
+assignment between them written to scratch as ``a^T``'s split planes; then
+the residual, the per-cluster and the global L2N in two deterministic
+passes. Invalid rows of a padded rectangle are skipped, not read. Any K
+and any C run: the wrapper pads channels to a multiple of 32
+(:func:`prepare_operands`) and allocates the kernel's scratch
+(:func:`_plan`) in one piece; the kernel splits W^T itself, so a call with
+C % 32 == 0 runs no torch operation besides two allocations.
 
 Both entry points keep the TPU kernel's normalization: ``v / (sqrt(sum v^2)
 + 1e-6)`` per cluster and then globally, with no 1e-24 floor (unlike
@@ -21,15 +24,17 @@ with the training part of the port.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
 
 EPS = 1e-6
-KMAX = 128    # largest K the kernel takes
-_ROWS = 128   # valid rows per block of pass (a), csrc/netvlad.cu S_ROWS
+_BN, _BK = 64, 32  # cluster tile and stage depth, csrc/tf32x3_gemm.cuh
+_CHUNK = 512       # valid rows a block of the aggregation takes, csrc/netvlad.cu CHUNK
 
 
 def netvlad_plain(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tensor,
@@ -76,6 +81,39 @@ def _check(x, centroids, assign_w, assign_b) -> None:
         raise ValueError(f"assign_b must be [{K}], got {tuple(assign_b.shape)}")
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def prepare_operands(x3: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x3 [B, N, C], centroids [K, C] and assign_w [C, K] with their channels
+    zero-padded to the next multiple of 32, as ``csrc/netvlad.cu`` takes
+    them. Copied only when C % 32 != 0: zero channels change no logit, sum
+    or norm, and the kernel's result is sliced back to C."""
+    C = x3.shape[-1]
+    cp = _round_up(C, _BK)
+    if cp != C:
+        x3 = F.pad(x3, (0, cp - C))
+        centroids = F.pad(centroids.detach(), (0, cp - C))
+        assign_w = F.pad(assign_w.detach(), (0, 0, 0, cp - C))
+    return x3, centroids.detach().contiguous(), assign_w.detach().contiguous()
+
+
+def _plan(B: int, N: int, C: int, K: int) -> dict:
+    """Scratch shapes of ``csrc/netvlad.cu`` (C already padded to 32), in
+    the entry's order: W^T's split planes [KP, C], the logits [B, NP, KP],
+    a^T's split planes [B, K, NP], each 32-row tile's cluster mass, each
+    512-row chunk's partial aggregation, and each cluster row's sum of
+    squares; KP = K rounded up to the 64-cluster tile, NP = N to 32."""
+    np_, kp = _round_up(N, _BK), _round_up(K, _BN)
+    n_chunks = -(-N // _CHUNK)
+    return {"n_chunks": n_chunks,
+            "scratch": {"wt_hi": (kp, C), "wt_lo": (kp, C), "logits": (B, np_, kp),
+                        "a_hi": (B, K, np_), "a_lo": (B, K, np_), "mass": (B, np_ // _BK, K),
+                        "part": (B, n_chunks, K, C), "row_sq": (B, K)}}
+
+
 def _launch(x3: torch.Tensor, centroids, assign_w, assign_b, sizes, W: int) -> torch.Tensor:
     dev = x3.device
     for t in (centroids, assign_w, assign_b, sizes):
@@ -85,28 +123,32 @@ def _launch(x3: torch.Tensor, centroids, assign_w, assign_b, sizes, W: int) -> t
         raise ValueError("x must be contiguous (channels last)")
     B, N, C = x3.shape
     K = centroids.shape[0]
-    if K > KMAX:
-        raise ValueError(f"the netvlad kernel takes K <= {KMAX}, got {K}")
     if B == 0:
         return torch.empty((0, K * C), dtype=torch.float32, device=dev)
-    if assign_b is None:
-        assign_b = torch.zeros((K,), dtype=torch.float32, device=dev)
-    centroids, assign_w, assign_b = (t.detach().contiguous()
-                                     for t in (centroids, assign_w, assign_b))
-    n_splits = -(-N // _ROWS)
-    part_agg = torch.empty((B, n_splits, K, C), dtype=torch.float32, device=dev)
-    part_cnt = torch.empty((B, n_splits, K), dtype=torch.float32, device=dev)
-    row_sq = torch.empty((B, K), dtype=torch.float32, device=dev)
-    out = torch.empty((B, K * C), dtype=torch.float32, device=dev)
+    xp, cen, w = prepare_operands(x3, centroids, assign_w)
+    if xp.data_ptr() % 16:  # the kernel copies x in 16-byte chunks
+        xp = xp.clone()
+    bias = None if assign_b is None else assign_b.detach().contiguous()
+    cp = xp.shape[-1]
+    plan = _plan(B, N, cp, K)
+    # one allocation; each part starts on a 256-byte boundary
+    offsets, total = [], 0
+    for shape in plan["scratch"].values():
+        offsets.append(total)
+        total += _round_up(math.prod(shape), 64)
+    flat = torch.empty((total,), dtype=torch.float32, device=dev)
+    out = torch.empty((B, K * cp), dtype=torch.float32, device=dev)
     lib = _build.load("netvlad")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.netvlad_forward(
-            x3.data_ptr(), assign_w.data_ptr(), assign_b.data_ptr(), centroids.data_ptr(),
-            None if sizes is None else sizes.data_ptr(), part_agg.data_ptr(),
-            part_cnt.data_ptr(), row_sq.data_ptr(), out.data_ptr(), B, N, W, C, K,
-            n_splits, stream)
+            xp.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+            cen.data_ptr(), None if sizes is None else sizes.data_ptr(),
+            *(flat.data_ptr() + 4 * o for o in offsets),
+            out.data_ptr(), B, N, W, cp, K, plan["n_chunks"], stream)
     _build.check(err, "netvlad_forward")
+    if cp != C:
+        out = out.view(B, K, cp)[:, :, :C].reshape(B, K * C)
     return out
 
 

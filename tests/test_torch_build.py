@@ -78,3 +78,30 @@ def test_signatures_match_the_c_entries(name):
     for fn, argtypes in _build.SIGNATURES[name].items():
         params = re.search(rf"\bint {fn}\(([^)]*)\)", src).group(1)
         assert len(params.split(",")) == len(argtypes), fn
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_signature_types_match_the_c_entries(name):
+    """Each ctypes argument has its C parameter's kind: a pointer
+    (``c_void_p``, or ctypes would cut it to 32 bits) or an ``int``, in
+    order."""
+    src = _source(name)
+    for fn, argtypes in _build.SIGNATURES[name].items():
+        params = re.search(rf"\bint {fn}\(([^)]*)\)", src).group(1).split(",")
+        kinds = [_build._P if "*" in p else _build._I if p.split()[0] == "int" else None
+                 for p in params]
+        assert kinds == list(argtypes), fn
+
+
+def test_netvlad_forward_signature():
+    """netvlad_forward: five inputs, the scratch in the order of the
+    wrapper's plan, out, six ints and the stream, as the wrapper passes them."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad import _plan
+
+    params = re.search(r"\bint netvlad_forward\(([^)]*)\)", _source("netvlad")).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    scratch = list(_plan(1, 1, 32, 1)["scratch"])
+    assert names == ["x", "w", "bias", "centroids", "sizes", *scratch, "out", "B", "N", "W",
+                     "C", "K", "n_chunks", "stream"]
+    assert _build.SIGNATURES["netvlad"]["netvlad_forward"] == (_build._P,) * (6 + len(
+        scratch)) + (_build._I,) * 6 + (_build._P,)

@@ -122,10 +122,15 @@ def _netvlad_inputs(dev, B, H, W, C, K, seed):
     return [t.to(dev).contiguous() for t in (x, c, w, b)]
 
 
-@pytest.mark.parametrize("K", [8, 64, 100])
-def test_netvlad_kernels_match_plain(dev, K):
-    B, H, W, C = 5, 9, 13, 96  # N = 117 is not a multiple of the kernel's tiles
-    x, c, w, b = _netvlad_inputs(dev, B, H, W, C, K, K)
+@pytest.mark.parametrize("C", [96, 100, 37])
+@pytest.mark.parametrize("K", [8, 64, 100, 129, 256])
+def test_netvlad_kernels_match_plain(dev, K, C):
+    """Any K (cluster tiles of 64, ragged at 100, 129) and any C (100 and 37
+    are padded to 128 and 64 channels by the wrapper): within 1e-5 of plain,
+    (0, 0) rows zero, zero-mass clusters zero in plain's pattern, the same
+    bits on a second call."""
+    B, H, W = 5, 9, 13  # N = 117 is not a multiple of the kernel's tiles
+    x, c, w, b = _netvlad_inputs(dev, B, H, W, C, K, K + C)
     sizes = torch.tensor([[9, 13], [0, 0], [4, 13], [9, 5], [1, 1]], dtype=torch.int32,
                          device=dev)
     got = netvlad_fused_rect(x, c, w, b, sizes=sizes)
@@ -137,6 +142,7 @@ def test_netvlad_kernels_match_plain(dev, K):
     assert torch.equal(zero, torch.all(want[0].reshape(K, C) == 0, dim=1))
     if K > 8:
         assert 0 < int(zero.sum()) < K
+    assert torch.equal(got, netvlad_fused_rect(x, c, w, b, sizes=sizes))
     torch.testing.assert_close(netvlad_fused(x, c, w, None), netvlad_plain(x, c, w, None),
                                rtol=0, atol=1e-5)
     # [B, N, C] input and a deterministic second run
@@ -144,13 +150,69 @@ def test_netvlad_kernels_match_plain(dev, K):
     assert torch.equal(netvlad_fused(x3, c, w, b), netvlad_fused(x3, c, w, b))
 
 
-def test_netvlad_kernel_refuses_grad_and_large_k(dev):
+@pytest.mark.parametrize("K", [64, 200])
+def test_netvlad_kernels_span_row_chunks(dev, K):
+    """Images whose valid rows span several 512-row chunks of the
+    aggregation (2,400 rows, and 1,537 in a ragged rectangle: one row past
+    three chunks), one with a single valid row, a one-column rectangle and
+    an empty one."""
+    B, H, W, C = 5, 40, 60, 64
+    x, c, w, b = _netvlad_inputs(dev, B, H, W, C, K, 7)
+    sizes = torch.tensor([[40, 60], [1, 1], [29, 53], [0, 0], [40, 1]], dtype=torch.int32,
+                         device=dev)
+    got = netvlad_fused_rect(x, c, w, b, sizes=sizes)
+    torch.testing.assert_close(got, netvlad_plain(x, c, w, b, sizes), rtol=0, atol=1e-5)
+    assert torch.all(got[3] == 0)
+    assert torch.equal(got, netvlad_fused_rect(x, c, w, b, sizes=sizes))
+    got = netvlad_fused(x, c, w, b)
+    torch.testing.assert_close(got, netvlad_plain(x, c, w, b), rtol=0, atol=1e-5)
+    assert torch.equal(got, netvlad_fused(x, c, w, b))
+
+
+@pytest.mark.parametrize("K,C", [(64, 512), (129, 96), (256, 37)])
+def test_netvlad_split_planes_are_split_tf32(dev, K, C):
+    """The planes of W^T that netvlad_forward's first kernel writes are
+    bit for bit ``split_tf32`` of W^T zero-padded to [KP, Cp] (the rule the
+    CPU tests hold against the Pallas kernels), and the entry called
+    directly gives the wrapper's result."""
+    import torch.nn.functional as F
+
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
+        split_tf32,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad import (
+        _plan,
+        prepare_operands,
+    )
+
+    x, c, w, b = _netvlad_inputs(dev, 2, 3, 5, C, K, 5)
+    x3 = x.reshape(2, 15, C)
+    xp, cen, wp = prepare_operands(x3, c, w)
+    cp = xp.shape[-1]
+    plan = _plan(2, 15, cp, K)
+    scratch = {n: torch.empty(shape, device=dev) for n, shape in plan["scratch"].items()}
+    out = torch.empty((2, K * cp), device=dev)
+    err = _build.load("netvlad").netvlad_forward(
+        xp.data_ptr(), wp.data_ptr(), b.data_ptr(), cen.data_ptr(), None,
+        *(t.data_ptr() for t in scratch.values()), out.data_ptr(), 2, 15, 1, cp, K,
+        plan["n_chunks"], torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    hi, lo = split_tf32(F.pad(wp.t(), (0, 0, 0, -(-K // 64) * 64 - K)))
+    assert torch.equal(scratch["wt_hi"], hi) and torch.equal(scratch["wt_lo"], lo)
+    assert torch.equal(out.view(2, K, cp)[:, :, :C].reshape(2, K * C),
+                       netvlad_fused(x3, c, w, b))
+
+
+def test_netvlad_kernel_refuses_grad_and_runs_large_k(dev):
+    """Inference only; K past the old 128-cluster limit runs and matches plain."""
     x, c, w, b = _netvlad_inputs(dev, 1, 2, 2, 8, 4, 1)
     with pytest.raises(RuntimeError, match="inference-only"):
         netvlad_fused(x.requires_grad_(), c, w, b)
-    x, c, w, b = _netvlad_inputs(dev, 1, 2, 2, 8, 129, 1)
-    with pytest.raises(ValueError, match="K <= 128"):
-        netvlad_fused(x, c, w, b)
+    x, c, w, b = _netvlad_inputs(dev, 2, 3, 5, 8, 129, 1)
+    torch.testing.assert_close(netvlad_fused(x, c, w, b), netvlad_plain(x, c, w, b),
+                               rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
