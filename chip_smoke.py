@@ -30,7 +30,7 @@ Phases (any failure exits non-zero):
        16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
        with random biases;
-  4. five paths at full width, each with the launch counts set to 0 just
+  4. six paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -53,6 +53,19 @@ Phases (any failure exits non-zero):
        indexes searched on the CPU;
      - graded config 2 again with fuse_blocks=True (path B): the fused
        bottleneck trunk, descriptors held against the unfused run;
+     - graded config 5 (path C, aachen-1m-pod: resnet101 in bf16, fused
+       GeM head, 1024 px, batch 16): the corpus extracted, then
+       benchmarks.run_gallery_scale at 1,000,000 rows (distractors made on
+       the card, PCA learned and applied there, a bf16 gallery, exact
+       knn_search k=100 timed p50/p99, localization recall@1/5/10/20, the
+       pairs file, Index.save(external_gallery=True) into a temporary
+       directory, reload and a probe through fused top-k) and
+       localize_shortlist(k=20) on the reloaded artifact; after the
+       window, rank_candidates for the corpus's candidates on that gallery
+       against a dense ranking made on the card (equal ranks except where
+       scores lie within 1e-6; equal mAP), the bf16 descriptors against an
+       f32 run of the same weights on 16 images, and the four bf16 kernels
+       of the path against their plain versions at its own shapes;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
@@ -1099,6 +1112,325 @@ def fused_trunk_phase(dev, db_unfused, unfused):
     return launches, main
 
 
+BF16_BYTES = 2
+RANK_TIE_TOL = 1e-6  # scores this close may order differently in two GEMM shapes
+
+
+def _bf16_row(name, ms, plain_ms, byts, flops, library_ms, err, shape):
+    """A bf16 timing at path C's own shape: bound from the bf16 bytes (HBM)
+    and the flop at the f32 FMA rate, as the f32 rows count them."""
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    r = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+         "max_abs_err": err}
+    log(json.dumps({"kernel_timing_bf16": dict(r, name=name)}))
+    return r
+
+
+def _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store):
+    """The four bf16 kernels of path C against their plain versions at the
+    path's own shapes (outside its counting window), and timed there."""
+    import numpy as np
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        feature_mask,
+        rect_sizes,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        fused_topk_plain,
+        fused_topk_search,
+        gem_l2n_fused,
+        gem_l2n_fused_rect,
+        gem_l2n_plain,
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+
+    out = {}
+    p = ex.model.pool.p
+    batch = next(iter(ex.make_input_batches(images)))
+    px = torch.from_numpy(batch.pixels_u8).to(dev)
+    sz = torch.from_numpy(batch.sizes).to(dev)
+    with torch.no_grad():
+        B, H, W, _ = px.shape
+        row = torch.arange(H, device=dev)[None, :, None]
+        col = torch.arange(W, device=dev)[None, None, :]
+        mask = (row < sz[:, 0, None, None]) & (col < sz[:, 1, None, None])
+        x = (px.to(ex._nrm_a.dtype) * ex._nrm_a + ex._nrm_b) * mask[..., None]
+        feats = ex.model.trunk_nhwc(x)
+        sizes = rect_sizes(feature_mask(mask, x.shape[1:3], feats.shape[1:3]))
+        qfeats = ex.model.trunk_nhwc(torch.from_numpy(q_pixels).to(dev))
+    if feats.dtype != torch.bfloat16 or qfeats.dtype != torch.bfloat16:
+        raise AssertionError("config 5's trunk did not give a bf16 feature map")
+    del x, px
+    Bf, Hf, Wf, C = feats.shape
+    valid = int((sizes[:, 0] * sizes[:, 1]).sum())
+    e = (gem_l2n_fused_rect(feats, p, sizes) - gem_l2n_plain(feats, p, sizes)).abs().max().item()
+    out["gem_l2n_fused_rect"] = _bf16_row(
+        "gem_l2n_fused_rect", time_ms(lambda: gem_l2n_fused_rect(feats, p, sizes)),
+        time_ms(lambda: gem_l2n_plain(feats, p, sizes)),
+        valid * C * BF16_BYTES + Bf * C * 4 + Bf * 8 + 4, 4 * valid * C, None, e,
+        f"[{Bf}, {Hf}x{Wf}, {C}] bf16, {valid} of {Bf * Hf * Wf} valid")
+    Bq, Hq, Wq, _ = qfeats.shape
+    e = (gem_l2n_fused(qfeats, p) - gem_l2n_plain(qfeats, p)).abs().max().item()
+    out["gem_l2n_fused"] = _bf16_row(
+        "gem_l2n_fused", time_ms(lambda: gem_l2n_fused(qfeats, p)),
+        time_ms(lambda: gem_l2n_plain(qfeats, p)),
+        qfeats.numel() * BF16_BYTES + Bq * C * 4 + 4, 4 * qfeats.numel(), None, e,
+        f"[{Bq}, {Hq}x{Wq}, {C}] bf16")
+    for name, e in (("gem_l2n_fused_rect", out["gem_l2n_fused_rect"]["max_abs_err"]),
+                    ("gem_l2n_fused", out["gem_l2n_fused"]["max_abs_err"])):
+        if not e <= GEM_TOL:
+            raise AssertionError(f"{name} bf16 disagrees with its plain version on path C")
+    del feats, qfeats
+
+    Ng, D = gallery.shape
+    q = q_store.float()
+    Nq = q.shape[0]
+    s, bmax = scores_blockmax(gallery, q)
+    ps, _ = scores_blockmax_plain(gallery, q)
+    e_sb = (s[:, :Ng] - ps[:, :Ng]).abs().max().item()
+    if e_sb > TOPK_TOL or not torch.equal(bmax, s.view(Nq, -1, 64).amax(-1)):
+        raise AssertionError("scores_blockmax bf16 disagrees with its plain version on path C")
+    del s, ps, bmax
+    ng_pad = -(-Ng // 64) * 64
+    out["scores_blockmax"] = _bf16_row(
+        "scores_blockmax", time_ms(lambda: scores_blockmax(gallery, q), reps=10),
+        time_ms(lambda: scores_blockmax_plain(gallery, q), reps=5),
+        Ng * D * BF16_BYTES + Nq * D * 4 + Nq * ng_pad * 4 + Nq * (ng_pad // 64) * 4,
+        2 * Nq * Ng * D, time_ms(lambda: q_store @ gallery.T, reps=10), e_sb,
+        f"{Nq} x {Ng} x {D} bf16 (library: q @ g.T in bf16, bf16 out)")
+    torch.cuda.empty_cache()
+    errs = []
+    for k in (20, 100):
+        fs, fi = fused_topk_search(gallery, q, k)
+        ps, pi = fused_topk_plain(gallery, q, k)
+        ok, e = _check_search_case(fs, fi, ps, pi)
+        if not ok:
+            raise AssertionError(f"fused_topk bf16 k={k} disagrees with its plain version on "
+                                 f"path C")
+        errs.append(e)
+        del fs, fi, ps, pi
+        torch.cuda.empty_cache()
+    out["fused_topk_search"] = _bf16_row(
+        "fused_topk_search", time_ms(lambda: fused_topk_search(gallery, q, 20), reps=10),
+        time_ms(lambda: fused_topk_plain(gallery, q, 20), reps=3),
+        Ng * D * BF16_BYTES + Nq * D * 4 + Nq * 20 * 8, 2 * Nq * Ng * D,
+        time_ms(lambda: torch.topk(q_store @ gallery.T, 20, dim=1), reps=10), max(errs),
+        f"{Nq} x {Ng} x {D} bf16, k=20 (checked at k=20 and 100; library: "
+        f"torch.topk(q @ g.T) in bf16)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dense_candidate_ranks(gallery, q_store, cand):
+    """Each candidate's position in a dense stable descending sort of all
+    [Nq, Ng] scores made on the card in one product, and how many other rows
+    score within RANK_TIE_TOL of it."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+        score_matrix,
+    )
+
+    scores = score_matrix(gallery, q_store.float())  # [Nq, Ng]
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(order.shape[1], device=order.device)
+                 .expand_as(order).contiguous())
+    dense = torch.gather(pos, 1, cand)
+    s_c = torch.gather(scores, 1, cand)
+    near = torch.stack([((scores - s_c[:, j : j + 1]).abs() <= RANK_TIE_TOL).sum(1) - 1
+                        for j in range(cand.shape[1])], 1)
+    return dense, near
+
+
+def config5_phase(dev):
+    """Path C: graded config 5 (aachen-1m-pod) through its entry points at
+    full width: config 5's Extractor on the corpus, run_gallery_scale at
+    1,000,000 rows with its artifacts in a temporary directory, and
+    localize_shortlist(k=20) on the reloaded artifact, in one counting
+    window; then the checks that need more launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        GALLERY_SCALE,
+        run_gallery_scale,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        candidate_matrix,
+        compute_map_streaming_and_print,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.localization import (
+        localize_shortlist,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+        rank_candidates,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import (
+        MetricsLogger,
+    )
+
+    images, labels, q_u8 = make_corpus()
+    graded = GRADED_CONFIGS[5]
+    cfg = dataclasses.replace(graded.extract, batch_size=16)
+    mc = cfg.model
+    q_pixels = ((q_u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(
+        np.float32)
+    gnd = [{"ok": np.flatnonzero(labels == s)} for s in range(len(q_u8))]
+    qnames = [f"query{i}.jpg" for i in range(len(q_u8))]
+    dbnames = [f"db{i}.jpg" for i in range(len(images))]
+    n_rows = GALLERY_SCALE[5]
+    log(f"[config 5] {graded.name}: {mc.arch} {mc.pooling} {mc.dtype}, fused head "
+        f"{mc.use_pallas}, {cfg.image_size} px, batch {cfg.batch_size}, index {graded.index}, "
+        f"{len(images)} db images + {n_rows - len(images):,} distractors = {n_rows:,} rows, "
+        f"{len(q_u8)} queries, k=100")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="config5_") as tmp:
+        need = n_rows * 2048 * 2
+        free = shutil.disk_usage(tmp).free
+        log(f"[config 5] artifact directory {tmp}: {free / 1e9:.1f} GB free, the sidecar "
+            f"needs {need / 1e9:.2f} GB")
+        if free < need * 1.1:
+            raise RuntimeError("not enough disk for config 5's index artifact")
+        ex = port.Extractor(cfg, seed=0, device=dev)
+        logger = MetricsLogger(path=os.path.join(tmp, "config5.jsonl"), echo=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        db = ex.extract(images)                   # bucketed: masked head kernel
+        torch.cuda.synchronize()
+        t_extract = time.perf_counter() - t0
+        qd = ex(q_pixels)                         # whole images: unmasked head kernel
+        t0 = time.perf_counter()
+        res = run_gallery_scale(5, db, qd, gnd, logger=logger, out_dir=tmp, device=dev,
+                                query_names=qnames, db_names=dbnames)
+        torch.cuda.synchronize()
+        t_gallery = time.perf_counter() - t0
+        pairs, _ = localize_shortlist(res["artifact"], qd, qnames,
+                                      dbnames + [f"distractor{i}"
+                                                 for i in range(n_rows - len(images))], k=20)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"[config 5] launches {launches}")
+        for name in ("gem_l2n_fused_rect", "gem_l2n_fused", "scores_blockmax",
+                     "fused_topk_search"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the config 5 path")
+        recs = [json.loads(line) for line in open(os.path.join(tmp, "config5.jsonl"))]
+        timed = next(r for r in recs if "queries_per_sec" in r)
+        art = next(r for r in recs if r.get("event") == "index_artifact")
+
+        idx = res["indices"]
+        if db.shape != (len(images), ex.out_dim) or not np.isfinite(db).all():
+            raise AssertionError("config 5 descriptors are not finite [N, 2048]")
+        if max(np.abs(np.linalg.norm(d, axis=1) - 1).max() for d in (db, qd)) > 1e-4:
+            raise AssertionError("config 5 descriptors are not unit-norm")
+        if idx.shape != (len(q_u8), 100) or res["gallery"].shape[0] != n_rows:
+            raise AssertionError("config 5's search has the wrong shape")
+        if not res["top1_in_core"] > 0.8:
+            raise AssertionError(f"top1_in_core {res['top1_in_core']}: core matches must "
+                                 f"beat random distractors")
+        top1_pairs = [pairs[i * 20][1] for i in range(len(q_u8))]
+        same_top1 = sum(top1_pairs[i] == (dbnames[idx[i, 0]] if idx[i, 0] < len(images)
+                                          else f"distractor{idx[i, 0] - len(images)}")
+                        for i in range(len(q_u8)))
+        if same_top1 != len(q_u8):
+            raise AssertionError("localize_shortlist on the reloaded artifact disagrees with "
+                                 "the timed search's top-1")
+        log(f"[config 5] extraction {len(images) / t_extract:.2f} img/s ({t_extract:.2f} s), "
+            f"gallery run {t_gallery:.1f} s; knn_search k=100 over {n_rows:,} x "
+            f"{res['gallery'].shape[1]} bf16, {len(qd)} queries: "
+            f"{timed['queries_per_sec']:.1f} q/s, p50 {timed['lat_p50_s'] * 1e3:.3f} ms, "
+            f"p99 {timed['lat_p99_s'] * 1e3:.3f} ms; recall {res['recall']['recall']}; "
+            f"top1_in_core {res['top1_in_core']:.3f}; artifact {art['gallery_sidecar_bytes']:,} "
+            f"bytes, save {art['save_s']:.2f} s, reload + upload {art['reload_s']:.2f} s; "
+            f"localize_shortlist top-1 equal to the timed search on {same_top1} of "
+            f"{len(q_u8)}")
+        out.update(extract_img_per_s=len(images) / t_extract, gallery_rows=n_rows,
+                   knn_q_per_s=timed["queries_per_sec"], knn_p50_ms=timed["lat_p50_s"] * 1e3,
+                   knn_p95_ms=timed["lat_p95_s"] * 1e3, knn_p99_ms=timed["lat_p99_s"] * 1e3,
+                   recall={str(k): v for k, v in res["recall"]["recall"].items()},
+                   top1_in_core=res["top1_in_core"], sidecar_bytes=art["gallery_sidecar_bytes"],
+                   save_s=art["save_s"], reload_s=art["reload_s"],
+                   gallery_run_s=t_gallery)
+        del res["artifact"], pairs
+
+    gallery, q_store = res["gallery"], res["queries"]
+    # streaming candidate ranks against a dense ranking on the card
+    cand = torch.from_numpy(candidate_matrix(gnd)).to(dev, torch.int64)
+    torch.cuda.synchronize()
+    t_rank = []
+    for _ in range(2):  # the first call also pays the allocator's first use
+        t0 = time.perf_counter()
+        streamed = rank_candidates(gallery, q_store.float(), cand)
+        torch.cuda.synchronize()
+        t_rank.append(time.perf_counter() - t0)
+    dense, near = _dense_candidate_ranks(gallery, q_store, cand)
+    diff = (streamed.long() - dense).abs()
+    n_near = int((near > 0).sum())
+    n_moved = int((diff > 0).sum())
+    if bool((diff > near).any()):
+        raise AssertionError("rank_candidates differs from the dense ranking beyond near ties")
+    map_s = compute_map_streaming_and_print("config5 streamed", streamed.cpu().numpy(), gnd)
+    map_d = compute_map_streaming_and_print("config5 dense", dense.cpu().numpy(), gnd)
+    log(f"[config 5] rank_candidates {tuple(cand.shape)} candidates over {n_rows:,} rows: "
+        f"{t_rank[0] * 1e3:.1f} ms first call, {t_rank[1] * 1e3:.1f} ms second; against the dense ranking on the card: {n_moved} ranks "
+        f"differ, {n_near} candidates have another score within {RANK_TIE_TOL}; mAP "
+        f"{map_s['map']:.6f} streamed, {map_d['map']:.6f} dense")
+    if map_s["map"] != map_d["map"]:
+        raise AssertionError("streamed mAP differs from the dense ranking's")
+    out.update(rank_candidates_ms=t_rank[0] * 1e3, rank_candidates_warm_ms=t_rank[1] * 1e3,
+               rank_differ=n_moved, rank_near_ties=n_near,
+               map=map_s["map"])
+    del streamed, dense, near, cand
+    torch.cuda.empty_cache()
+
+    # the four bf16 kernels at this path's shapes
+    out["bf16_kernels"] = _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store)
+    del gallery, q_store, res
+    torch.cuda.empty_cache()
+
+    # warm extraction, its profile, and bf16 against f32 on the same weights
+    t0 = time.perf_counter()
+    db_warm = ex.extract(images)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    prof = profile_window(lambda: ex.extract(images))
+    log(f"[config 5] warm extraction {len(images) / t_warm:.2f} img/s ({t_warm:.2f} s), "
+        f"max|diff| to the first run {np.abs(db_warm - db).max():.3e}; profiled: "
+        f"{json.dumps(prof)}")
+    ex32 = port.Extractor(dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, dtype="float32")), state_dict=ex.model.state_dict(), device=dev)
+    sub = images[:16]
+    d16, d32 = ex.extract(sub), ex32.extract(sub)
+    cos = (d16 * d32).sum(1) / np.linalg.norm(d16, axis=1) / np.linalg.norm(d32, axis=1)
+    log(f"[config 5] bf16 vs f32 descriptors, same weights, 16 images: max|diff| "
+        f"{np.abs(d16 - d32).max():.3e}, min cosine {cos.min():.6f}")
+    if not (np.isfinite(d16).all() and cos.min() > 0.9):
+        raise AssertionError("bf16 descriptors stray from the f32 run of the same weights")
+    out.update(extract_warm_img_per_s=len(images) / t_warm, profile=prof,
+               bf16_vs_f32_max_abs_diff=float(np.abs(d16 - d32).max()),
+               bf16_vs_f32_min_cos=float(cos.min()))
+    del ex, ex32
+    torch.cuda.empty_cache()
+    log(json.dumps({"config5": out}))
+    return launches, out
+
+
 def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
@@ -1315,8 +1647,10 @@ def main() -> int:
     launches_long, long_main = long_search_phase(dev)
     launches_ann, ann_main = ann_phase(dev)
     launches_b, main_b = fused_trunk_phase(dev, db2, main2)
+    launches_c5, main_c5 = config5_phase(dev)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
-               "ann": launches_ann, "config2_fused_trunk": launches_b}
+               "ann": launches_ann, "config2_fused_trunk": launches_b,
+               "config5": launches_c5}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -1325,9 +1659,17 @@ def main() -> int:
                 scores_blockmax=max(sb_err, long_err, long_main["long_query_err"],
                                     shape_errs["scores_blockmax"]),
                 adc_scores=adc_in["err"], bottleneck_fused=bn_err)
+    bf16 = main_c5["bf16_kernels"]
+    for kname, r in bf16.items():
+        errs[kname] = max(errs[kname], r["max_abs_err"])
     rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs)
+    for r in rows:  # rows 1-4 also carry their bf16 times at path C's shapes
+        if r["name"] in bf16:
+            r["bf16"] = bf16[r["name"]]
     log(json.dumps({"main_path": {"config2": main2, "config3": main3, "long_search": long_main,
                                   "ann": ann_main, "config2_fused_trunk": main_b,
+                                  "config5": {k: v for k, v in main_c5.items()
+                                              if k != "bf16_kernels"},
                                   "bottleneck_rel_err": bn_rel,
                                   "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)

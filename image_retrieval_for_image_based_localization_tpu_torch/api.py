@@ -87,8 +87,9 @@ class Extractor:
     """Descriptor extraction engine.
 
     Args:
-      cfg: ExtractConfig (float32 ResNet or VGG-16 + GeM/MAC/SPoC/NetVLAD;
-        ``use_pallas`` selects the hand-written CUDA head).
+      cfg: ExtractConfig (ResNet or VGG-16 + GeM/MAC/SPoC/NetVLAD, float32
+        or bfloat16 compute; ``use_pallas`` selects the hand-written CUDA
+        head).
       state_dict: weights for ``RetrievalNet`` (this package's layout; see
         ``models.flax_port`` for flax variables). None: random weights from
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
@@ -97,6 +98,11 @@ class Extractor:
     ``cfg.fuse_blocks=True`` (bottleneck resnets) folds the trunk's BN once
     here and runs it through ``models.fused_trunk``, the fused bottleneck
     kernel included; the head then runs on the precomputed features.
+
+    With ``dtype="bfloat16"`` the model computes in bf16 (parameters stay
+    f32): uint8 input is normalized straight into bf16, a multi-scale
+    resize runs on those bf16 pixels, and f32 pixels given to ``__call__``
+    are cast at the trunk's input, as in the JAX package.
     """
 
     def __init__(self, cfg: ExtractConfig, state_dict: Optional[Dict] = None,
@@ -107,7 +113,7 @@ class Extractor:
         mc = cfg.model
         model = RetrievalNet(arch=mc.arch, pooling=mc.pooling, whiten_dim=mc.whiten_dim,
                              gem_p=mc.gem_p, use_kernel=mc.use_pallas,
-                             netvlad_clusters=mc.netvlad_clusters)
+                             netvlad_clusters=mc.netvlad_clusters, dtype=mc.dtype)
         if state_dict is None:
             init_random_(model, torch.Generator().manual_seed(seed))
         else:
@@ -116,11 +122,13 @@ class Extractor:
         # None stays off, as in the JAX package
         self._folded = fold_trunk(self.model.features) if cfg.fuse_blocks else None
         self.scales = tuple(sorted(cfg.scales, reverse=True))
-        # u8 -> f32 normalize as one scale-and-shift, constants from float64
+        # u8 -> compute dtype as one scale-and-shift in that dtype, the
+        # constants computed in float64 and rounded once to it
+        dt = self.model.compute_dtype
         std = np.asarray(IMAGENET_STD, np.float64)
         mean = np.asarray(IMAGENET_MEAN, np.float64)
-        self._nrm_a = torch.tensor(1.0 / (255.0 * std), dtype=torch.float32, device=self.device)
-        self._nrm_b = torch.tensor(-mean / std, dtype=torch.float32, device=self.device)
+        self._nrm_a = torch.tensor(1.0 / (255.0 * std), dtype=torch.float64).to(dt).to(self.device)
+        self._nrm_b = torch.tensor(-mean / std, dtype=torch.float64).to(dt).to(self.device)
 
     @property
     def out_dim(self) -> int:
@@ -175,7 +183,7 @@ class Extractor:
         row = torch.arange(H, device=self.device)[None, :, None]
         col = torch.arange(W, device=self.device)[None, None, :]
         mask = (row < sizes[:, 0, None, None]) & (col < sizes[:, 1, None, None])
-        x = pixels_u8.to(torch.float32) * self._nrm_a + self._nrm_b
+        x = pixels_u8.to(self._nrm_a.dtype) * self._nrm_a + self._nrm_b
         x = x * mask[..., None]  # zero padding in normalized space
         return self.forward(x, mask)
 

@@ -7,6 +7,14 @@ loads with ``load_state_dict`` as it is. Weights are NCHW; activations run
 in ``channels_last`` memory, so the [B, C, h, w] output permuted to
 [B, h, w, C] is a free view, which is the [B, h*w, C] layout the head
 kernel reads.
+
+A bf16 input runs the trunk in bf16 with the parameters kept f32, with
+the JAX package's rounding points (flax ``nn.Conv(dtype=bf16)`` and
+``nn.BatchNorm(dtype=bf16)``): each convolution takes bf16 input and bf16
+weights, sums in f32 and rounds to bf16 (:func:`conv_lowp`); BatchNorm
+computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 on that
+output and rounds once (:func:`bn_lowp`); ReLU, max-pool and the residual
+add run in bf16. A float32 input takes the f32 modules as they are.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 # (block, layers-per-stage, expansion)
 RESNET_SPECS = {
@@ -24,6 +33,52 @@ RESNET_SPECS = {
     "resnet101": ("bottleneck", (3, 4, 23, 3), 4),
     "resnet152": ("bottleneck", (3, 8, 36, 3), 4),
 }
+
+
+def lowp_weight(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``conv.weight`` in ``dtype`` (channels_last), cast once and kept on
+    the module: made again only when the weight moves to another device or
+    is written (``load_state_dict``), never on every forward."""
+    w = conv.weight
+    key = (dtype, w.device, w.data_ptr(), w._version)
+    cached = getattr(conv, "_lowp_weight", None)
+    if cached is None or cached[0] != key:
+        lp = w.detach().to(dtype).contiguous(memory_format=torch.channels_last)
+        cached = (key, lp)
+        conv._lowp_weight = cached
+    return cached[1]
+
+
+def conv_lowp(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The convolution (no bias) on a bf16 input: bf16 operands, f32 sums,
+    rounded to bf16. On the card that is cuDNN's bf16 convolution (f32
+    accumulation); on the CPU the f32 convolution of the same bf16 values,
+    rounded once."""
+    w = lowp_weight(conv, x.dtype)
+    if x.is_cuda:
+        return F.conv2d(x, w, None, conv.stride, conv.padding)
+    return F.conv2d(x.float(), w.float(), None, conv.stride, conv.padding).to(x.dtype)
+
+
+def bn_lowp(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm of a bf16 map as flax computes it: in f32,
+    ``(y - mean) * (rsqrt(var + eps) * scale) + bias``, rounded once."""
+    shape = (1, -1, 1, 1)
+    mul = (torch.rsqrt(bn.running_var + bn.eps) * bn.weight).reshape(shape)
+    t = y.float()
+    t.sub_(bn.running_mean.reshape(shape)).mul_(mul).add_(bn.bias.reshape(shape))
+    return t.to(y.dtype)
+
+
+def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16)."""
+    if x.dtype == torch.float32:
+        return bn(conv(x))
+    return bn_lowp(bn, conv_lowp(conv, x))
+
+
+def _downsample(ds: Optional[nn.Sequential], x: torch.Tensor) -> torch.Tensor:
+    return x if ds is None else conv_bn(ds[0], ds[1], x)
 
 
 class BasicBlock(nn.Module):
@@ -40,9 +95,9 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        identity = _downsample(self.downsample, x)
+        out = self.relu(conv_bn(self.conv1, self.bn1, x))
+        out = conv_bn(self.conv2, self.bn2, out)
         return self.relu(out + identity)
 
 
@@ -63,15 +118,16 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        identity = _downsample(self.downsample, x)
+        out = self.relu(conv_bn(self.conv1, self.bn1, x))
+        out = self.relu(conv_bn(self.conv2, self.bn2, out))
+        out = conv_bn(self.conv3, self.bn3, out)
         return self.relu(out + identity)
 
 
 class ResNetTrunk(nn.Module):
-    """ResNet feature trunk: [B, 3, H, W] -> [B, C, H/32, W/32] (NCHW logical)."""
+    """ResNet feature trunk: [B, 3, H, W] -> [B, C, H/32, W/32] (NCHW logical),
+    in the input's dtype (float32 or bfloat16)."""
 
     def __init__(self, arch: str = "resnet50"):
         super().__init__()
@@ -98,5 +154,5 @@ class ResNetTrunk(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(self.relu(conv_bn(self.conv1, self.bn1, x)))
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))

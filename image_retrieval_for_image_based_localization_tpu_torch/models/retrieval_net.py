@@ -10,6 +10,11 @@ are torchvision-named loads as it is (see ``models.flax_port``).
 (``ops.kernels.gem_l2n``, ``ops.kernels.netvlad``), the counterpart of the
 JAX package's ``use_pallas``. Inputs keep the JAX package's layout: NHWC
 pixels ``[B, H, W, 3]`` and an optional validity mask ``[B, H, W]``.
+
+``dtype="bfloat16"`` runs the trunk in bf16 (pixels cast at its input, as
+flax casts at the first convolution) with f32 parameters. The head routes
+by dtype as the JAX head does: the fused GeM kernel reads the bf16 map as
+it is and accumulates in f32; every other head pools ``feats.float()``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.pooling import g
 
 OUTPUT_DIM = {**{arch: 512 * spec[2] for arch, spec in RESNET_SPECS.items()}, "vgg16": 512}
 POOLINGS = ("gem", "mac", "spoc", "netvlad")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class GeM(nn.Module):
@@ -93,10 +99,13 @@ class RetrievalNet(nn.Module):
         gem_p_trainable: bool = True,
         use_kernel: bool = False,
         netvlad_clusters: int = 64,
+        dtype: str = "float32",
     ):
         super().__init__()
         if pooling not in POOLINGS:
             raise ValueError(f"unknown pooling {pooling!r}")
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r} (one of {tuple(DTYPES)})")
         self.arch = arch
         self.pooling = pooling
         self.whiten_dim = whiten_dim
@@ -104,6 +113,7 @@ class RetrievalNet(nn.Module):
         self.gem_p_trainable = gem_p_trainable
         self.use_kernel = use_kernel
         self.netvlad_clusters = netvlad_clusters
+        self.compute_dtype = DTYPES[dtype]
         self.features = VGGTrunk() if arch == "vgg16" else ResNetTrunk(arch)
         if pooling == "gem":
             self.pool = GeM(gem_p, gem_p_trainable)
@@ -122,8 +132,10 @@ class RetrievalNet(nn.Module):
         return self.whiten_dim if self.whiten_dim is not None else self.pooled_dim
 
     def trunk_nhwc(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC pixels -> NHWC features [B, h, w, C] (contiguous)."""
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        """NHWC pixels -> NHWC features [B, h, w, C] (contiguous), in the
+        compute dtype."""
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         return self.features(x).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -5,11 +5,18 @@ convs with ReLU, no BN) with the final max-pool stripped, as the cirtorch
 lineage does (``features.children()[:-1]``), so the trunk has stride 16 and
 512 channels. The layers sit at torchvision's indices 0-29, so a torchvision
 or cirtorch ``features.N.weight/bias`` ``state_dict`` loads as it is.
+
+A bf16 input runs in bf16 as flax's ``nn.Conv(dtype=bf16)`` does: the
+convolution rounds to bf16 (``resnet.conv_lowp``), then the bias, cast to
+bf16, is added in bf16; ReLU and max-pool stay in bf16.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+
+from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import conv_lowp
 
 # torchvision vgg16 cfg "D": numbers are conv widths, "M" is 2x2 maxpool
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512)
@@ -30,6 +37,16 @@ class VGGTrunk(nn.Sequential):
                 layers += [nn.Conv2d(in_ch, v, 3, padding=1), nn.ReLU(inplace=True)]
                 in_ch = v
         super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        for layer in self:
+            if isinstance(layer, nn.Conv2d):
+                x = conv_lowp(layer, x) + layer.bias.to(x.dtype).reshape(1, -1, 1, 1)
+            else:
+                x = layer(x)
+        return x
 
 
 def conv_indices():

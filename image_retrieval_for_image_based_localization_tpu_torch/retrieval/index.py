@@ -2,7 +2,11 @@
 
 The JAX package's ``retrieval/index.py``: the gallery matrix, whitening
 ``(m, P)`` and the image-id list save and load as one compressed ``.npz`` in
-the same layout, so each package loads the other's index.
+the same layout, so each package loads the other's index. A large gallery
+can go to an uncompressed ``.gallery.npy`` sidecar instead, which loads
+memory-mapped. A bf16 gallery is written as a ``uint16`` bit-view with
+``meta["gallery_dtype"] = "bfloat16"`` and held as that bit-view on the host:
+nothing widens it to f32.
 
 Search routing in :meth:`Index.query` is a fixed rule on shape and dtype:
 exact top-k with ``k <= 128`` over an f32 or bf16 gallery goes to the
@@ -18,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional, Sequence, Tuple
+import warnings
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,12 +57,15 @@ _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.
 class Index:
     """Exact-search descriptor index.
 
-    ``gallery`` is the host copy ([N, D'] f32, whitened and L2-normalized);
-    the device copy is made once in the ``storage`` dtype ('float32',
+    ``gallery`` holds the whitened, L2-normalized rows [N, D'] as one of: a
+    host f32 array; a host ``uint16`` array, the bit-view of a bf16 gallery
+    (what :meth:`load` gives for a bf16 artifact, memory-mapped from a
+    sidecar); or a torch tensor, such as a bf16 gallery already on the
+    card. The device copy is made once in the ``storage`` dtype ('float32',
     'bfloat16', or 'int8' as symmetric /127 quantization) on ``device``.
     """
 
-    gallery: np.ndarray
+    gallery: Union[np.ndarray, torch.Tensor]
     m: Optional[np.ndarray] = None      # whitening mean [D]
     P: Optional[np.ndarray] = None      # whitening projection [D', D]
     dims: Optional[int] = None
@@ -70,14 +78,22 @@ class Index:
         default=None, repr=False, compare=False)
 
     def device_gallery(self) -> torch.Tensor:
-        """Device-resident gallery in the ``storage`` dtype, uploaded once."""
+        """Device-resident gallery in the ``storage`` dtype, uploaded once.
+        A bf16 bit-view is viewed as bf16 (never widened on the host)."""
         if self._device_gallery is None:
             if self.storage not in _STORAGE:
                 raise ValueError(f"unknown storage {self.storage!r}")
-            g = torch.from_numpy(np.ascontiguousarray(self.gallery, dtype=np.float32))
+            g = self.gallery
+            if isinstance(g, np.ndarray) and g.dtype == np.uint16:
+                with warnings.catch_warnings():  # a read-only memory map
+                    warnings.simplefilter("ignore", UserWarning)
+                    g = torch.from_numpy(np.ascontiguousarray(g)).view(torch.bfloat16)
+            elif not isinstance(g, torch.Tensor):
+                g = torch.from_numpy(np.ascontiguousarray(g, dtype=np.float32))
+            g = g.to(self.device)
             if self.storage == "int8":
-                g = torch.clamp(torch.round(g * 127.0), -127, 127)
-            self._device_gallery = g.to(self.device).to(_STORAGE[self.storage]).contiguous()
+                g = torch.clamp(torch.round(g.float() * 127.0), -127, 127)
+            self._device_gallery = g.to(_STORAGE[self.storage]).contiguous()
         return self._device_gallery
 
     @classmethod
@@ -162,22 +178,48 @@ class Index:
 
     # -- persistence ---------------------------------------------------------
 
-    def save(self, path: str) -> None:
-        """Persist as one compressed npz (the JAX package's layout)."""
+    def save(self, path: str, external_gallery: bool = False) -> None:
+        """Persist in the JAX package's layout: one compressed npz, or with
+        ``external_gallery=True`` the small arrays in the npz and the gallery
+        as an uncompressed ``<path>.gallery.npy`` sidecar (written to a
+        ``.tmp`` file, then renamed), which :meth:`load` maps. A bf16
+        gallery is written as its ``uint16`` bit-view with
+        ``meta["gallery_dtype"] = "bfloat16"``."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         meta = {"dims": self.dims, "version": 1, "storage": self.storage}
-        np.savez_compressed(
-            path,
-            meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        arrays = dict(
             m=np.zeros(0) if self.m is None else self.m,
             P=np.zeros((0, 0)) if self.P is None else self.P,
             ids=np.zeros(0) if self.ids is None else self.ids,
-            gallery=np.asarray(self.gallery),
+        )
+        gallery = self.gallery
+        if isinstance(gallery, torch.Tensor):
+            gallery = gallery.detach().cpu().contiguous()
+            gallery = (gallery.view(torch.int16).numpy().view(np.uint16)
+                       if gallery.dtype == torch.bfloat16 else gallery.numpy())
+        gallery = np.asarray(gallery)
+        if gallery.dtype == np.uint16:
+            meta["gallery_dtype"] = "bfloat16"
+        if external_gallery:
+            gpath = path.removesuffix(".npz") + ".gallery.npy"
+            meta["external_gallery"] = os.path.basename(gpath)
+            tmp = gpath + ".tmp"
+            with open(tmp, "wb") as f:  # a file object: np.save adds no suffix
+                np.save(f, gallery)
+            os.replace(tmp, gpath)
+        else:
+            arrays["gallery"] = gallery
+        np.savez_compressed(
+            path,
+            meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+            **arrays,
         )
 
     @classmethod
     def load(cls, path: str, device: DeviceLike = "cuda") -> "Index":
-        """Load an index saved by either package."""
+        """Load an index saved by either package. A sidecar gallery stays
+        memory-mapped; a bf16 one stays its ``uint16`` bit-view, which
+        :meth:`device_gallery` views as bf16 on upload."""
         dev = resolve_device(device)
         if not path.endswith(".npz"):
             path = path + ".npz"
@@ -193,9 +235,9 @@ class Index:
             else:
                 gallery = z["gallery"]
         if meta.get("gallery_dtype") == "bfloat16":
-            # saved as a uint16 bit-view; widen through torch (bf16 -> f32 is exact)
-            bits = torch.from_numpy(np.ascontiguousarray(gallery, dtype=np.uint16))
-            gallery = bits.view(torch.bfloat16).float().numpy()
+            if gallery.dtype != np.uint16:
+                raise ValueError(f"a bf16 gallery must be saved as uint16 bits, got "
+                                 f"{gallery.dtype}")
         elif meta.get("gallery_dtype"):
             raise ValueError(f"unsupported gallery dtype {meta['gallery_dtype']!r}")
         return cls(

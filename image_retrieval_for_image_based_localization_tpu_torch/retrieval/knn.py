@@ -12,6 +12,10 @@ score/block-max kernel and the exact block-max selection
 ``blockmax_topk``); int8 storage and CPU tensors take dense scores and a
 stable sort. The kernel ``ops.kernels.fused_topk`` covers k <= 128 without
 a score matrix.
+
+:func:`rank_candidates` gives the global rank of chosen gallery rows by
+streaming counts over the gallery (no ``[Ng, Nq]`` ranking), for mAP on
+large galleries.
 """
 
 from __future__ import annotations
@@ -119,3 +123,72 @@ def full_ranks(gallery: torch.Tensor, queries: torch.Tensor, batch: int = 256) -
         order = torch.sort(scores, dim=1, descending=True, stable=True).indices
         ranks.append(order.T.cpu().numpy())
     return np.concatenate(ranks, axis=1)
+
+
+def rank_candidates_core(
+    gallery: torch.Tensor,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Global 0-based rank of each candidate gallery row, by streaming count
+    (the JAX package's single-device ``rank_candidates_core``).
+
+    Under the descending stable order (lower index first on ties) a
+    candidate's rank is a count::
+
+        rank(c) = #{g : s_g > s_c} + #{g : s_g == s_c and g < c}
+
+    Two passes over the same gallery chunks: the first reads the
+    candidates' own scores out of each chunk's score block, the second
+    counts. Both score every chunk with the same shapes, so a candidate's
+    score is the very bits it is compared with and the count keeps NumPy's
+    ``argsort(kind='stable')`` order exactly. Plain torch on the gallery's
+    device; the chunk bounds the ``[Nq, chunk, C]`` compare to 32 Mi
+    elements by default.
+
+    Args:
+      gallery: [Ng, D] f32, bf16 or int8 (as ``score_matrix`` takes it).
+      queries: [Nq, D] f32.
+      cand: [Nq, C] integer gallery rows (pad with any valid row and ignore
+        its output).
+    Returns: [Nq, C] int32 ranks.
+    """
+    Ng = gallery.shape[0]
+    Nq, C = cand.shape
+    if chunk is None:
+        budget_elems = 32 * 1024 * 1024
+        chunk = max(512, budget_elems // max(Nq * C, 1))
+        chunk = -(-chunk // 128) * 128
+    chunk = min(chunk, Ng)
+    dev = gallery.device
+    queries = queries.to(dev)
+    cand = torch.as_tensor(cand).to(dev, torch.int64)
+    starts = range(0, Ng, chunk)
+
+    cs = torch.zeros((Nq, C), dtype=torch.float32, device=dev)
+    for start in starts:
+        s = score_matrix(gallery[start : start + chunk], queries)  # [Nq, n]
+        lc = cand - start
+        inb = (lc >= 0) & (lc < s.shape[1])
+        g = torch.gather(s, 1, torch.clamp(lc, 0, s.shape[1] - 1))
+        cs = torch.where(inb, g, cs)
+
+    counts = torch.zeros((Nq, C), dtype=torch.int64, device=dev)
+    for start in starts:
+        s = score_matrix(gallery[start : start + chunk], queries)  # [Nq, n]
+        gidx = torch.arange(start, start + s.shape[1], device=dev)
+        s3, c3 = s[:, :, None], cs[:, None, :]
+        ahead = (s3 > c3) | ((s3 == c3) & (gidx[None, :, None] < cand[:, None, :]))
+        counts += ahead.sum(dim=1)
+    return counts.to(torch.int32)
+
+
+def rank_candidates(
+    gallery: torch.Tensor,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-device entry for :func:`rank_candidates_core` (see there)."""
+    return rank_candidates_core(gallery, queries, cand, chunk=chunk)

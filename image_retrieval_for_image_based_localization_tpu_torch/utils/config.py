@@ -4,7 +4,8 @@ Copied from the JAX package's ``utils/config.py`` (same fields, defaults and
 graded configs), so a config written for one package means the same thing in
 the other. A field that selects TPU-only machinery (``s2d_stem``) is kept
 for compatibility and rejected by :func:`check_supported` when set;
-``fuse_blocks`` is taken for bottleneck resnets, and ``native_preproc``
+``fuse_blocks`` is taken for f32 bottleneck resnets, ``dtype="bfloat16"``
+runs the trunk in bf16 (graded configs 4 and 5), and ``native_preproc``
 selects the native C++ decoder for path inputs as in the JAX package.
 """
 
@@ -122,6 +123,7 @@ GRADED_CONFIGS = {
 # what this package runs so far; the rest of the JAX package's options come
 # with later parts of the port
 _SUPPORTED_POOLING = ("gem", "mac", "spoc", "netvlad")
+_SUPPORTED_DTYPES = ("float32", "bfloat16")
 _BOTTLENECK_ARCHS = ("resnet50", "resnet101", "resnet152")
 
 
@@ -133,8 +135,12 @@ def check_supported(cfg: ExtractConfig) -> None:
     if cfg.fuse_blocks and mc.arch not in _BOTTLENECK_ARCHS:
         raise ValueError(f"fuse_blocks (fused bottleneck trunk) needs a bottleneck resnet "
                          f"{_BOTTLENECK_ARCHS}, not {mc.arch!r}")
-    if mc.dtype != "float32":
-        raise ValueError(f"dtype {mc.dtype!r} is not supported; only float32")
+    if mc.dtype not in _SUPPORTED_DTYPES:
+        raise ValueError(f"dtype {mc.dtype!r} is not supported (one of {_SUPPORTED_DTYPES})")
+    if cfg.fuse_blocks and mc.dtype != "float32":
+        raise ValueError(f"fuse_blocks with dtype {mc.dtype!r}: the fused bottleneck kernel "
+                         f"(csrc/bottleneck.cu, kernel B8) has no bf16 variant yet; "
+                         f"it runs float32 only")
     if mc.regional:
         raise ValueError("regional pooling is not supported")
     if not (mc.arch.startswith("resnet") or mc.arch == "vgg16"):

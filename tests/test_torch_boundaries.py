@@ -72,7 +72,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
 
 def test_unported_options_raise():
-    for mc in (port.ModelConfig(dtype="bfloat16"), port.ModelConfig(s2d_stem=True),
+    for mc in (port.ModelConfig(dtype="float16"), port.ModelConfig(s2d_stem=True),
                port.ModelConfig(regional=True), port.ModelConfig(arch="alexnet"),
                port.ModelConfig(arch="squeezenet1_1"), port.ModelConfig(arch="densenet121"),
                port.ModelConfig(arch="vgg16", pooling="gemmp")):
@@ -83,7 +83,14 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match="fuse_blocks"):
             port.Extractor(port.ExtractConfig(model=port.ModelConfig(arch=arch),
                                               fuse_blocks=True), device="cpu")
+    # and f32 only: the fused bottleneck kernel has no bf16 variant yet
+    with pytest.raises(ValueError, match="fuse_blocks.*bf16 variant"):
+        port.Extractor(port.ExtractConfig(model=port.ModelConfig(dtype="bfloat16"),
+                                          fuse_blocks=True), device="cpu")
     assert port.Extractor(port.ExtractConfig(fuse_blocks=True), device="cpu")._folded
+    # bf16 compute (graded configs 4 and 5) is ported
+    assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(
+        arch="resnet18", dtype="bfloat16")), device="cpu").model.compute_dtype == torch.bfloat16
     # graded config 3's model is ported
     cfg3 = port.GRADED_CONFIGS[3].extract
     ex = port.Extractor(dataclasses.replace(cfg3, model=dataclasses.replace(

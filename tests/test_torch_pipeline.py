@@ -119,11 +119,15 @@ def test_bf16_gallery_bit_view_loads(tmp_path):
     JIndex(gallery=g.astype(ml_dtypes.bfloat16), storage="bfloat16").save(
         str(tmp_path / "b.npz"))
     back = Index.load(str(tmp_path / "b.npz"), device="cpu")
-    np.testing.assert_array_equal(back.gallery, g.astype(ml_dtypes.bfloat16).astype(np.float32))
+    # held as the uint16 bit-view, never widened to f32 on the host
+    assert back.gallery.dtype == np.uint16
+    np.testing.assert_array_equal(back.gallery, g.astype(ml_dtypes.bfloat16).view(np.uint16))
     assert back.device_gallery().dtype == torch.bfloat16
+    np.testing.assert_array_equal(back.device_gallery().float().numpy(),
+                                  g.astype(ml_dtypes.bfloat16).astype(np.float32))
     q = rng.randn(4, 16).astype(np.float32)
     _, i = back.query(q, k=7)
-    _, ij = JIndex(gallery=back.gallery, storage="bfloat16").query(q, k=7)
+    _, ij = JIndex(gallery=g.astype(ml_dtypes.bfloat16), storage="bfloat16").query(q, k=7)
     np.testing.assert_array_equal(i, np.asarray(ij))
 
 
