@@ -9,6 +9,7 @@ in ``csrc/`` and are built with nvcc at first use (``ops.kernels``).
     build_index(descriptors, cfg)  -> Index (whitening + gallery)
     query(index, qdescriptors, k)  -> (scores, indices)
     IVFIndex / PQIndex / IVFPQIndex -> compressed-gallery search
+    run_training(args)             -> tuple training with hard-negative mining
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -29,6 +30,22 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import 
     IVFPQIndex,
     PQIndex,
     load_pq_artifact,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.training import (  # noqa: F401
+    TrainConfig,
+    TrainState,
+    TupleSet,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    make_val_step,
+    mine_epoch_tuples,
+    mine_hard_negatives,
+    train_epoch,
+    validate,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.training.loop import (  # noqa: F401
+    run_training,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (  # noqa: F401
     GRADED_CONFIGS,

@@ -1,5 +1,6 @@
 """Runners for the graded benchmark configs, the JAX package's
-``benchmarks.py::run_graded_config`` for configs 1, 2, 3 and 5.
+``benchmarks.py::run_graded_config`` for configs 1, 2, 3 and 5, and its
+train-step throughput bench (:func:`run_training_bench`).
 
 Each config runs on its dataset when it is on disk, else on the synthetic
 corpus; gallery scale is reached with random, L2-normalized distractor
@@ -17,7 +18,7 @@ from __future__ import annotations
 import os
 import tempfile
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -273,3 +274,102 @@ def run_gallery_scale(
     return {"config": cfg.name, "top1_in_core": hit_core, "gallery": gallery, "queries": q,
             "indices": idx, "latency_s": lat, "recall": rec, "whitening": (m, P),
             "artifact": reloaded}
+
+
+def run_training_bench(
+    arch: str = "resnet50",
+    pooling: str = "gem",
+    image_size: int = 362,
+    batch_tuples: int = 5,
+    n_neg: int = 5,
+    loss: str = "contrastive",
+    remat: bool = False,
+    dtype: str = "float32",
+    reps: int = 10,
+    warmup: int = 2,
+    seed: int = 0,
+    pallas: bool = False,
+    device: DeviceLike = "cuda",
+    profile: Optional[Callable[[Callable[[], None]], dict]] = None,
+) -> Dict[str, float]:
+    """Train-step throughput, the JAX package's ``run_training_bench``:
+    tuples/s and images/s through ``training.loop.run_training``'s step
+    (``from_u8=True``: normalize and mask on the device, mask-aware pooling,
+    the tuple loss, backward, Adam) on a random uint8 tuple batch at
+    cirtorch's training geometry (362 px, 5 negatives, tuples of 2 +
+    n_neg images). ``pallas`` selects the kernel head.
+
+    The batch sits on the device before the timed loop; ``warmup`` steps
+    come first, and each timed step ends in ``torch.cuda.synchronize()``
+    before the clock is read. ``profile``, when given, is called with a
+    function that runs ``reps`` more steps (a profiler window, say), after
+    the timed ones; what it returns goes under ``"profile"``.
+    """
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        TrainConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    dev = resolve_device(device)
+    model = RetrievalNet(arch=arch, pooling=pooling, dtype=dtype, use_kernel=pallas)
+    cfg = TrainConfig(loss=loss, n_neg=n_neg, batch_tuples=batch_tuples, remat=remat)
+    state = create_train_state(model, cfg, seed=seed, device=dev)
+    step = make_train_step(model, cfg, from_u8=True)
+
+    T = 2 + n_neg
+    H = W = int(image_size)
+    rng = np.random.RandomState(seed)
+    px = torch.from_numpy(rng.randint(0, 256, (batch_tuples, T, H, W, 3)).astype(np.uint8)
+                          ).to(dev)
+    # full-frame extents: every pixel valid (training buckets are tight)
+    sizes = torch.tensor([H, W], dtype=torch.int32).expand(batch_tuples, T, 2).contiguous().to(dev)
+    labels = np.zeros((batch_tuples, T), np.int32)
+    labels[:, 1] = 1
+    labels[:, 2:] = -1
+    labels = torch.from_numpy(labels).to(dev)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for _ in range(max(warmup, 1)):
+        state, lv = step(state, px, sizes, labels)
+    sync()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        state, lv = step(state, px, sizes, labels)
+        sync()
+        lat.append(time.perf_counter() - t0)
+    loss_val = float(lv)
+    lat = np.asarray(lat)
+    med = float(np.median(lat))
+    out = {
+        "tuples_per_sec": round(batch_tuples / med, 2),
+        "images_per_sec": round(batch_tuples * T / med, 2),
+        "step_ms_median": round(med * 1e3, 2),
+        "loss": round(loss_val, 6),
+        "arch": arch,
+        "pooling": pooling,
+        "image_size": image_size,
+        "batch_tuples": batch_tuples,
+        "n_neg": n_neg,
+        "remat": bool(remat),
+        "dtype": dtype,
+        "reps": reps,
+    }
+    pct = _latency_percentiles(lat)
+    out.update({k.replace("_s", "_ms"): round(v * 1e3, 2) for k, v in pct.items()})
+    if profile is not None:
+        def more_steps() -> None:
+            nonlocal state
+            for _ in range(reps):
+                state, _ = step(state, px, sizes, labels)
+            sync()
+
+        out["profile"] = profile(more_steps)
+    return out

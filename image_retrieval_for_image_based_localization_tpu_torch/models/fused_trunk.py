@@ -53,6 +53,10 @@ def fold_trunk(trunk: ResNetTrunk) -> Dict[str, Any]:
     kind, stages, _ = RESNET_SPECS[trunk.arch]
     if kind != "bottleneck":
         raise ValueError(f"fused trunk supports bottleneck resnets only, not {trunk.arch}")
+    if trunk.training:
+        raise RuntimeError("the fused trunk is inference-only: BN folds its running "
+                           "statistics, so training with fuse_blocks is not supported "
+                           "(call .eval() first)")
     folded: Dict[str, Any] = {"_arch": trunk.arch, "stem": _oihw(_fold(trunk.conv1, trunk.bn1))}
     for si, depth in enumerate(stages):
         layer = getattr(trunk, f"layer{si + 1}")

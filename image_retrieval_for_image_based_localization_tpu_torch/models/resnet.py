@@ -15,6 +15,12 @@ weights, sums in f32 and rounds to bf16 (:func:`conv_lowp`); BatchNorm
 computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 on that
 output and rounds once (:func:`bn_lowp`); ReLU, max-pool and the residual
 add run in bf16. A float32 input takes the f32 modules as they are.
+
+In train mode (``module.train()``, f32 only) BatchNorm has flax's
+semantics, not ``nn.BatchNorm2d``'s (:func:`bn_train`): it normalizes with
+the biased batch variance and moves the running statistics by
+``ra <- 0.9 ra + 0.1 batch`` with the biased variance too, where torch's own
+train mode stores the unbiased one. bf16 training raises.
 """
 
 from __future__ import annotations
@@ -70,10 +76,33 @@ def bn_lowp(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     return t.to(y.dtype)
 
 
+BN_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
+
+
+def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm as flax's ``nn.BatchNorm(momentum=0.9)`` runs it:
+    the output is normalized with the batch mean and the biased batch
+    variance, and the running statistics move by ``ra <- 0.9 ra + 0.1 batch``
+    with flax's fast variance ``mean(y^2) - mean(y)^2`` (biased, floored at
+    0), outside the graph."""
+    out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    with torch.no_grad():
+        mean = y.mean(dim=(0, 2, 3))
+        var = torch.clamp(torch.square(y).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    return out
+
+
 def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16)."""
+    """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16);
+    in train mode with flax's statistics (:func:`bn_train`)."""
     if x.dtype == torch.float32:
-        return bn(conv(x))
+        return bn_train(bn, conv(x)) if bn.training else bn(conv(x))
+    if bn.training:
+        raise NotImplementedError(
+            "bf16 training is not supported: train-mode BatchNorm runs in float32 only "
+            "(ROADMAP C3, bf16 training)")
     return bn_lowp(bn, conv_lowp(conv, x))
 
 

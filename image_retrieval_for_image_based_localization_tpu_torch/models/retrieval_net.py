@@ -15,6 +15,10 @@ pixels ``[B, H, W, 3]`` and an optional validity mask ``[B, H, W]``.
 flax casts at the first convolution) with f32 parameters. The head routes
 by dtype as the JAX head does: the fused GeM kernel reads the bf16 map as
 it is and accumulates in f32; every other head pools ``feats.float()``.
+
+In train mode (``.train()``, f32) the trunk's BatchNorm takes the batch's
+statistics as flax does (``models.resnet.bn_train``) and the kernel head
+differentiates through the GeM and NetVLAD autograd Functions.
 """
 
 from __future__ import annotations

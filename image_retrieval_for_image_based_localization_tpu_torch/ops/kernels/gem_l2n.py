@@ -13,8 +13,14 @@ Both entry points keep the TPU kernel's L2N exactly: ``pooled / (sqrt(sum
 pooled^2) + 1e-6)`` with no 1e-24 floor (unlike ``ops.normalization.l2n``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Inference only: the backward comes with the
-training part of the port.
+launches the kernel or raises. Both are differentiable: when grad mode is on
+and ``feats`` or ``p`` needs a gradient, the call goes through a
+``torch.autograd.Function`` (on either device) whose forward is that same
+launch or plain version and whose backward is the VJP of the plain version,
+recomputed on the saved inputs. That is the JAX package's rule: its custom
+VJPs (``_gem_l2n_bwd``, ``_gem_l2n_rect_bwd``) differentiate its jnp
+oracles, and there is no backward kernel. ``dfeats`` comes back in the
+input's dtype, ``dp`` with ``p``'s shape; ``sizes`` gets none.
 """
 
 from __future__ import annotations
@@ -70,8 +76,6 @@ def gem_l2n_plain(feats: torch.Tensor, p, sizes: torch.Tensor | None = None) -> 
 
 
 def _launch(feats3: torch.Tensor, p: torch.Tensor, sizes, W: int) -> torch.Tensor:
-    if feats3.requires_grad:
-        raise RuntimeError("gem_l2n kernels are inference-only (no backward yet)")
     if feats3.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"feats must be float32 or bfloat16, got {feats3.dtype}")
     if not feats3.is_contiguous():
@@ -94,20 +98,58 @@ def _launch(feats3: torch.Tensor, p: torch.Tensor, sizes, W: int) -> torch.Tenso
     return out
 
 
+def _forward(feats: torch.Tensor, p: torch.Tensor, sizes) -> torch.Tensor:
+    """The plain version for CPU tensors; the kernel for CUDA ones, counted
+    on the entry point it serves (``sizes`` None: ``gem_l2n_fused``)."""
+    if feats.device.type == "cpu":
+        return gem_l2n_plain(feats, p, sizes)
+    B, C = feats.shape[0], feats.shape[-1]
+    W = 1 if sizes is None else feats.shape[2]
+    out = _launch(feats.reshape(B, -1, C), p.detach(), sizes, W)
+    entry = gem_l2n_fused if sizes is None else gem_l2n_fused_rect
+    entry.launches += 1
+    return out
+
+
+class _GemL2N(torch.autograd.Function):
+    """Forward: :func:`_forward`. Backward: the VJP of
+    :func:`gem_l2n_plain` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, feats, p, sizes):
+        ctx.save_for_backward(feats, p, sizes)
+        return _forward(feats, p, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, p, sizes = ctx.saved_tensors
+        need_f, need_p = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            f = feats.detach().requires_grad_(need_f)
+            pp = p.detach().requires_grad_(need_p)
+            wrt = [t for t, need in ((f, need_f), (pp, need_p)) if need]
+            grads = list(torch.autograd.grad(gem_l2n_plain(f, pp, sizes), wrt, g))
+        df = grads.pop(0) if need_f else None
+        dp = grads.pop(0) if need_p else None
+        return df, dp, None
+
+
+def _apply(feats: torch.Tensor, p, sizes) -> torch.Tensor:
+    p = _as_p(p, feats.device)
+    if torch.is_grad_enabled() and (feats.requires_grad or p.requires_grad):
+        return _GemL2N.apply(feats, p, sizes)
+    return _forward(feats, p, sizes)
+
+
 def gem_l2n_fused(feats: torch.Tensor, p) -> torch.Tensor:
     """Fused ``l2n(gem(feats, p))``. feats: [B, H, W, C] or [B, N, C] -> [B, C] f32."""
     if feats.dim() not in (3, 4):
         raise ValueError(f"feats must be [B, N, C] or [B, H, W, C], got {tuple(feats.shape)}")
-    if feats.device.type == "cpu":
-        return gem_l2n_plain(feats, p)
-    if feats.device.type != "cuda":
+    if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {feats.device}")
-    if not feats.is_contiguous():
+    if feats.device.type == "cuda" and not feats.is_contiguous():
         raise ValueError("feats must be contiguous (channels last)")
-    out = _launch(feats.reshape(feats.shape[0], -1, feats.shape[-1]),
-                  _as_p(p, feats.device), None, 1)
-    gem_l2n_fused.launches += 1
-    return out
+    return _apply(feats, p, None)
 
 
 def gem_l2n_fused_rect(feats: torch.Tensor, p, sizes: torch.Tensor) -> torch.Tensor:
@@ -120,18 +162,15 @@ def gem_l2n_fused_rect(feats: torch.Tensor, p, sizes: torch.Tensor) -> torch.Ten
     B, H, W, C = feats.shape
     if tuple(sizes.shape) != (B, 2):
         raise ValueError(f"sizes must be [{B}, 2], got {tuple(sizes.shape)}")
-    if feats.device.type == "cpu":
-        return gem_l2n_plain(feats, p, sizes)
-    if feats.device.type != "cuda":
+    if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {feats.device}")
-    if sizes.dtype != torch.int32 or not sizes.is_contiguous():
-        raise TypeError("sizes must be a contiguous int32 tensor")
-    if not feats.is_contiguous():
-        # the channels_last trunk output permuted to [B, H, W, C] is contiguous
-        raise ValueError("feats must be contiguous [B, H, W, C] (channels last)")
-    out = _launch(feats.reshape(B, H * W, C), _as_p(p, feats.device), sizes, W)
-    gem_l2n_fused_rect.launches += 1
-    return out
+    if feats.device.type == "cuda":
+        if sizes.dtype != torch.int32 or not sizes.is_contiguous():
+            raise TypeError("sizes must be a contiguous int32 tensor")
+        if not feats.is_contiguous():
+            # the channels_last trunk output permuted to [B, H, W, C] is contiguous
+            raise ValueError("feats must be contiguous [B, H, W, C] (channels last)")
+    return _apply(feats, p, sizes)
 
 
 gem_l2n_fused.launches = 0

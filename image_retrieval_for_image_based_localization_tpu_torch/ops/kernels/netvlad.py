@@ -18,8 +18,17 @@ Both entry points keep the TPU kernel's normalization: ``v / (sqrt(sum v^2)
 image with no valid row and a cluster with zero soft mass come out as zeros.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Inference only on both: the backward comes
-with the training part of the port.
+launches the kernel or raises. Both are differentiable: when grad mode is on
+and any of ``x``, ``centroids``, ``assign_w``, ``assign_b`` needs a gradient,
+the call goes through a ``torch.autograd.Function`` (on either device) whose
+forward is that same launch or plain version and whose backward is the VJP of
+``ops.netvlad.netvlad_aggregate`` (with the rectangle's mask), recomputed on
+the saved inputs: the JAX package's custom VJPs (``_nv_bwd``,
+``_nv_rect_bwd``) differentiate that same oracle. Its norms floor the
+squared norm at 1e-24, so a cluster with zero soft mass (common after the
+k-means init) gets a finite gradient, where the derivative of the plain
+version's ``sqrt`` at 0 is infinite. There is no backward kernel; ``sizes``
+gets no gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+from image_retrieval_for_image_based_localization_tpu_torch.ops.netvlad import netvlad_aggregate
 
 EPS = 1e-6
 _BN, _BK = 64, 32  # cluster tile and stage depth, csrc/tf32x3_gemm.cuh
@@ -68,8 +78,6 @@ def netvlad_plain(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tens
 
 def _check(x, centroids, assign_w, assign_b) -> None:
     params = (x, centroids, assign_w, assign_b)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in params):
-        raise RuntimeError("netvlad kernels are inference-only (no backward yet)")
     for name, t in zip(("x", "centroids", "assign_w", "assign_b"), params):
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -152,6 +160,53 @@ def _launch(x3: torch.Tensor, centroids, assign_w, assign_b, sizes, W: int) -> t
     return out
 
 
+def _forward(x: torch.Tensor, centroids, assign_w, assign_b, sizes) -> torch.Tensor:
+    """The plain version for CPU tensors; the kernel for CUDA ones, counted
+    on the entry point it serves (``sizes`` None: ``netvlad_fused``)."""
+    if x.device.type == "cpu":
+        return netvlad_plain(x, centroids, assign_w, assign_b, sizes)
+    W = 1 if sizes is None else x.shape[2]
+    out = _launch(x.reshape(x.shape[0], -1, x.shape[-1]), centroids, assign_w, assign_b,
+                  sizes, W)
+    entry = netvlad_fused if sizes is None else netvlad_fused_rect
+    entry.launches += 1
+    return out
+
+
+class _NetVLAD(torch.autograd.Function):
+    """Forward: :func:`_forward`. Backward: the VJP of
+    ``netvlad_aggregate`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, centroids, assign_w, assign_b, sizes):
+        ctx.save_for_backward(x, centroids, assign_w, assign_b, sizes)
+        return _forward(x, centroids, assign_w, assign_b, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        *params, sizes = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4]
+        mask = None
+        if sizes is not None:
+            _, H, W, _ = params[0].shape
+            mask = ((torch.arange(H, device=sizes.device)[:, None] < sizes[:, 0, None, None])
+                    & (torch.arange(W, device=sizes.device) < sizes[:, 1, None, None]))
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(params, needs)]
+            wrt = [t for t, need in zip(leaves, needs) if need]
+            out = netvlad_aggregate(*leaves, mask=mask)
+            grads = list(torch.autograd.grad(out, wrt, g))
+        return (*(grads.pop(0) if need else None for need in needs), None)
+
+
+def _apply(x, centroids, assign_w, assign_b, sizes) -> torch.Tensor:
+    params = (x, centroids, assign_w, assign_b)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in params):
+        return _NetVLAD.apply(x, centroids, assign_w, assign_b, sizes)
+    return _forward(x, centroids, assign_w, assign_b, sizes)
+
+
 def netvlad_fused(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tensor,
                   assign_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused NetVLAD aggregation. x: [B, N, C] or [B, H, W, C] f32;
@@ -159,16 +214,11 @@ def netvlad_fused(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tens
     if x.dim() not in (3, 4):
         raise ValueError(f"x must be [B, N, C] or [B, H, W, C], got {tuple(x.shape)}")
     _check(x, centroids, assign_w, assign_b)
-    if x.device.type == "cpu":
-        return netvlad_plain(x, centroids, assign_w, assign_b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
+    if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("x must be contiguous (channels last)")
-    out = _launch(x.reshape(x.shape[0], -1, x.shape[-1]), centroids, assign_w, assign_b,
-                  None, 1)
-    netvlad_fused.launches += 1
-    return out
+    return _apply(x, centroids, assign_w, assign_b, None)
 
 
 def netvlad_fused_rect(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch.Tensor,
@@ -185,18 +235,15 @@ def netvlad_fused_rect(x: torch.Tensor, centroids: torch.Tensor, assign_w: torch
         raise ValueError(f"sizes must be [{B}, 2], got "
                          f"{None if sizes is None else tuple(sizes.shape)}")
     _check(x, centroids, assign_w, assign_b)
-    if x.device.type == "cpu":
-        return netvlad_plain(x, centroids, assign_w, assign_b, sizes)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if sizes.dtype != torch.int32 or not sizes.is_contiguous():
-        raise TypeError("sizes must be a contiguous int32 tensor")
-    if not x.is_contiguous():
-        # the channels_last trunk output permuted to [B, H, W, C] is contiguous
-        raise ValueError("x must be contiguous [B, H, W, C] (channels last)")
-    out = _launch(x.reshape(B, H * W, C), centroids, assign_w, assign_b, sizes, W)
-    netvlad_fused_rect.launches += 1
-    return out
+    if x.device.type == "cuda":
+        if sizes.dtype != torch.int32 or not sizes.is_contiguous():
+            raise TypeError("sizes must be a contiguous int32 tensor")
+        if not x.is_contiguous():
+            # the channels_last trunk output permuted to [B, H, W, C] is contiguous
+            raise ValueError("x must be contiguous [B, H, W, C] (channels last)")
+    return _apply(x, centroids, assign_w, assign_b, sizes)
 
 
 netvlad_fused.launches = 0

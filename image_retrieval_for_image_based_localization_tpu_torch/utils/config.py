@@ -7,6 +7,8 @@ for compatibility and rejected by :func:`check_supported` when set;
 ``fuse_blocks`` is taken for f32 bottleneck resnets, ``dtype="bfloat16"``
 runs the trunk in bf16 (graded configs 4 and 5), and ``native_preproc``
 selects the native C++ decoder for path inputs as in the JAX package.
+What the training path refuses (bf16 training, ``remat``, a device mesh)
+is checked by ``training.trainer.check_trainable``.
 """
 
 from __future__ import annotations

@@ -79,10 +79,58 @@ def test_gem_kernel_refuses_more_channels_than_a_cluster_holds(dev):
         gem_l2n_fused(x, 3.0)
 
 
-def test_gem_kernel_refuses_grad(dev):
-    x = _rand((1, 2, 2, 8), 1, dev).requires_grad_()
-    with pytest.raises(RuntimeError, match="inference-only"):
-        gem_l2n_fused(x, 3.0)
+def _grads_close(got, want, rel=1e-5, atol=0.0):
+    """Each gradient within ``rel`` of its reference's max|g| (or ``atol``)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= max(rel * w.float().abs().max().item(), atol), err
+
+
+@pytest.mark.parametrize("entry", ["fused", "rect"])
+def test_gem_function_gradients_match_autograd_through_plain(dev, entry):
+    """The GeM head's Function on the card at the head's full width (16
+    images, 32 x 32 map, C = 2048, ragged extents): the kernel forward, and
+    dfeats and dp against autograd through ``gem_l2n_plain`` (1e-5 of
+    max|g|; dp, one sum over B x C terms, also 1e-7 absolute)."""
+    x = _rand((16, 32, 32, 2048), 11, dev) + 0.05
+    sizes = torch.randint(1, 33, (16, 2), generator=torch.Generator().manual_seed(1),
+                          dtype=torch.int32).to(dev)
+    g = torch.randn((16, 2048), generator=torch.Generator().manual_seed(2)).to(dev)
+    runs = []
+    for use_kernel in (True, False):
+        f = x.clone().requires_grad_()
+        p = torch.nn.Parameter(torch.tensor([3.0], device=dev))
+        s = sizes if entry == "rect" else None
+        if use_kernel:
+            before = (gem_l2n_fused if s is None else gem_l2n_fused_rect).launches
+            out = gem_l2n_fused(f, p) if s is None else gem_l2n_fused_rect(f, p, s)
+            assert type(out.grad_fn).__name__ == "_GemL2NBackward"
+            assert (gem_l2n_fused if s is None else gem_l2n_fused_rect).launches == before + 1
+        else:
+            out = gem_l2n_plain(f, p, s)
+        out.backward(g)
+        runs.append((out.detach(), f.grad, p.grad))
+    (ok, fk, pk), (op, fp, pp) = runs
+    torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+    _grads_close([fk], [fp])
+    _grads_close([pk], [pp], atol=1e-7)
+
+
+def test_gem_p_gradient_with_a_frozen_trunk(dev):
+    """Features that need no gradient and a trainable p: the kernel's output
+    hangs on the Function and p gets the plain version's gradient (before
+    the Function existed the kernel's output had no graph and p got none)."""
+    x = _rand((4, 8, 8, 2048), 12, dev) + 0.05
+    sizes = torch.tensor([[8, 8], [5, 8], [8, 3], [1, 1]], dtype=torch.int32, device=dev)
+    g = torch.randn((4, 2048), generator=torch.Generator().manual_seed(3)).to(dev)
+    grads = []
+    for fn in (gem_l2n_fused_rect, gem_l2n_plain):
+        p = torch.nn.Parameter(torch.tensor([3.0], device=dev))
+        fn(x, p, sizes).backward(g)
+        grads.append(p.grad)
+    assert grads[0] is not None and grads[0].abs().item() > 0
+    _grads_close([grads[0]], [grads[1]], atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -205,11 +253,42 @@ def test_netvlad_split_planes_are_split_tf32(dev, K, C):
                        netvlad_fused(x3, c, w, b))
 
 
-def test_netvlad_kernel_refuses_grad_and_runs_large_k(dev):
-    """Inference only; K past the old 128-cluster limit runs and matches plain."""
-    x, c, w, b = _netvlad_inputs(dev, 1, 2, 2, 8, 4, 1)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        netvlad_fused(x.requires_grad_(), c, w, b)
+@pytest.mark.parametrize("entry", ["fused", "rect"])
+def test_netvlad_function_gradients_match_autograd_through_the_oracle(dev, entry):
+    """The NetVLAD head's Function on the card at config 3's head width (4
+    images, 32 x 32 map, C = 512, K = 64, ragged extents): the kernel
+    forward, and the gradients of x, centroids, assign_w and assign_b
+    against autograd through ``netvlad_aggregate`` (the oracle the JAX VJP
+    differentiates) within 1e-5 of max|g| (assign_b, a sum over B x N
+    positions, also 1e-6 absolute)."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.netvlad import (
+        netvlad_aggregate,
+    )
+
+    x, c, w, b = _netvlad_inputs(dev, 4, 32, 32, 512, 64, 13)
+    sizes = torch.tensor([[32, 32], [20, 32], [32, 7], [1, 1]], dtype=torch.int32, device=dev)
+    mask = ((torch.arange(32, device=dev)[:, None] < sizes[:, 0, None, None])
+            & (torch.arange(32, device=dev) < sizes[:, 1, None, None]))
+    g = torch.randn((4, 64 * 512), generator=torch.Generator().manual_seed(4)).to(dev)
+    runs = []
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, c, w, b)]
+        if use_kernel:
+            out = (netvlad_fused(*leaves) if entry == "fused"
+                   else netvlad_fused_rect(*leaves, sizes=sizes))
+            assert type(out.grad_fn).__name__ == "_NetVLADBackward"
+        else:
+            out = netvlad_aggregate(*leaves, mask=None if entry == "fused" else mask)
+        out.backward(g)
+        runs.append((out.detach(), [t.grad for t in leaves]))
+    (ok, gk), (op, gp) = runs
+    torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+    _grads_close(gk[:3], gp[:3])
+    _grads_close(gk[3:], gp[3:], atol=1e-6)
+
+
+def test_netvlad_kernel_runs_large_k(dev):
+    """K past the old 128-cluster limit runs and matches plain."""
     x, c, w, b = _netvlad_inputs(dev, 2, 3, 5, 8, 129, 1)
     torch.testing.assert_close(netvlad_fused(x, c, w, b), netvlad_plain(x, c, w, b),
                                rtol=0, atol=1e-5)

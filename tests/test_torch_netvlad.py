@@ -117,14 +117,17 @@ def test_zero_mass_clusters_give_zero_rows():
 
 
 def test_grad_and_dtype_are_refused():
+    """A non-f32 input is refused. Inputs that need a gradient are no longer
+    refused: they go through the autograd Function (its gradients are held
+    against the JAX VJP in test_torch_head_grad.py)."""
     x, c, w, b = _t(*_inputs(8))
-    with pytest.raises(RuntimeError, match="inference-only"):
-        netvlad_fused(x.requires_grad_(), c, w, b)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        netvlad_fused_rect(x.detach(), torch.nn.Parameter(c), w, b,
-                           sizes=torch.from_numpy(SIZES))
-    with torch.no_grad():  # parameters that require grad are fine with no graph
-        netvlad_fused(x, torch.nn.Parameter(c), w, b)
+    out = netvlad_fused(x.requires_grad_(), c, w, b)
+    assert type(out.grad_fn).__name__ == "_NetVLADBackward"
+    out = netvlad_fused_rect(x.detach(), torch.nn.Parameter(c), w, b,
+                             sizes=torch.from_numpy(SIZES))
+    assert type(out.grad_fn).__name__ == "_NetVLADBackward"
+    with torch.no_grad():  # parameters that require grad build no graph
+        assert netvlad_fused(x, torch.nn.Parameter(c), w, b).grad_fn is None
     with pytest.raises(TypeError, match="float32"):
         netvlad_fused(x.detach().to(torch.bfloat16), c, w, b)
 
