@@ -30,7 +30,7 @@ Phases (any failure exits non-zero):
        16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
        with random biases;
-  4. seven paths at full width, each with the launch counts set to 0 just
+  4. nine paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -66,6 +66,25 @@ Phases (any failure exits non-zero):
        scores lie within 1e-6; equal mAP), the bf16 descriptors against an
        f32 run of the same weights on 16 images, and the four bf16 kernels
        of the path against their plain versions at its own shapes;
+     - graded config 4 (path E, r101-gem-100k-sharded: config 5's trunk,
+       so path C's core and query descriptors): an NCCL process group of
+       world size 1 and a mesh of 4 row shards on the card;
+       benchmarks.run_gallery_scale(4) (a 100,000 x 2,048 f32 gallery, PCA
+       on the core plus 50,000 distractors, the sharded top-100 timed
+       p50/p95/p99 over 7 repetitions, the bitwise exactness probe against
+       one device's knn_search), ShardedIVF (nprobe C/8 and C) and
+       ShardedPQ (m=64, with and without refine=400) on path A's D=2048
+       corpus against IVFIndex.search and PQIndex.search; after the window,
+       sharded rank_candidates against one device's and a dense ranking
+       (path C's gate), and scores_blockmax and adc_scores at a shard's
+       shape against their plain versions;
+     - re-ranking (path F) on path E's gallery at the JAX package's
+       defaults with qe_nqe = dba_nqe = 10: Index.query(k=100, qe_nqe=10)
+       timed, build_index(dba_nqe=10), build_graph(k=50) twice (bit for
+       bit) and Index.diffusion_ranks twice (bit for bit); after the
+       window, the card against the CPU on 10,000 rows (expanded queries,
+       the QE top-100, the diffusion relevance) and scores_blockmax at the
+       graph's block shape against its plain version;
      - path D, training (cirtorch's retrievalSfM120k-resnet101-gem recipe:
        contrastive margin 0.85, Adam lr 5e-7, 5 negatives, 5 tuples a step,
        362 px, f32, the kernel head): run_training for one epoch on a
@@ -959,18 +978,19 @@ def ann_corpus(n=100_000, d=2048, nq=256, seed=0, noise_per_row=False):
     return g, q
 
 
-def _agree_where_separated(s, i, ref_s, ref_i, tol=TOPK_TOL):
-    """Two top-k lists agree: scores within ``tol`` everywhere, and indices
-    equal at every place whose reference score is more than ``tol`` from
-    both neighbours (the last place has an unseen neighbour, so only its
-    score is held)."""
+def _agree_where_separated(s, i, ref_s, ref_i, tol=TOPK_TOL, score_tol=None):
+    """Two top-k lists agree: scores within ``score_tol`` (default ``tol``)
+    everywhere, and indices equal at every place whose reference score is
+    more than ``tol`` from both neighbours (the last place has an unseen
+    neighbour, so only its score is held)."""
     import numpy as np
 
     gap = ref_s[:, :-1] - ref_s[:, 1:]
     gap_n = np.concatenate([gap, np.zeros_like(ref_s[:, :1])], 1)
     gap_p = np.concatenate([np.full_like(ref_s[:, :1], np.inf), gap], 1)
     clear = (gap_n > tol) & (gap_p > tol)
-    return bool(np.array_equal(i[clear], ref_i[clear]) and np.abs(s - ref_s).max() <= tol)
+    return bool(np.array_equal(i[clear], ref_i[clear])
+                and np.abs(s - ref_s).max() <= (tol if score_tol is None else score_tol))
 
 
 def ann_phase(dev):
@@ -984,8 +1004,9 @@ def ann_phase(dev):
     from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
-    rows = {}
-    C = _ann_point(dev, rows, d=2048, m=64, suffix="", noise_per_row=False, with_opq=True)
+    rows, keep = {}, {}
+    C = _ann_point(dev, rows, d=2048, m=64, suffix="", noise_per_row=False, with_opq=True,
+                   keep=keep)
     c2 = _ann_point(dev, rows, d=512, m=16, suffix="_d512", noise_per_row=True, with_opq=False)
     launches = kernels.launch_counts()  # this phase's counting window
     log(f"[ann] launches {launches}")
@@ -995,12 +1016,14 @@ def ann_phase(dev):
         if rows[name]["recall_at_100"] < least:
             raise AssertionError(f"{name} recall@100 {rows[name]['recall_at_100']:.4f} is "
                                  f"below {least}")
-    return launches, {"ann_rows": rows, "clusters": C}
+    return launches, {"ann_rows": rows, "clusters": C}, keep
 
 
-def _ann_point(dev, rows, d, m, suffix, noise_per_row, with_opq):
+def _ann_point(dev, rows, d, m, suffix, noise_per_row, with_opq, keep=None):
     """Build and search every index of path A on one corpus; ``rows`` gains
-    a row per search (names end in ``suffix``). Returns the IVF's C."""
+    a row per search (names end in ``suffix``). Returns the IVF's C; with a
+    ``keep`` dict, leaves the corpus, its queries, the IVF and the PQ (m)
+    index there for path E."""
     import numpy as np
     import torch
     import image_retrieval_for_image_based_localization_tpu_torch as port
@@ -1104,6 +1127,8 @@ def _ann_point(dev, rows, d, m, suffix, noise_per_row, with_opq):
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
         if not ok:
             raise AssertionError(f"{name}{suffix} on the card disagrees with the CPU search")
+    if keep is not None:
+        keep.update(g=g, q=q, ivf=ivf, pq=pq)
     del ivf, pq, opq, ivfpq, exact, gd, cross
     torch.cuda.empty_cache()
     return C
@@ -1255,14 +1280,15 @@ def _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store):
 
 def _dense_candidate_ranks(gallery, q_store, cand):
     """Each candidate's position in a dense stable descending sort of all
-    [Nq, Ng] scores made on the card in one product, and how many other rows
-    score within RANK_TIE_TOL of it."""
+    [Nq, Ng] scores made on the card in one call of the kernel that streamed
+    ranks score with (scores_blockmax: the same bits per pair at any shape),
+    and how many other rows score within RANK_TIE_TOL of it."""
     import torch
-    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
-        score_matrix,
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        scores_blockmax,
     )
 
-    scores = score_matrix(gallery, q_store.float())  # [Nq, Ng]
+    scores = scores_blockmax(gallery, q_store.to(gallery.dtype).float())[0][:, :gallery.shape[0]]
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices
     pos = torch.empty_like(order)
     pos.scatter_(1, order, torch.arange(order.shape[1], device=order.device)
@@ -1457,6 +1483,408 @@ def config5_phase(dev):
     del ex, ex32
     torch.cuda.empty_cache()
     log(json.dumps({"config5": out}))
+    return launches, out, (db, qd, gnd)
+
+
+SHARDS = 4  # path E's row shards, all on the one card
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def config4_phase(dev, db, qd, gnd, ann):
+    """Path E: graded config 4 (r101-gem-100k-sharded) through its entry
+    points at full width, on path C's core and query descriptors (config
+    4's trunk is config 5's: resnet101 bf16, GeM, 1024 px). An NCCL group
+    of world size 1 and a mesh of 4 row shards on the card, so the merge and
+    the collectives run there: run_gallery_scale(4) (the 100,000 x 2,048 f32
+    gallery, the sharded top-100 timed p50/p95/p99 over 7 repetitions, the
+    bitwise exactness probe), then ShardedIVF and ShardedPQ on path A's
+    D=2048 corpus against IVFIndex.search and PQIndex.search, in one
+    counting window; then sharded rank_candidates against one device's and
+    a dense ranking (equal except where another score lies within 1e-6;
+    equal mAP), and scores_blockmax and adc_scores at the path's shapes
+    against their plain versions."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        GALLERY_SCALE,
+        run_gallery_scale,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        candidate_matrix,
+        compute_map_streaming_and_print,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        adc_scores,
+        adc_scores_plain,
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel import (
+        ShardedIVF,
+        create_mesh,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel.sharded_pq import (
+        ShardedPQ,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+        rank_candidates,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import _build_luts
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import (
+        MetricsLogger,
+    )
+
+    graded = GRADED_CONFIGS[4]
+    n_rows = GALLERY_SCALE[4]
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = create_mesh(devices=[dev] * SHARDS)
+        log(f"[config 4] {graded.name}: path C's {len(db)} core and {len(qd)} query "
+            f"descriptors (resnet101 bf16, GeM, 1024 px) + {n_rows - len(db):,} distractors = "
+            f"{n_rows:,} rows f32, index {graded.index}; {mesh}, backend "
+            f"{dist.get_backend()}, k=100")
+        with tempfile.TemporaryDirectory(prefix="config4_") as tmp:
+            logger = MetricsLogger(path=os.path.join(tmp, "config4.jsonl"), echo=True)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_gallery_scale(4, db, qd, gnd, logger=logger, device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            t_gallery = time.perf_counter() - t0
+            recs = [json.loads(line) for line in open(os.path.join(tmp, "config4.jsonl"))]
+        timed = next(r for r in recs if "queries_per_sec" in r)
+        probe = next(r for r in recs if r.get("event") == "exactness_probe")
+        si, gallery, q = res["sharded"], res["gallery"], res["queries"]
+
+        # ShardedIVF and ShardedPQ on path A's D=2048 corpus, 4 shards
+        g_a, q_a, ivf, pq = ann["g"], ann["q"], ann["ivf"], ann["pq"]
+        C = ivf.centroids.shape[0]
+        sivf, spq = ShardedIVF(ivf, mesh=mesh), ShardedPQ(pq, mesh=mesh)
+        ann_rows = {}
+
+        def timed_pair(name, sharded, single, exact_scores):
+            sharded()  # warm
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s, i = sharded()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            s0, i0 = single()
+            same = bool(np.array_equal(i, i0))
+            if exact_scores:  # ADC: the kernel's bits on every shard
+                same = same and bool(np.array_equal(s, s0))
+            # IVF scores its probed rows with cuBLAS at another batch shape:
+            # indices equal except where two scores tie within 1e-6
+            ok = same or (not exact_scores and _agree_where_separated(
+                s, i, s0, i0, tol=RANK_TIE_TOL, score_tol=TOPK_TOL))
+            ann_rows[name] = {"q_per_s": len(q_a) / dt, "equal_to_single_device": same,
+                              "places_differing": int((i != i0).sum())}
+            log(f"[config 4] {name} over {SHARDS} shards: {json.dumps(ann_rows[name])}")
+            if not ok:
+                raise AssertionError(f"sharded {name} disagrees with the single-device index")
+
+        for nprobe in (C // 8, C):
+            timed_pair(f"ivf_nprobe{nprobe}", lambda p=nprobe: sivf.search(q_a, k=100, nprobe=p),
+                       lambda p=nprobe: ivf.search(q_a, k=100, nprobe=p), False)
+        timed_pair("pq_m64_adc", lambda: spq.search(q_a, k=100), lambda: pq.search(q_a, k=100),
+                   True)
+        timed_pair("pq_m64_refine400", lambda: spq.search(q_a, k=100, refine=400, gallery=g_a),
+                   lambda: pq.search(q_a, k=100, refine=400, gallery=g_a), False)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"[config 4] launches {launches}")
+        for name in ("scores_blockmax", "adc_scores"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the config 4 path")
+
+        idx = res["indices"]
+        if idx.shape != (len(qd), 100) or gallery.shape[0] != n_rows:
+            raise AssertionError("config 4's search has the wrong shape")
+        if not (probe["sharded_equals_single_device"] and res["exact_match"]):
+            raise AssertionError("config 4's exactness probe failed")
+        if not res["top1_in_core"] > 0.8:
+            raise AssertionError(f"top1_in_core {res['top1_in_core']}: core matches must "
+                                 f"beat random distractors")
+        log(f"[config 4] gallery run {t_gallery:.1f} s; sharded knn k=100 over {n_rows:,} x "
+            f"2048 f32 in {SHARDS} shards, {len(qd)} queries: "
+            f"{timed['queries_per_sec']:.1f} q/s, p50 {timed['lat_p50_s'] * 1e3:.3f} ms, "
+            f"p95 {timed['lat_p95_s'] * 1e3:.3f} ms, p99 {timed['lat_p99_s'] * 1e3:.3f} ms; "
+            f"exactness probe bitwise {probe['sharded_equals_single_device']}; top1_in_core "
+            f"{res['top1_in_core']:.3f}")
+        out.update(gallery_rows=n_rows, shards=SHARDS, gallery_run_s=t_gallery,
+                   knn_q_per_s=timed["queries_per_sec"], knn_p50_ms=timed["lat_p50_s"] * 1e3,
+                   knn_p95_ms=timed["lat_p95_s"] * 1e3, knn_p99_ms=timed["lat_p99_s"] * 1e3,
+                   exactness_probe=probe["sharded_equals_single_device"],
+                   top1_in_core=res["top1_in_core"], sharded_ann=ann_rows)
+
+        # sharded candidate ranks against one device's and a dense ranking
+        q_np = q.cpu().numpy()
+        cand_np = candidate_matrix(gnd)
+        cand = torch.from_numpy(cand_np).to(dev, torch.int64)
+        t0 = time.perf_counter()
+        sharded = torch.from_numpy(si.rank_candidates(q_np, cand_np, pre_transformed=True)).to(dev)
+        t_rank = time.perf_counter() - t0
+        single = rank_candidates(gallery, q, cand)
+        dense, near = _dense_candidate_ranks(gallery, q, cand)
+        n_moved = {}
+        for name, r in (("sharded", sharded), ("single", single)):
+            diff = (r.long() - dense).abs()
+            n_moved[name] = int((diff > 0).sum())
+            if bool((diff > near).any()):
+                raise AssertionError(f"{name} rank_candidates differs from the dense ranking "
+                                     f"beyond near ties")
+        maps = {name: compute_map_streaming_and_print(f"config4 {name}", r.cpu().numpy(), gnd)
+                ["map"] for name, r in (("sharded", sharded), ("single", single),
+                                        ("dense", dense))}
+        log(f"[config 4] sharded rank_candidates {tuple(cand.shape)} over {n_rows:,} rows in "
+            f"{SHARDS} shards: {t_rank * 1e3:.1f} ms; ranks differing from the dense ranking "
+            f"{n_moved}, {int((near > 0).sum())} candidates have another score within "
+            f"{RANK_TIE_TOL}; equal to one device's {bool(torch.equal(sharded, single))}; "
+            f"mAP {maps}")
+        if len(set(maps.values())) != 1:
+            raise AssertionError("sharded, single-device and dense mAP differ")
+        out.update(rank_candidates_ms=t_rank * 1e3, rank_differ=n_moved, map=maps["sharded"])
+    finally:
+        dist.destroy_process_group()
+
+    # the kernels at this path's shapes: a shard of the gallery, a shard of the codes
+    shard = si.shards[0]
+    s, _ = scores_blockmax(shard, q)
+    ps, _ = scores_blockmax_plain(shard, q)
+    e_sb = (s[:, : shard.shape[0]] - ps[:, : shard.shape[0]]).abs().max().item()
+    lut = _build_luts(spq.codebooks[0], torch.from_numpy(q_a).to(dev))
+    a, ab = adc_scores(lut, spq.codes[0])
+    pa, pab = adc_scores_plain(lut, spq.codes[0])
+    log(f"[config 4] scores_blockmax {tuple(q.shape)} x {tuple(shard.shape)} f32: max|err| "
+        f"{e_sb:.3e}; adc_scores {tuple(lut.shape)} x {tuple(spq.codes[0].shape)}: bit-equal "
+        f"{bool(torch.equal(a, pa) and torch.equal(ab, pab))}")
+    if e_sb > TOPK_TOL or not (torch.equal(a, pa) and torch.equal(ab, pab)):
+        raise AssertionError("a kernel disagrees with its plain version at path E's shapes")
+    out.update(scores_blockmax_err=e_sb)
+    keep = {"gallery": gallery, "queries": q_np}
+    del res, si, sivf, spq, s, ps, a, pa, dense, near
+    torch.cuda.empty_cache()
+    log(json.dumps({"config4": out}))
+    return launches, out, keep
+
+
+RERANK = dict(qe_nqe=10, qe_alpha=3.0, dba_nqe=10, k_graph=50, k_seed=10, gamma=3.0,
+              alpha=0.9, iters=30)
+RERANK_SLICE = 10_000  # rows of path F's card-vs-CPU check
+
+
+def rerank_phase(dev, e):
+    """Path F: the re-ranking family on path E's 100,000 x 2,048 whitened f32
+    gallery and its 20 queries, at the JAX package's defaults (alpha 3,
+    k_graph 50, k_seed 10, diffusion alpha 0.9, 30 CG iterations) with
+    qe_nqe = dba_nqe = 10 (this smoke run's own choice; the JAX CLI defaults
+    both to 0, off). In one counting window: Index.query(k=100,
+    qe_nqe=10) timed over 7 repetitions, build_index with dba_nqe=10, the
+    diffusion graph (build_graph, timed alone, twice: bit for bit) and
+    Index.diffusion_ranks twice (bit for bit). Then on the gallery's first
+    10,000 rows the card against the CPU: the top-100, the graph's kNN
+    lists and the top-100 of the card's expanded queries equal except where
+    scores tie within twice their measured card-vs-CPU difference (1e-6 at
+    least), scores within 1e-5; expanded queries within 1e-5 of the host's
+    expansion of the card's neighbours; f within 1e-5 of max|f| on one
+    graph and one seeding; and scores_blockmax
+    at the graph's block shape against its plain version."""
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.diffusion import (
+        GRAPH_BLOCK,
+        DiffusionGraph,
+        build_graph,
+        diffuse,
+        diffusion_scores,
+        seed_matrix,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+        auto_chunk,
+        knn_search,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.query_expansion import (
+        expand_queries,
+        expand_queries_host,
+    )
+
+    gallery, q_np = e["gallery"], e["queries"]
+    n = gallery.shape[0]
+    cfg = RERANK
+    log(f"[rerank] on path E's {n:,} x {gallery.shape[1]} f32 gallery, {len(q_np)} queries: "
+        f"{json.dumps(cfg)}")
+    index = Index(gallery=gallery, storage="float32", device=dev)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    out = {}
+    sync()
+    kernels.reset_launch_counts()
+    index.query(q_np, k=100, qe_nqe=cfg["qe_nqe"], qe_alpha=cfg["qe_alpha"])  # warm
+    lat = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        s_qe, i_qe = index.query(q_np, k=100, qe_nqe=cfg["qe_nqe"], qe_alpha=cfg["qe_alpha"])
+        lat.append(time.perf_counter() - t0)
+    g_host = gallery.cpu().numpy()
+    sync()
+    t0 = time.perf_counter()
+    dba = port.build_index(g_host, port.IndexConfig(whitening=None, dba_nqe=cfg["dba_nqe"],
+                                                    dba_alpha=cfg["qe_alpha"]), device=dev)
+    sync()
+    t_dba = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = build_graph(index.device_gallery(), k=cfg["k_graph"], gamma=cfg["gamma"])
+    sync()
+    t_graph = time.perf_counter() - t0
+    graph2 = build_graph(index.device_gallery(), k=cfg["k_graph"], gamma=cfg["gamma"])
+    graph_same = all(torch.equal(a, b) for a, b in zip(graph[:4], graph2[:4]))
+    del graph2
+    index._diffusion_cache[(cfg["k_graph"], float(cfg["gamma"]))] = graph
+    t_ranks, ranks = [], []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        ranks.append(index.diffusion_ranks(q_np, k_graph=cfg["k_graph"], k_seed=cfg["k_seed"],
+                                           gamma=cfg["gamma"], alpha=cfg["alpha"],
+                                           iters=cfg["iters"]))
+        t_ranks.append(time.perf_counter() - t0)
+    sync()
+    t0 = time.perf_counter()   # the solve alone: seeds' search and 30 CG iterations
+    diffusion_scores(index.device_gallery(), torch.from_numpy(q_np).to(dev), graph=graph,
+                     k_seed=cfg["k_seed"], gamma=cfg["gamma"], alpha=cfg["alpha"],
+                     iters=cfg["iters"])
+    t_solve = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"[rerank] launches {launches}")
+    if launches["scores_blockmax"] <= 0:
+        raise AssertionError("kernel scores_blockmax was not launched on the re-ranking path")
+    same = bool(np.array_equal(ranks[0], ranks[1]))
+    d_moved = float(np.mean(np.asarray(dba.gallery) != g_host))
+    log(f"[rerank] Index.query(k=100, qe_nqe=10): p50 {np.median(lat) * 1e3:.3f} ms, p99 "
+        f"{np.percentile(lat, 99) * 1e3:.3f} ms, {len(q_np) / np.median(lat):.1f} q/s; "
+        f"build_index(dba_nqe=10) {t_dba:.2f} s ({d_moved:.3f} of the values changed); "
+        f"build_graph(k=50) {t_graph:.2f} s, {len(graph.src):,} edges, a second build "
+        f"bit-equal {graph_same}; diffusion_ranks {t_ranks[0] * 1e3:.1f} / "
+        f"{t_ranks[1] * 1e3:.1f} ms, two calls bit-equal {same}, of which the solve "
+        f"(diffusion_scores) {t_solve * 1e3:.1f} ms")
+    if not (same and graph_same):
+        raise AssertionError("diffusion is not deterministic on the card")
+    if ranks[0].shape != (n, len(q_np)) or i_qe.shape != (len(q_np), 100):
+        raise AssertionError("re-ranking results have the wrong shape")
+    if not np.isfinite(np.asarray(dba.gallery)).all():
+        raise AssertionError("the DBA gallery is not finite")
+    out.update(qe_query_p50_ms=float(np.median(lat) * 1e3),
+               qe_query_p99_ms=float(np.percentile(lat, 99) * 1e3),
+               qe_query_q_per_s=float(len(q_np) / np.median(lat)), dba_build_s=t_dba,
+               graph_build_s=t_graph, graph_edges=int(len(graph.src)),
+               diffusion_ranks_ms=[t * 1e3 for t in t_ranks], diffusion_solve_ms=t_solve * 1e3,
+               diffusion_bit_equal=same)
+    del dba, graph, ranks, index
+    torch.cuda.empty_cache()
+
+    # the card against the CPU on the first 10,000 rows. Random weights put
+    # path C's core descriptors within ~1e-6 of each other, so a selection
+    # (the nQE neighbours, the seeds, a graph row's k) may take another row
+    # at such a near tie on each side: each selection is held where its
+    # scores are separated, and the arithmetic after it on the card's
+    # selection
+    t0 = time.perf_counter()
+    sl, slc = gallery[:RERANK_SLICE], gallery[:RERANK_SLICE].cpu()
+    qt = torch.from_numpy(q_np)
+    nqe, kg = cfg["qe_nqe"], cfg["k_graph"] + 1
+
+    def both(fn):
+        a, b = fn(sl, qt.to(dev)), fn(slc, qt)
+        return tuple(t.cpu().numpy() for t in a), tuple(t.numpy() for t in b)
+
+    def separated(a, b):
+        """Indices equal except where two scores lie within twice the
+        largest card-vs-CPU difference of a row's score (two sums of 2,048
+        products in other orders; 1e-6 at least), scores within 1e-5."""
+        noise = 0.0
+        for s1, i1, s2, i2 in zip(a[0], a[1], b[0], b[1]):
+            _, p1, p2 = np.intersect1d(i1, i2, return_indices=True)
+            noise = max(noise, float(np.abs(s1[p1] - s2[p2]).max(initial=0.0)))
+        band = max(RANK_TIE_TOL, 2 * noise)
+        ok = noise <= TOPK_TOL and _agree_where_separated(a[0], a[1], b[0], b[1], tol=band,
+                                                          score_tol=TOPK_TOL)
+        return {"ok": ok, "score_diff": noise, "tie_band": band}
+
+    top, top_c = both(lambda g, q: knn_search(g, q, 100))
+    graph_knn = (tuple(t.cpu().numpy() for t in knn_search(sl, sl, kg)),
+                 tuple(t.numpy() for t in knn_search(slc, slc, kg)))
+    same_set = sum(set(a[:nqe]) == set(b[:nqe]) for a, b in zip(top[1], top_c[1]))
+    # αQE's arithmetic on the card's neighbours, against the host's, then the
+    # search after it on the card's expanded queries on each side
+    x = expand_queries(sl, qt.to(dev), nqe=nqe)
+    xh = expand_queries_host(slc.numpy()[top[1][:, :nqe]], q_np, top[0][:, :nqe])
+    e_qx = float(np.abs(x.cpu().numpy() - xh).max())
+    qe = tuple(t.cpu().numpy() for t in knn_search(sl, x, 100))
+    qe_c = tuple(t.numpy() for t in knn_search(slc, x.cpu(), 100))
+    graph = build_graph(sl, k=cfg["k_graph"], gamma=cfg["gamma"])
+    s_seed, i_seed = knn_search(sl, qt.to(dev), cfg["k_seed"])
+    seeds = seed_matrix(s_seed, i_seed, graph.n, cfg["gamma"])
+    f = diffuse(graph, seeds, alpha=cfg["alpha"], iters=cfg["iters"]).cpu().numpy()
+    fc = diffuse(DiffusionGraph(*(t.cpu() for t in graph[:4]), graph.n), seeds.cpu(),
+                 alpha=cfg["alpha"], iters=cfg["iters"]).numpy()
+    e_f = float(np.abs(f - fc).max() / np.abs(fc).max())
+    checks = {"top100": separated(top, top_c), "graph_knn": separated(*graph_knn),
+              "qe_top100": separated(qe, qe_c)}
+    log(f"[rerank] card vs CPU on {RERANK_SLICE:,} rows: top-100, the graph's k={kg} "
+        f"lists and the QE top-100 equal where separated: {json.dumps(checks)} "
+        f"(places differing: {int((top[1] != top_c[1]).sum())}, "
+        f"{int((graph_knn[0][1] != graph_knn[1][1]).sum())}, "
+        f"{int((qe[1] != qe_c[1]).sum())}); {same_set} of {len(q_np)} queries have the same "
+        f"{nqe} neighbours on both; expanded queries against the host's on the card's "
+        f"neighbours max|diff| {e_qx:.3e}; diffusion on one "
+        f"graph and one seeding: f max|diff| / max|f| {e_f:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(c["ok"] for c in checks.values()) or e_qx > TOPK_TOL or e_f > TOPK_TOL:
+        raise AssertionError("re-ranking on the card disagrees with the CPU")
+    out.update(card_vs_cpu=dict(checks, expanded_max_abs_diff=e_qx, f_rel_diff=e_f,
+                                queries_same_neighbours=int(same_set)))
+    del graph, seeds
+
+    # scores_blockmax at the graph's block shape (GRAPH_BLOCK queries, one chunk)
+    chunk = auto_chunk(n, GRAPH_BLOCK)
+    gq, gc = gallery[:GRAPH_BLOCK], gallery[:chunk]
+    sb, _ = scores_blockmax(gc, gq)
+    pb, _ = scores_blockmax_plain(gc, gq)
+    e_sb = (sb[:, :chunk] - pb[:, :chunk]).abs().max().item()
+    log(f"[rerank] scores_blockmax {tuple(gq.shape)} x {tuple(gc.shape)} f32: max|err| "
+        f"{e_sb:.3e}")
+    if e_sb > TOPK_TOL:
+        raise AssertionError("scores_blockmax disagrees with its plain version at path F's shape")
+    out.update(scores_blockmax_err=e_sb)
+    del sb, pb
+    torch.cuda.empty_cache()
+    log(json.dumps({"rerank": out}))
     return launches, out
 
 
@@ -1992,13 +2420,18 @@ def main() -> int:
     launches3, main3, _ = main_path_phase(
         dev, 3, ("netvlad_fused_rect", "netvlad_fused", "fused_topk_search"))
     launches_long, long_main = long_search_phase(dev)
-    launches_ann, ann_main = ann_phase(dev)
+    launches_ann, ann_main, ann_keep = ann_phase(dev)
     launches_b, main_b = fused_trunk_phase(dev, db2, main2)
-    launches_c5, main_c5 = config5_phase(dev)
+    launches_c5, main_c5, c5_desc = config5_phase(dev)
+    launches_e, main_e, e_keep = config4_phase(dev, *c5_desc, ann_keep)
+    del ann_keep
+    launches_f, main_f = rerank_phase(dev, e_keep)
+    del e_keep
     launches_d, main_d = training_phase(dev, smi)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
-               "config5": launches_c5, "training": launches_d}
+               "config5": launches_c5, "config4": launches_e, "rerank": launches_f,
+               "training": launches_d}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -2006,6 +2439,8 @@ def main() -> int:
                                       main_b["topk_main_err"], shape_errs["fused_topk_search"]),
                 scores_blockmax=max(sb_err, long_err, long_main["long_query_err"],
                                     main_d["mining_check"]["scores_blockmax_err"],
+                                    main_e["scores_blockmax_err"],
+                                    main_f["scores_blockmax_err"],
                                     shape_errs["scores_blockmax"]),
                 adc_scores=adc_in["err"], bottleneck_fused=bn_err)
     bf16 = main_c5["bf16_kernels"]
@@ -2019,6 +2454,7 @@ def main() -> int:
                                   "ann": ann_main, "config2_fused_trunk": main_b,
                                   "config5": {k: v for k, v in main_c5.items()
                                               if k != "bf16_kernels"},
+                                  "config4": main_e, "rerank": main_f,
                                   "training": main_d,
                                   "bottleneck_rel_err": bn_rel,
                                   "launches_by_path": by_path}}))

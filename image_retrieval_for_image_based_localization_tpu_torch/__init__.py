@@ -9,6 +9,8 @@ in ``csrc/`` and are built with nvcc at first use (``ops.kernels``).
     build_index(descriptors, cfg)  -> Index (whitening + gallery)
     query(index, qdescriptors, k)  -> (scores, indices)
     IVFIndex / PQIndex / IVFPQIndex -> compressed-gallery search
+    ShardedIndex / ShardedIVF      -> search over a gallery sharded by rows
+                                      across devices and processes (parallel/)
     run_training(args)             -> tuple training with hard-negative mining
 
 Entry points run on the card unless ``device="cpu"`` is passed.
@@ -22,6 +24,12 @@ from image_retrieval_for_image_based_localization_tpu_torch.api import (  # noqa
     extract_features,
     extract_vectors,
     query,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.parallel import (  # noqa: F401
+    ShardedIndex,
+    ShardedIVF,
+    create_mesh,
+    default_mesh,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.ivf import (  # noqa: F401
     IVFIndex,

@@ -1,5 +1,5 @@
 """Runners for the graded benchmark configs, the JAX package's
-``benchmarks.py::run_graded_config`` for configs 1, 2, 3 and 5, and its
+``benchmarks.py::run_graded_config`` for configs 1 to 5, and its
 train-step throughput bench (:func:`run_training_bench`).
 
 Each config runs on its dataset when it is on disk, else on the synthetic
@@ -8,9 +8,11 @@ descriptors made on the device. The machinery (models, dtypes, scales,
 whitening, kernels, streaming search, artifacts) is the config's own; only
 pixel content is synthetic.
 
-Config 4 (its 100k gallery sharded across devices) waits for the port's
-``parallel/`` (ROADMAP A4). The body after extraction is
-:func:`run_gallery_scale`, callable on descriptors extracted elsewhere.
+Configs 4 and 5 share their body after extraction,
+:func:`run_gallery_scale`, callable on descriptors extracted elsewhere:
+config 4 shards its 100k-row f32 gallery over a mesh
+(``parallel.ShardedIndex``), config 5 searches its 1M-row bf16 gallery on
+one device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.normalization im
 from image_retrieval_for_image_based_localization_tpu_torch.ops.whitening import (
     pca_whiten_learn,
     whiten_apply,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.parallel.sharded_index import (
+    ShardedIndex,
+    sharded_knn,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
@@ -106,17 +112,15 @@ def run_graded_config(
     out_dir: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> Dict:
-    """Run graded config ``n`` (1, 2, 3 or 5); returns a results dict.
+    """Run graded config ``n`` (1 to 5); returns a results dict.
 
     Configs 1-3 go through ``evaluate_dataset`` (config 3 first sets its
-    NetVLAD head by k-means on the corpus). Config 5 extracts the core and
-    the queries and hands them to :func:`run_gallery_scale`; ``out_dir``
-    is where it writes the pairs file and the index artifact. The roots
-    default to directories under the temporary directory.
+    NetVLAD head by k-means on the corpus). Configs 4 and 5 extract the core
+    and the queries and hand them to :func:`run_gallery_scale` (config 4 on
+    ``default_mesh``); ``out_dir`` is where config 5 writes the pairs file
+    and the index artifact. The roots default to directories under the
+    temporary directory.
     """
-    if n == 4:
-        raise ValueError("graded config 4: sharded top-k needs ROADMAP A4 (parallel/), "
-                         "which the port does not have yet")
     cfg = GRADED_CONFIGS[n]
     tmp = tempfile.gettempdir()
     data_root = data_root or os.path.join(tmp, "irtpu_data")
@@ -162,9 +166,11 @@ def run_gallery_scale(
     device: DeviceLike = "cuda",
     query_names: Optional[Sequence[str]] = None,
     db_names: Optional[Sequence[str]] = None,
+    mesh=None,
 ) -> Dict:
-    """Config 5's body after extraction: the 1M-row bf16 gallery, exact
-    top-100 search, localization recall and the artifacts.
+    """Configs 4 and 5 after extraction: the gallery at scale and its timed
+    exact top-100; for config 4 sharded, with the exactness probe, for
+    config 5 on one device, with localization recall and the artifacts.
 
     ``core`` [n_core, D] and ``qd`` [Nq, D] are the extracted database and
     query descriptors, ``gnd`` the queries' ground truth over the core rows.
@@ -172,18 +178,24 @@ def run_gallery_scale(
     normals from ``torch.Generator(device).manual_seed(0)``, L2-normalized
     on the device. PCA whitening is learned on the core plus the first
     50,000 distractors, applied on the device in 131,072-row blocks and
-    stored as bf16; ``knn_search(gallery, q, k=100)`` is timed over 7
-    repetitions (p50/p95/p99). Recall@(1, 5, 10, 20) of the shortlist is
-    logged. With ``out_dir``: the pairs file, then ``Index.save(
+    stored as f32 (config 4) or bf16 (config 5), queries alike.
+
+    Config 4: the gallery is padded to whole shards of ``mesh`` (default
+    ``default_mesh(device)``) and ``sharded_knn(k=100)`` is timed over 7
+    repetitions (p50/p95/p99); then the exactness probe: the sharded
+    indices must equal single-device ``knn_search`` bit for bit, or
+    ``AssertionError``. Config 5: ``knn_search(gallery, q, k=100)`` is timed
+    the same way and recall@(1, 5, 10, 20) of the shortlist is logged;
+    with ``out_dir``, the pairs file, then ``Index.save(
     external_gallery=True)``, a reload and a top-1 probe on 4 queries.
 
     Returns ``config``, ``top1_in_core`` and, for a caller that checks the
-    run, ``gallery`` (device bf16), ``queries`` (whitened bf16), ``indices``
-    [Nq, 100], ``latency_s``, ``recall``, ``whitening`` (m, P) and
-    ``artifact`` (the reloaded ``Index``, or None without ``out_dir``).
+    run, ``gallery`` (on the device), ``queries`` (whitened, stored dtype),
+    ``indices`` [Nq, 100], ``latency_s``, ``recall`` (config 5),
+    ``whitening`` (m, P), ``artifact`` (config 5: the reloaded ``Index``,
+    or None without ``out_dir``) and, for config 4, ``sharded`` (the
+    ``ShardedIndex``) and ``exact_match``.
     """
-    if n == 4:
-        raise ValueError("graded config 4: sharded top-k needs ROADMAP A4 (parallel/)")
     if n not in GALLERY_SCALE:
         raise ValueError(f"graded config {n} has no gallery-scale run")
     cfg = GRADED_CONFIGS[n]
@@ -197,7 +209,7 @@ def run_gallery_scale(
     qd = np.asarray(qd, np.float32)
     n_total = GALLERY_SCALE[n]
     n_core, D = core.shape
-    store = torch.bfloat16
+    store = torch.float32 if n == 4 else torch.bfloat16
 
     gen = torch.Generator(device=dev).manual_seed(0)
     distract = l2n(torch.randn((n_total - n_core, D), generator=gen, device=dev))
@@ -224,6 +236,8 @@ def run_gallery_scale(
     del distract, first
     q = store_fn(torch.from_numpy(qd).to(dev))
 
+    if n == 4:
+        return _sharded_gallery_run(n, cfg, gallery, q, n_core, logger, dev, mesh, (m, P))
     knn_search(gallery, q, k=100)  # warm-up, untimed
     idx, lat = _timed_queries(lambda: knn_search(gallery, q, k=100))
     logger.log(config=n, gallery=n_total, queries=len(qd), seconds=float(np.sum(lat)),
@@ -274,6 +288,38 @@ def run_gallery_scale(
     return {"config": cfg.name, "top1_in_core": hit_core, "gallery": gallery, "queries": q,
             "indices": idx, "latency_s": lat, "recall": rec, "whitening": (m, P),
             "artifact": reloaded}
+
+
+def _sharded_gallery_run(n, cfg, gallery, q, n_core, logger, dev, mesh, whitening) -> Dict:
+    """Config 4 after its gallery is built: the sharded top-100, timed, and
+    the exactness probe against single-device ``knn_search``."""
+    n_total = gallery.shape[0]
+    sindex = ShardedIndex(gallery, mesh=mesh, device=dev)
+    mesh = sindex.mesh
+
+    def search():
+        return sharded_knn(sindex.shards, q, k=100, mesh=mesh, n_valid=n_total)
+
+    search()  # warm-up, untimed
+    idx, lat = _timed_queries(search)
+    logger.log(config=n, gallery=n_total, queries=len(q), seconds=float(np.sum(lat)),
+               queries_per_sec=len(q) / float(np.median(lat)), storage="float32",
+               mesh=mesh.shape, local_shards=mesh.local_shards, world_size=mesh.world_size,
+               **_latency_percentiles(lat))
+    # the distributed top-k must equal one device's answer bit for bit on
+    # this very gallery, as the JAX package's probe holds its own
+    _, i_ex = knn_search(gallery, q, k=100)
+    exact_match = bool(np.array_equal(i_ex.cpu().numpy(), idx))
+    logger.log(config=n, event="exactness_probe", sharded_equals_single_device=exact_match,
+               k=100, n_valid=n_total)
+    if not exact_match:
+        raise AssertionError("config-4 sharded top-k disagrees with single-device exact "
+                             "search at the graded scale")
+    hit_core = float(np.mean(idx[:, 0] < n_core))
+    logger.log(config=n, top1_in_core_fraction=hit_core)
+    return {"config": cfg.name, "top1_in_core": hit_core, "gallery": gallery, "queries": q,
+            "indices": idx, "latency_s": lat, "recall": None, "whitening": whitening,
+            "artifact": None, "sharded": sindex, "exact_match": exact_match}
 
 
 def run_training_bench(

@@ -177,13 +177,15 @@ def localize_shortlist(
     optionally write the pairs file. ``db_names`` defaults to the index's
     stored ids, else the row numbers.
 
-    ``qe_nqe`` and ``diffusion`` (re-ranking before the cut) are not
-    ported and raise.
+    ``qe_nqe`` (αQE, ``qe_alpha``) and ``diffusion`` re-rank before the top-k
+    cut, as in the JAX package: a better shortlist for the same pose
+    solver. With diffusion the scores are None (its ranks are not cosines).
     """
-    if qe_nqe or diffusion:
-        raise ValueError("query expansion and diffusion re-ranking are not ported "
-                         "(ROADMAP A5)")
-    scores, idx = index.query(qdescriptors, k=k)
+    if diffusion:
+        idx = index.diffusion_ranks(qdescriptors, qe_nqe=qe_nqe, qe_alpha=qe_alpha)[:k].T
+        scores = None
+    else:
+        scores, idx = index.query(qdescriptors, k=k, qe_nqe=qe_nqe, qe_alpha=qe_alpha)
     if db_names is None:
         if index.ids is None:
             db_names = [str(i) for i in range(index.gallery.shape[0])]

@@ -1,0 +1,115 @@
+"""Device mesh for the sharded gallery: the JAX package's ``parallel/mesh.py``.
+
+The JAX package scales through a ``jax.sharding.Mesh`` with two axes:
+``data`` (batch parallelism for extraction and training) and ``gallery``
+(the descriptor gallery sharded by rows). Here :class:`Mesh` keeps the same
+axis names over ``torch.distributed`` processes:
+
+- the ``gallery`` axis is the global list of row shards, in order. Each
+  process owns a contiguous run of ``len(local_devices)`` shards, and each
+  of them lives on one of its local devices, so global shard id =
+  ``rank * local_shards + local_id``. Several shards may share a device:
+  four row shards on ``cuda:0``, or eight on the CPU as the JAX tests' eight
+  virtual devices;
+- a ``data`` axis above 1 (data-parallel extraction and training) raises
+  ``NotImplementedError`` until ROADMAP A10 brings it.
+
+The process group (``parallel.distributed``) carries the collectives. With
+none initialized the mesh is one process (rank 0 of 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+)
+
+
+def _group() -> Tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class Mesh:
+    """A ``(data, gallery)`` mesh of row shards over the process group.
+
+    ``shape`` maps each axis name to its global size, as
+    ``jax.sharding.Mesh.shape`` does; ``local_devices`` holds one device per
+    local shard, in shard order.
+    """
+
+    def __init__(self, shape: Dict[str, int], local_devices: Sequence[torch.device],
+                 rank: int = 0, world_size: int = 1):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.local_devices = [torch.device(d) for d in local_devices]
+        self.rank, self.world_size = int(rank), int(world_size)
+
+    @property
+    def local_shards(self) -> int:
+        return len(self.local_devices)
+
+    def shard_id(self, local_id: int) -> int:
+        """Global shard id of this process's ``local_id``-th shard."""
+        return self.rank * self.local_shards + local_id
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank {self.rank} of {self.world_size}, "
+                f"local {[str(d) for d in self.local_devices]})")
+
+
+def create_mesh(
+    axis_sizes: Optional[Sequence[int]] = None,
+    axis_names: Tuple[str, ...] = ("data", "gallery"),
+    devices: Optional[Sequence[DeviceLike]] = None,
+) -> Mesh:
+    """A mesh over this process's ``devices`` (one shard each; repeats allowed)
+    times the process group's world size.
+
+    ``axis_sizes=None`` puts every shard on the last axis (pure gallery
+    sharding); a ``-1`` entry is inferred from the shard count, as in the
+    JAX package. ``devices`` defaults to :func:`local_devices`.
+    """
+    rank, world = _group()
+    devs = [resolve_device(d) for d in (devices if devices is not None else local_devices())]
+    n = len(devs) * world
+    sizes = [1] * (len(axis_names) - 1) + [n] if axis_sizes is None else list(axis_sizes)
+    if len(sizes) != len(axis_names):
+        raise ValueError(f"{len(sizes)} axis sizes for axes {axis_names}")
+    if -1 in sizes:
+        sizes[sizes.index(-1)] = n // math.prod(s for s in sizes if s != -1)
+    shape = dict(zip(axis_names, sizes))
+    if shape.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"a data axis of {shape['data']}: data-parallel extraction and training over "
+            f"the mesh are not ported yet (ROADMAP A10)")
+    if math.prod(sizes) != n:
+        raise ValueError(f"mesh {sizes} != {n} shards ({len(devs)} local x {world} processes)")
+    return Mesh(shape, devs, rank=rank, world_size=world)
+
+
+def local_devices(device: DeviceLike = "cuda"):
+    """This process's devices, one shard each: with a process group of more
+    than one process, the current card (one card a process); else every
+    card of the host. ``device="cpu"`` gives one CPU shard."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    if _group()[1] > 1:
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def default_mesh(device: DeviceLike = "cuda") -> Mesh:
+    """Every shard on the ``gallery`` axis (data axis 1): one shard per local
+    device, times the process group's world size."""
+    return create_mesh(devices=local_devices(device))

@@ -9,12 +9,18 @@ memory-mapped. A bf16 gallery is written as a ``uint16`` bit-view with
 nothing widens it to f32.
 
 Search routing in :meth:`Index.query` is a fixed rule on shape and dtype:
-exact top-k with ``k <= 128`` over an f32 or bf16 gallery goes to the
-hand-written fused top-k kernel (``ops.kernels.fused_topk``); everything
-else goes to the chunked exact search (``retrieval.knn.knn_search``), which
-on the card scores f32/bf16 chunks with the score/block-max kernel
-(``ops.kernels.score_topk``) and int8 storage with a dense product and a
-stable sort.
+exact top-k with ``k <= 128`` over an f32 or bf16 gallery and no query
+expansion goes to the hand-written fused top-k kernel
+(``ops.kernels.fused_topk``); everything else goes to the chunked exact
+search (``retrieval.knn.knn_search``), which on the card scores f32/bf16
+chunks with the score/block-max kernel (``ops.kernels.score_topk``) and
+int8 storage with a dense product and a stable sort.
+
+The re-ranking family is the JAX package's: αQE on the queries
+(``query(qe_nqe=...)``, ``ranks(qe_nqe=...)``), DBA on the gallery at build
+(``IndexConfig.dba_nqe``), both ``retrieval.query_expansion``, and
+kNN-graph diffusion (:meth:`Index.diffusion_ranks`,
+``retrieval.diffusion``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import dataclasses
 import json
 import os
 import warnings
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,20 +43,27 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.whitening import
     whiten_apply,
     whiten_learn,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.diffusion import (
+    DiffusionGraph,
+    build_graph,
+    diffusion_scores,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
     full_ranks,
     knn_search,
+    score_matrix,
 )
-from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
-    IndexConfig,
-    check_index_supported,
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.query_expansion import (
+    expand_queries,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.utils.config import IndexConfig
 from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
 )
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+DBA_BLOCK = 8192  # gallery rows expanded at a time by DBA (bounds its gather)
 
 
 @dataclasses.dataclass
@@ -76,6 +89,8 @@ class Index:
         default=None, repr=False, compare=False)
     _device_mP: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _diffusion_cache: Dict[Tuple[int, float], DiffusionGraph] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     def device_gallery(self) -> torch.Tensor:
         """Device-resident gallery in the ``storage`` dtype, uploaded once.
@@ -109,7 +124,6 @@ class Index:
         """Learn whitening on the gallery (host, float64) and apply it on
         ``device``. ``pairs=(qidxs, pidxs)`` selects supervised Lw whitening;
         ``whitening_mP=(m, P)`` applies pre-learned whitening instead."""
-        check_index_supported(cfg)
         dev = resolve_device(device)
         descriptors = np.asarray(descriptors, dtype=np.float32)
         m = P = None
@@ -144,6 +158,16 @@ class Index:
                 for i in range(0, descriptors.shape[0], step)
             ]
             gallery = np.concatenate(blocks, axis=0)
+        if cfg.dba_nqe:
+            # database-side augmentation: gallery -> gallery αQE in the search
+            # space; a row's first neighbour is itself (s = 1), so it carries
+            # weight 1 + 1 with the explicit query term, the usual DBA
+            gdev = torch.from_numpy(np.ascontiguousarray(gallery, np.float32)).to(dev)
+            nqe = min(int(cfg.dba_nqe), gallery.shape[0])
+            gallery = np.concatenate([
+                expand_queries(gdev, gdev[i : i + DBA_BLOCK], nqe=nqe,
+                               alpha=cfg.dba_alpha).cpu().numpy()
+                for i in range(0, gallery.shape[0], DBA_BLOCK)], axis=0)
         return cls(
             gallery=gallery, m=m, P=P, dims=cfg.whiten_dims,
             ids=None if ids is None else np.asarray(ids),
@@ -162,19 +186,65 @@ class Index:
                                torch.from_numpy(self.P).to(self.device))
         return whiten_apply(q, *self._device_mP, self.dims)
 
-    def query(self, qdescriptors, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k search. Returns (scores [Nq,k] f32, indices [Nq,k] int32)."""
+    def _search_queries(self, qdescriptors, qe_nqe: int = 0,
+                        qe_alpha: float = 3.0) -> torch.Tensor:
+        """Whitened and, with ``qe_nqe``, αQE-expanded queries on the device."""
         q = self.transform_queries(qdescriptors)
+        if qe_nqe:
+            q = expand_queries(self.device_gallery(), q,
+                               nqe=min(int(qe_nqe), self.gallery.shape[0]), alpha=qe_alpha)
+        return q
+
+    def query(self, qdescriptors, k: int = 10, qe_nqe: int = 0, qe_alpha: float = 3.0,
+              method: str = "exact",
+              recall_target: float = 0.95) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k search. Returns (scores [Nq,k] f32, indices [Nq,k] int32).
+
+        ``qe_nqe > 0`` expands the queries by αQE first (one more search).
+
+        ``method="approx"`` stands for the JAX package's ``lax.approx_max_k``,
+        the TPU's hardware selection at ``recall_target``. The port runs the
+        exact search for it, which meets any recall target; nothing
+        approximates the selection.
+        """
+        if method not in ("exact", "approx"):
+            raise ValueError(f"unknown query method {method!r} (exact|approx)")
+        if method == "approx" and not 0.0 < recall_target <= 1.0:
+            raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
+        q = self._search_queries(qdescriptors, qe_nqe, qe_alpha)
         g = self.device_gallery()
-        if k <= LANES and self.storage in ("float32", "bfloat16"):
+        if not qe_nqe and k <= LANES and self.storage in ("float32", "bfloat16"):
             scores, idx = fused_topk_search(g, q, k)
         else:
             scores, idx = knn_search(g, q, k)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
-    def ranks(self, qdescriptors) -> np.ndarray:
-        """Full ranking [N, Nq] for mAP evaluation."""
-        return full_ranks(self.device_gallery(), self.transform_queries(qdescriptors))
+    def ranks(self, qdescriptors, qe_nqe: int = 0, qe_alpha: float = 3.0) -> np.ndarray:
+        """Full ranking [N, Nq] for mAP evaluation (αQE with ``qe_nqe``)."""
+        return full_ranks(self.device_gallery(),
+                          self._search_queries(qdescriptors, qe_nqe, qe_alpha))
+
+    def diffusion_ranks(self, qdescriptors, k_graph: int = 50, k_seed: int = 10,
+                        gamma: float = 3.0, alpha: float = 0.9, iters: int = 30,
+                        qe_nqe: int = 0, qe_alpha: float = 3.0) -> np.ndarray:
+        """Full ranking [N, Nq] by kNN-graph diffusion (``retrieval.diffusion``;
+        αQE with ``qe_nqe`` applies to the seeds' search).
+
+        The graph does not depend on the queries and is built once per
+        ``(k_graph, gamma)``. Rows the diffusion reaches (``f > 0``) rank
+        above every other row, by ``3 + f``; the rest keep their cosine
+        order (int8 storage dequantized) below them."""
+        q = self._search_queries(qdescriptors, qe_nqe, qe_alpha)
+        g = self.device_gallery()
+        key = (int(k_graph), float(gamma))
+        graph = self._diffusion_cache.get(key)
+        if graph is None:
+            graph = self._diffusion_cache[key] = build_graph(g, k=k_graph, gamma=gamma)
+        f = diffusion_scores(g, q, graph=graph, k_graph=k_graph, k_seed=k_seed, gamma=gamma,
+                             alpha=alpha, iters=iters)
+        cos = score_matrix(g, q).T.cpu().numpy()  # [N, Nq]
+        final = np.where(f > 0, 3.0 + f, cos)   # any reached row above cos <= 1 < 3
+        return np.argsort(-final, axis=0, kind="stable")
 
     # -- persistence ---------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Exact brute-force kNN over a descriptor gallery (one device).
+"""Exact brute-force kNN over a descriptor gallery (one device, or one
+shard of a row-sharded gallery).
 
 The JAX package's ``retrieval/knn.py``: scores are ``queries @ gallery.T``
 in f32, and on exact ties the lower gallery index wins, matching NumPy
@@ -16,17 +17,28 @@ a score matrix.
 :func:`rank_candidates` gives the global rank of chosen gallery rows by
 streaming counts over the gallery (no ``[Ng, Nq]`` ranking), for mAP on
 large galleries.
+
+Both cores are shard-safe, as the JAX package's: ``n_valid`` masks pad rows
+at a shard's end and ``index_offset`` maps local rows to global ones
+(``parallel.sharded_index``). A shard's scores must be the bits one device
+computes for the same (query, row) pair, or a planted tie across a shard
+border breaks. Kernel B3 keeps one FMA order per pair whatever the shapes,
+so on the card both cores score f32 and bf16 through it; cuBLAS and CPU
+``torch.matmul`` round differently for other matrix shapes, so the CPU
+scores fixed, zero-padded tiles (:func:`_tiled_scores`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_topk import (
     blockmax_topk_search,
+    scores_blockmax,
 )
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -77,11 +89,50 @@ def auto_chunk(Ng: int, Nq: int, budget_bytes: int = 256 * 1024 * 1024) -> int:
     return min(Ng, chunk)
 
 
+# CPU score tiles: queries x gallery rows per torch.matmul
+_TILE_Q, _TILE_G = 16, 256
+
+
+def _tiled_scores(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """:func:`score_matrix` on the CPU from fixed ``[16, D] x [D, 256]``
+    products on zero-padded tiles, so a (query, row) pair gets the same bits
+    whatever the batch's and the gallery's sizes, as kernel B3 gives on the
+    card: a row scored in its shard equals the row scored in the whole
+    gallery, and a block of queries equals the whole batch."""
+    Nq, Ng = queries.shape[0], gallery.shape[0]
+    if gallery.dtype == torch.int8:
+        q, g = queries.float(), gallery.float()
+    else:
+        q, g = queries.to(gallery.dtype).float(), gallery.float()
+    q = F.pad(q, (0, 0, 0, -Nq % _TILE_Q))
+    g = F.pad(g, (0, 0, 0, -Ng % _TILE_G))
+    out = torch.empty((q.shape[0], g.shape[0]), dtype=torch.float32)
+    for i in range(0, q.shape[0], _TILE_Q):
+        for j in range(0, g.shape[0], _TILE_G):
+            out[i : i + _TILE_Q, j : j + _TILE_G] = q[i : i + _TILE_Q] @ g[j : j + _TILE_G].T
+    out = out[:Nq, :Ng]
+    return out * (1.0 / 127.0) if gallery.dtype == torch.int8 else out
+
+
+def _dense_scores(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """:func:`score_matrix`'s values with the same bits for a (query, row)
+    pair whatever the shapes: tiled on the CPU; on the card kernel B3 for an
+    f32 or bf16 gallery (cuBLAS picks other algorithms, so other roundings,
+    for other shapes), cuBLAS for int8, which B3 does not take."""
+    if gallery.device.type == "cpu":
+        return _tiled_scores(gallery, queries)
+    if gallery.dtype in (torch.float32, torch.bfloat16):
+        return scores_blockmax(gallery, queries.to(gallery.dtype).float())[0][:, : gallery.shape[0]]
+    return score_matrix(gallery, queries)
+
+
 def knn_search(
     gallery: torch.Tensor,
     queries: torch.Tensor,
     k: int,
     chunk: Optional[int] = None,
+    n_valid: Optional[int] = None,
+    index_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over gallery chunks: ``(scores [Nq,k] f32, indices [Nq,k] int32)``.
 
@@ -89,28 +140,39 @@ def knn_search(
     own exact top-k in (score desc, index asc) order (block-max route, CUDA
     f32/bf16). The carried top-k sits in front of them and its indices are
     all lower, so a stable sort of the concatenation keeps lower-index-wins.
+
+    Shard-safe: only rows ``< n_valid`` are scored (default: all), and the
+    result always has ``min(k, Ng)`` columns; columns past the valid rows
+    score NEG_INF with row INT32_MAX, as pad rows of a shard do in the JAX
+    package's ``streaming_topk``. Indices are ``index_offset`` + local row.
     """
     Ng = gallery.shape[0]
     Nq = queries.shape[0]
-    k = min(k, Ng)
-    chunk = min(chunk or auto_chunk(Ng, Nq), Ng)
-    blockmax = gallery.device.type == "cuda" and gallery.dtype in (torch.float32,
-                                                                   torch.bfloat16)
-    if blockmax:
-        queries = queries.to(gallery.dtype).float()  # as score_matrix rounds them
-    best_s = best_i = None
-    for start in range(0, Ng, chunk):
+    k_out = min(k, Ng)
+    n_valid = Ng if n_valid is None else max(0, min(int(n_valid), Ng))
+    k = min(k, n_valid)
+    best_s = torch.full((Nq, 0), NEG_INF, dtype=torch.float32, device=gallery.device)
+    best_i = torch.full((Nq, 0), INT32_MAX, dtype=torch.int64, device=gallery.device)
+    if k > 0:
+        chunk = min(chunk or auto_chunk(Ng, Nq), n_valid)
+        blockmax = gallery.device.type == "cuda" and gallery.dtype in (torch.float32,
+                                                                       torch.bfloat16)
         if blockmax:
-            s, ids = blockmax_topk_search(gallery[start : start + chunk], queries, k)
-            ids = ids.to(torch.int64) + start
-        else:
-            s = score_matrix(gallery[start : start + chunk], queries)
-            ids = torch.arange(start, start + s.shape[1], device=s.device,
-                               dtype=torch.int64).expand(Nq, -1)
-        if best_s is not None:
-            s = torch.cat([best_s, s], dim=1)
-            ids = torch.cat([best_i, ids], dim=1)
-        best_s, best_i = merge_topk(s, ids, k)
+            queries = queries.to(gallery.dtype).float()  # as score_matrix rounds them
+        for start in range(0, n_valid, chunk):
+            stop = min(start + chunk, n_valid)
+            if blockmax:
+                s, ids = blockmax_topk_search(gallery[start:stop], queries, k)
+                ids = ids.to(torch.int64) + start
+            else:
+                s = _dense_scores(gallery[start:stop], queries)
+                ids = torch.arange(start, stop, device=s.device, dtype=torch.int64).expand(Nq, -1)
+            best_s, best_i = merge_topk(torch.cat([best_s, s], dim=1),
+                                        torch.cat([best_i, ids], dim=1), k)
+        best_i = best_i + index_offset
+    if k_out > k:
+        best_s = torch.cat([best_s, best_s.new_full((Nq, k_out - k), NEG_INF)], dim=1)
+        best_i = torch.cat([best_i, best_i.new_full((Nq, k_out - k), INT32_MAX)], dim=1)
     return best_s.contiguous(), best_i.to(torch.int32).contiguous()
 
 
@@ -125,14 +187,50 @@ def full_ranks(gallery: torch.Tensor, queries: torch.Tensor, batch: int = 256) -
     return np.concatenate(ranks, axis=1)
 
 
+def _candidate_scores(gallery, queries, cand, chunk, index_offset) -> torch.Tensor:
+    """Pass 1 of :func:`rank_candidates_core`: each candidate's own score,
+    read out of the chunk's score block that holds its row; 0 where this
+    gallery (shard) does not hold it."""
+    Ng = gallery.shape[0]
+    Nq, C = cand.shape
+    cs = torch.zeros((Nq, C), dtype=torch.float32, device=gallery.device)
+    local = cand - index_offset
+    for start in range(0, Ng, chunk):
+        s = _dense_scores(gallery[start : start + chunk], queries)  # [Nq, n]
+        lc = local - start
+        inb = (lc >= 0) & (lc < s.shape[1])
+        g = torch.gather(s, 1, torch.clamp(lc, 0, s.shape[1] - 1))
+        cs = torch.where(inb, g, cs)
+    return cs
+
+
+def _count_ahead(gallery, queries, cand, cs, chunk, n_valid, index_offset) -> torch.Tensor:
+    """Pass 2 of :func:`rank_candidates_core`: per candidate, the valid rows
+    of this gallery (shard) that rank ahead of it. It scores the chunks of
+    pass 1, pad rows included, so each score is the same product's bits."""
+    Nq, C = cand.shape
+    counts = torch.zeros((Nq, C), dtype=torch.int64, device=gallery.device)
+    for start in range(0, n_valid, chunk):
+        s = _dense_scores(gallery[start : start + chunk], queries)  # [Nq, n]
+        lidx = torch.arange(start, start + s.shape[1], device=s.device)
+        s3, c3 = s[:, :, None], cs[:, None, :]
+        ahead = (s3 > c3) | ((s3 == c3) & (lidx[None, :, None] + index_offset
+                                          < cand[:, None, :]))
+        counts += (ahead & (lidx < n_valid)[None, :, None]).sum(dim=1)
+    return counts
+
+
 def rank_candidates_core(
-    gallery: torch.Tensor,
+    gallery,
     queries: torch.Tensor,
     cand: torch.Tensor,
     chunk: Optional[int] = None,
+    n_valid=None,
+    index_offset=0,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Global 0-based rank of each candidate gallery row, by streaming count
-    (the JAX package's single-device ``rank_candidates_core``).
+    (the JAX package's ``rank_candidates_core``).
 
     Under the descending stable order (lower index first on ties) a
     candidate's rank is a count::
@@ -147,40 +245,47 @@ def rank_candidates_core(
     device; the chunk bounds the ``[Nq, chunk, C]`` compare to 32 Mi
     elements by default.
 
+    Shard-safe: ``gallery`` is one tensor, or a sequence of this process's
+    local shards with ``n_valid`` and ``index_offset`` as sequences beside
+    it. The shards' partials (candidate scores, then counts) are summed in
+    order on the queries' device, then ``reduce`` runs on each sum: the
+    sharded path passes ``dist.all_reduce(SUM)`` over the process group,
+    the JAX package's psum. Exactly one shard holds a candidate's row, the
+    others add literal zeros, so the summed scores are exact.
+
     Args:
-      gallery: [Ng, D] f32, bf16 or int8 (as ``score_matrix`` takes it).
+      gallery: [Ng, D] f32, bf16 or int8 (as ``score_matrix`` takes it), or
+        a sequence of such shards.
       queries: [Nq, D] f32.
-      cand: [Nq, C] integer gallery rows (pad with any valid row and ignore
-        its output).
+      cand: [Nq, C] integer *global* gallery rows (pad with any valid row
+        and ignore its output).
     Returns: [Nq, C] int32 ranks.
     """
-    Ng = gallery.shape[0]
+    if isinstance(gallery, torch.Tensor):
+        gallery, n_valid, index_offset = [gallery], [n_valid], [index_offset]
+    shards = [(g, g.shape[0] if nv is None else max(0, min(int(nv), g.shape[0])), int(off))
+              for g, nv, off in zip(gallery, n_valid, index_offset)]
     Nq, C = cand.shape
-    if chunk is None:
-        budget_elems = 32 * 1024 * 1024
-        chunk = max(512, budget_elems // max(Nq * C, 1))
-        chunk = -(-chunk // 128) * 128
-    chunk = min(chunk, Ng)
-    dev = gallery.device
-    queries = queries.to(dev)
-    cand = torch.as_tensor(cand).to(dev, torch.int64)
-    starts = range(0, Ng, chunk)
+    out = queries.device
+    cand = torch.as_tensor(cand).to(out, torch.int64)
 
-    cs = torch.zeros((Nq, C), dtype=torch.float32, device=dev)
-    for start in starts:
-        s = score_matrix(gallery[start : start + chunk], queries)  # [Nq, n]
-        lc = cand - start
-        inb = (lc >= 0) & (lc < s.shape[1])
-        g = torch.gather(s, 1, torch.clamp(lc, 0, s.shape[1] - 1))
-        cs = torch.where(inb, g, cs)
+    def chunk_of(Ng):
+        if chunk is not None:
+            return max(1, min(chunk, Ng))
+        c = max(512, 32 * 1024 * 1024 // max(Nq * C, 1))
+        return max(1, min(-(-c // 128) * 128, Ng))
 
-    counts = torch.zeros((Nq, C), dtype=torch.int64, device=dev)
-    for start in starts:
-        s = score_matrix(gallery[start : start + chunk], queries)  # [Nq, n]
-        gidx = torch.arange(start, start + s.shape[1], device=dev)
-        s3, c3 = s[:, :, None], cs[:, None, :]
-        ahead = (s3 > c3) | ((s3 == c3) & (gidx[None, :, None] < cand[:, None, :]))
-        counts += ahead.sum(dim=1)
+    def on(g):
+        return queries.to(g.device), cand.to(g.device)
+
+    cs = sum(_candidate_scores(g, *on(g), chunk_of(g.shape[0]), off).to(out)
+             for g, _, off in shards)
+    if reduce is not None:
+        cs = reduce(cs)
+    counts = sum(_count_ahead(g, *on(g), cs.to(g.device), chunk_of(g.shape[0]), nv, off).to(out)
+                 for g, nv, off in shards)
+    if reduce is not None:
+        counts = reduce(counts)
     return counts.to(torch.int32)
 
 

@@ -15,8 +15,9 @@ steps_per_epoch)`` through ``LambdaLR``, stepped once per applied step. With
 ``update_every = k > 1`` the gradients of k micro-batches are averaged before
 one update, as ``optax.MultiSteps`` does.
 
-Not here (each raises): a device mesh (data-parallel training, ROADMAP A4),
-bf16 training and ``remat`` (ROADMAP C3).
+Not here (each raises): a ``mesh`` (data-parallel training under DDP, ROADMAP
+A10: ``parallel/`` shards the search gallery, not the batch), bf16 training
+and ``remat`` (ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -80,8 +81,9 @@ class TrainState:
 def check_trainable(model: RetrievalNet, cfg: TrainConfig, mesh=None) -> None:
     """Raise on what this package does not train."""
     if mesh is not None:
-        raise NotImplementedError("data-parallel training over a device mesh is not "
-                                  "supported (ROADMAP A4)")
+        raise NotImplementedError("data-parallel training over a mesh (DDP on its data axis) "
+                                  "is not ported yet: parallel/ shards the search gallery "
+                                  "only (ROADMAP A10)")
     if model.compute_dtype != torch.float32:
         raise NotImplementedError("bf16 training is not supported: it needs train-mode "
                                   "BatchNorm with flax's bf16 rounding points and its "

@@ -7,8 +7,10 @@ for compatibility and rejected by :func:`check_supported` when set;
 ``fuse_blocks`` is taken for f32 bottleneck resnets, ``dtype="bfloat16"``
 runs the trunk in bf16 (graded configs 4 and 5), and ``native_preproc``
 selects the native C++ decoder for path inputs as in the JAX package.
-What the training path refuses (bf16 training, ``remat``, a device mesh)
-is checked by ``training.trainer.check_trainable``.
+What the training path refuses (bf16 training, ``remat``, data-parallel
+training over a mesh) is checked by ``training.trainer.check_trainable``;
+``parallel/`` shards the search gallery only, and a mesh with a ``data``
+axis above 1 raises in ``parallel.mesh.create_mesh`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class IndexConfig:
     # learn whitening on at most this many (deterministically sampled) rows
     whiten_sample: Optional[int] = 200_000
     storage: str = "float32"  # device gallery dtype: float32 | bfloat16 | int8
-    dba_nqe: int = 0  # database-side augmentation: not ported
+    dba_nqe: int = 0  # database-side augmentation (αQE of the gallery), 0 = off
     dba_alpha: float = 3.0
 
 
@@ -151,7 +153,3 @@ def check_supported(cfg: ExtractConfig) -> None:
         raise ValueError(f"pooling {mc.pooling!r} is not supported "
                          f"(one of {_SUPPORTED_POOLING})")
 
-
-def check_index_supported(cfg: IndexConfig) -> None:
-    if cfg.dba_nqe:
-        raise ValueError("dba_nqe (database-side augmentation) is not supported")

@@ -53,7 +53,8 @@ def _needs_no_cuda():
 
 @pytest.mark.parametrize("entry", ["Extractor", "extract_features", "build_index",
                                    "Index.load", "IVFIndex.build", "PQIndex.build",
-                                   "load_pq_artifact"])
+                                   "load_pq_artifact", "default_mesh", "ShardedIndex",
+                                   "initialize_distributed"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     _needs_no_cuda()
     cfg = port.ExtractConfig(model=port.ModelConfig(arch="resnet18"), image_size=64)
@@ -66,6 +67,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
         "IVFIndex.build": lambda: port.IVFIndex.build(np.eye(4, dtype=np.float32)),
         "PQIndex.build": lambda: port.PQIndex.build(np.eye(4, dtype=np.float32), m=2),
         "load_pq_artifact": lambda: port.load_pq_artifact(str(tmp_path / "none")),
+        "default_mesh": lambda: port.parallel.default_mesh(),
+        "ShardedIndex": lambda: port.parallel.ShardedIndex(np.eye(4, dtype=np.float32)),
+        "initialize_distributed": lambda: port.parallel.distributed.initialize_distributed(
+            "127.0.0.1:1", num_processes=2, process_id=0),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -96,6 +101,11 @@ def test_unported_options_raise():
     ex = port.Extractor(dataclasses.replace(cfg3, model=dataclasses.replace(
         cfg3.model, netvlad_clusters=4)), device="cpu")
     assert ex.out_dim == 4 * 512
-    with pytest.raises(ValueError):
-        port.build_index(np.eye(4, dtype=np.float32), port.IndexConfig(dba_nqe=2),
-                         device="cpu")
+    # database-side augmentation is ported: each row averaged with its 2 nearest
+    dba = port.build_index(np.eye(4, dtype=np.float32), port.IndexConfig(whitening=None,
+                                                                         dba_nqe=2),
+                           device="cpu")
+    np.testing.assert_allclose(np.linalg.norm(dba.gallery, axis=1), 1.0, atol=1e-6)
+    # a mesh with a data axis (data-parallel extraction and training) is not
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        port.parallel.create_mesh([2, 1], devices=["cpu"])

@@ -167,12 +167,18 @@ def test_device_bf16_gallery_saves_as_bits(tmp_path):
     assert JIndex.load(str(tmp_path / "f.npz")).gallery.dtype == np.float32
 
 
-def test_config4_waits_for_sharded_search():
-    with pytest.raises(ValueError, match="ROADMAP A4"):
-        benchmarks.run_graded_config(4, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A4"):
-        benchmarks.run_gallery_scale(4, np.zeros((2, 4), np.float32),
-                                     np.zeros((1, 4), np.float32), [{}], device="cpu")
+def test_config4_waits_for_sharded_search(monkeypatch):
+    """Config 4 no longer waits: its gallery-scale body runs sharded on the
+    default mesh (one CPU shard here), f32, with the exactness probe
+    (tests/test_torch_sharded.py runs the whole config at toy scale)."""
+    rng = np.random.RandomState(0)
+    core = rng.randn(8, 16).astype(np.float32)
+    core /= np.linalg.norm(core, axis=1, keepdims=True)
+    monkeypatch.setitem(benchmarks.GALLERY_SCALE, 4, 400)
+    res = benchmarks.run_gallery_scale(4, core, core[:3], [{}] * 3, device="cpu")
+    assert res["exact_match"] and res["gallery"].dtype == torch.float32
+    assert res["sharded"].mesh.shape == {"data": 1, "gallery": 1}
+    assert (res["indices"][:, 0] == np.arange(3)).all() and res["top1_in_core"] == 1.0
 
 
 def test_config1_eval_logs_map_and_provenance(tmp_path, monkeypatch):

@@ -107,8 +107,12 @@ def test_localize_shortlist_matches_jax(storage, tmp_path):
 
 
 def test_localize_shortlist_reranking_is_not_ported():
+    """Re-ranking before the cut is ported now: the same pairs as the JAX
+    package's (tests/test_torch_reranking_eval.py holds more cases)."""
     _, g, q, _ = _setup(seed=4)
     index = Index.build(g, IndexConfig(whitening=None), device="cpu")
+    j_index = JIndex.build(g, JIndexConfig(whitening=None))
+    qn = [str(i) for i in range(len(q))]
     for kw in ({"qe_nqe": 2}, {"diffusion": True}):
-        with pytest.raises(ValueError, match="ROADMAP A5"):
-            loc.localize_shortlist(index, q, [str(i) for i in range(len(q))], **kw)
+        assert (loc.localize_shortlist(index, q, qn, k=5, **kw)[0]
+                == jloc.localize_shortlist(j_index, q, qn, k=5, **kw)[0])

@@ -302,9 +302,12 @@ def test_ann_starved_shortlist_is_a_lower_bound(ann_setup):
 
 @pytest.mark.parametrize("bad", [{"ann": "ivf", "qe_nqe": 3}, {"ann": "pq", "diffusion": True},
                                  {"ann": "ivf", "use_sharded_index": True},
-                                 {"ann": "approx"}, {"ann": "hnsw"}])
+                                 {"ann": "approx", "ann_kwargs": {"nprobe": 2}},
+                                 {"ann": "hnsw"}])
 def test_ann_refusals(ann_setup, bad):
     ds, cfg, ex, icfg, _ = ann_setup
-    match = {"approx": "not ported", "hnsw": "unknown ann"}.get(bad["ann"], "ann evaluation")
+    # ann="approx" is ported (the exact shortlist) and takes recall_target only
+    match = {"approx": "only recall_target", "hnsw": "unknown ann"}.get(bad["ann"],
+                                                                       "ann evaluation")
     with pytest.raises(ValueError, match=match):
         evaluate_dataset(ds, cfg, icfg, extractor=ex, device="cpu", **bad)

@@ -374,7 +374,7 @@ def test_train_epoch_validate_and_eval_step_run():
 
 def test_what_the_port_does_not_train_raises():
     cfg = TrainConfig()
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A10"):
         make_train_step(RetrievalNet(arch="resnet18"), cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="bf16 training"):
         create_train_state(RetrievalNet(arch="resnet18", dtype="bfloat16"), cfg, device="cpu")
