@@ -62,8 +62,9 @@ Phases (any failure exits non-zero):
        directory, reload and a probe through fused top-k) and
        localize_shortlist(k=20) on the reloaded artifact; after the
        window, rank_candidates for the corpus's candidates on that gallery
-       against a dense ranking made on the card (equal ranks except where
-       scores lie within 1e-6; equal mAP), the bf16 descriptors against an
+       against a dense ranking made on the card by cuBLAS (equal ranks
+       except where scores lie within 1e-6; equal mAP), timed beside the
+       B3 route that sharded ranks take, the bf16 descriptors against an
        f32 run of the same weights on 16 images, and the four bf16 kernels
        of the path against their plain versions at its own shapes;
      - graded config 4 (path E, r101-gem-100k-sharded: config 5's trunk,
@@ -75,15 +76,19 @@ Phases (any failure exits non-zero):
        one device's knn_search), ShardedIVF (nprobe C/8 and C) and
        ShardedPQ (m=64, with and without refine=400) on path A's D=2048
        corpus against IVFIndex.search and PQIndex.search; after the window,
-       sharded rank_candidates against one device's and a dense ranking
-       (path C's gate), and scores_blockmax and adc_scores at a shard's
-       shape against their plain versions;
+       candidate ranks against dense rankings on the card: one device's
+       (cuBLAS) by path C's gate, the sharded ones (B3 per shard) bit for
+       bit against B3's dense ranking and against cuBLAS's except within
+       twice the measured B3-vs-cuBLAS score difference, and
+       scores_blockmax and adc_scores at a shard's shape against their
+       plain versions;
      - re-ranking (path F) on path E's gallery at the JAX package's
        defaults with qe_nqe = dba_nqe = 10: Index.query(k=100, qe_nqe=10)
        timed, build_index(dba_nqe=10), build_graph(k=50) twice (bit for
        bit) and Index.diffusion_ranks twice (bit for bit); after the
        window, the card against the CPU on 10,000 rows (expanded queries,
-       the QE top-100, the diffusion relevance) and scores_blockmax at the
+       the QE top-100, the diffusion graph's weights, offsets and degrees,
+       the diffusion relevance) and scores_blockmax at the
        graph's block shape against its plain version;
      - path D, training (cirtorch's retrievalSfM120k-resnet101-gem recipe:
        contrastive margin 0.85, Adam lr 5e-7, 5 negatives, 5 tuples a step,
@@ -1278,24 +1283,33 @@ def _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store):
     return out
 
 
-def _dense_candidate_ranks(gallery, q_store, cand):
-    """Each candidate's position in a dense stable descending sort of all
-    [Nq, Ng] scores made on the card in one call of the kernel that streamed
-    ranks score with (scores_blockmax: the same bits per pair at any shape),
-    and how many other rows score within RANK_TIE_TOL of it."""
+def _timed_twice(fn):
+    """``fn()``'s result and the wall time of two calls in seconds (the first
+    also pays the allocator's first use), the card synchronized around each."""
     import torch
-    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
-        scores_blockmax,
-    )
 
-    scores = scores_blockmax(gallery, q_store.to(gallery.dtype).float())[0][:, :gallery.shape[0]]
+    t = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return r, t
+
+
+def _dense_candidate_ranks(scores, cand, tol=RANK_TIE_TOL):
+    """Each candidate's position in a dense stable descending sort of all
+    [Nq, Ng] ``scores``, and how many other rows score within ``tol`` of it."""
+    import torch
+
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices
     pos = torch.empty_like(order)
     pos.scatter_(1, order, torch.arange(order.shape[1], device=order.device)
                  .expand_as(order).contiguous())
     dense = torch.gather(pos, 1, cand)
     s_c = torch.gather(scores, 1, cand)
-    near = torch.stack([((scores - s_c[:, j : j + 1]).abs() <= RANK_TIE_TOL).sum(1) - 1
+    near = torch.stack([((scores - s_c[:, j : j + 1]).abs() <= tol).sum(1) - 1
                         for j in range(cand.shape[1])], 1)
     return dense, near
 
@@ -1331,6 +1345,8 @@ def config5_phase(dev):
     from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
         rank_candidates,
+        rank_candidates_core,
+        score_matrix,
     )
     from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
         GRADED_CONFIGS,
@@ -1425,16 +1441,15 @@ def config5_phase(dev):
         del res["artifact"], pairs
 
     gallery, q_store = res["gallery"], res["queries"]
-    # streaming candidate ranks against a dense ranking on the card
+    # streaming candidate ranks against a dense ranking on the card (cuBLAS
+    # in one product); beside them the time of the route sharded ranks take
+    # (kernel B3 per chunk, stable=True) on the same inputs
     cand = torch.from_numpy(candidate_matrix(gnd)).to(dev, torch.int64)
-    torch.cuda.synchronize()
-    t_rank = []
-    for _ in range(2):  # the first call also pays the allocator's first use
-        t0 = time.perf_counter()
-        streamed = rank_candidates(gallery, q_store.float(), cand)
-        torch.cuda.synchronize()
-        t_rank.append(time.perf_counter() - t0)
-    dense, near = _dense_candidate_ranks(gallery, q_store, cand)
+
+    streamed, t_rank = _timed_twice(lambda: rank_candidates(gallery, q_store.float(), cand))
+    streamed_b3, t_rank_b3 = _timed_twice(
+        lambda: rank_candidates_core(gallery, q_store.float(), cand, stable=True))
+    dense, near = _dense_candidate_ranks(score_matrix(gallery, q_store.float()), cand)
     diff = (streamed.long() - dense).abs()
     n_near = int((near > 0).sum())
     n_moved = int((diff > 0).sum())
@@ -1443,15 +1458,19 @@ def config5_phase(dev):
     map_s = compute_map_streaming_and_print("config5 streamed", streamed.cpu().numpy(), gnd)
     map_d = compute_map_streaming_and_print("config5 dense", dense.cpu().numpy(), gnd)
     log(f"[config 5] rank_candidates {tuple(cand.shape)} candidates over {n_rows:,} rows: "
-        f"{t_rank[0] * 1e3:.1f} ms first call, {t_rank[1] * 1e3:.1f} ms second; against the dense ranking on the card: {n_moved} ranks "
-        f"differ, {n_near} candidates have another score within {RANK_TIE_TOL}; mAP "
-        f"{map_s['map']:.6f} streamed, {map_d['map']:.6f} dense")
+        f"{t_rank[0] * 1e3:.1f} ms first call, {t_rank[1] * 1e3:.1f} ms second (the B3 route "
+        f"of sharded ranks: {t_rank_b3[0] * 1e3:.1f} / {t_rank_b3[1] * 1e3:.1f} ms, ranks "
+        f"differing from cuBLAS's {int((streamed_b3 != streamed).sum())}); against the dense "
+        f"ranking on the card: {n_moved} ranks differ, {n_near} candidates have another "
+        f"score within {RANK_TIE_TOL}; mAP {map_s['map']:.6f} streamed, {map_d['map']:.6f} dense")
     if map_s["map"] != map_d["map"]:
         raise AssertionError("streamed mAP differs from the dense ranking's")
     out.update(rank_candidates_ms=t_rank[0] * 1e3, rank_candidates_warm_ms=t_rank[1] * 1e3,
+               rank_candidates_b3_ms=t_rank_b3[0] * 1e3,
+               rank_candidates_b3_warm_ms=t_rank_b3[1] * 1e3,
                rank_differ=n_moved, rank_near_ties=n_near,
                map=map_s["map"])
-    del streamed, dense, near, cand
+    del streamed, streamed_b3, dense, near, cand
     torch.cuda.empty_cache()
 
     # the four bf16 kernels at this path's shapes
@@ -1506,10 +1525,13 @@ def config4_phase(dev, db, qd, gnd, ann):
     gallery, the sharded top-100 timed p50/p95/p99 over 7 repetitions, the
     bitwise exactness probe), then ShardedIVF and ShardedPQ on path A's
     D=2048 corpus against IVFIndex.search and PQIndex.search, in one
-    counting window; then sharded rank_candidates against one device's and
-    a dense ranking (equal except where another score lies within 1e-6;
-    equal mAP), and scores_blockmax and adc_scores at the path's shapes
-    against their plain versions."""
+    counting window; then candidate ranks against dense rankings: one
+    device's (cuBLAS) against cuBLAS's dense ranking (equal except where
+    another score lies within 1e-6; equal mAP), the sharded ones (kernel B3
+    per shard) bit for bit against B3's dense ranking (equal mAP) and
+    against cuBLAS's except where another score lies within twice the
+    measured B3-vs-cuBLAS difference; and scores_blockmax and adc_scores at
+    the path's shapes against their plain versions."""
     import datetime
     import tempfile
 
@@ -1540,6 +1562,8 @@ def config4_phase(dev, db, qd, gnd, ann):
     )
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
         rank_candidates,
+        rank_candidates_core,
+        score_matrix,
     )
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import _build_luts
     from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
@@ -1638,29 +1662,53 @@ def config4_phase(dev, db, qd, gnd, ann):
         q_np = q.cpu().numpy()
         cand_np = candidate_matrix(gnd)
         cand = torch.from_numpy(cand_np).to(dev, torch.int64)
-        t0 = time.perf_counter()
-        sharded = torch.from_numpy(si.rank_candidates(q_np, cand_np, pre_transformed=True)).to(dev)
-        t_rank = time.perf_counter() - t0
-        single = rank_candidates(gallery, q, cand)
-        dense, near = _dense_candidate_ranks(gallery, q, cand)
+        sharded, t_rank = _timed_twice(lambda: torch.from_numpy(
+            si.rank_candidates(q_np, cand_np, pre_transformed=True)).to(dev))
+        # one device's ranks, by its route (cuBLAS) and by the sharded one's (B3)
+        single, t_single = _timed_twice(lambda: rank_candidates(gallery, q, cand))
+        single_b3, t_single_b3 = _timed_twice(
+            lambda: rank_candidates_core(gallery, q, cand, stable=True))
+        # the references: dense stable sorts of all [20, 100k] scores, made
+        # by cuBLAS in one product (the scorer of one device's ranks, at
+        # another shape) and by kernel B3 in one launch (the scorer of
+        # sharded ranks, whose bits hold at any shape). B3 and cuBLAS sum
+        # in other orders, so across the two scorers ranks agree except
+        # where another score lies within twice their measured difference
+        s_cublas = score_matrix(gallery, q)
+        s_b3 = scores_blockmax(gallery, q)[0][:, : gallery.shape[0]]
+        noise = (s_b3 - s_cublas).abs().max().item()
+        band = max(RANK_TIE_TOL, 2 * noise)
+        dense, near = _dense_candidate_ranks(s_cublas, cand)
+        dense_b3, _ = _dense_candidate_ranks(s_b3, cand)
+        _, near_band = _dense_candidate_ranks(s_cublas, cand, tol=band)
+        del s_cublas, s_b3
         n_moved = {}
-        for name, r in (("sharded", sharded), ("single", single)):
-            diff = (r.long() - dense).abs()
+        for name, r, ref, tie in (("single_vs_cublas", single, dense, near),
+                                  ("sharded_vs_single_b3", sharded, single_b3.long(), None),
+                                  ("sharded_vs_b3", sharded, dense_b3, None),
+                                  ("sharded_vs_cublas", sharded, dense, near_band)):
+            diff = (r.long() - ref).abs()
             n_moved[name] = int((diff > 0).sum())
-            if bool((diff > near).any()):
-                raise AssertionError(f"{name} rank_candidates differs from the dense ranking "
-                                     f"beyond near ties")
+            if (n_moved[name] > 0) if tie is None else bool((diff > tie).any()):
+                raise AssertionError(f"rank_candidates {name}: ranks differ"
+                                     f"{'' if tie is None else ' beyond near ties'}")
         maps = {name: compute_map_streaming_and_print(f"config4 {name}", r.cpu().numpy(), gnd)
                 ["map"] for name, r in (("sharded", sharded), ("single", single),
-                                        ("dense", dense))}
+                                        ("dense_cublas", dense), ("dense_b3", dense_b3))}
         log(f"[config 4] sharded rank_candidates {tuple(cand.shape)} over {n_rows:,} rows in "
-            f"{SHARDS} shards: {t_rank * 1e3:.1f} ms; ranks differing from the dense ranking "
-            f"{n_moved}, {int((near > 0).sum())} candidates have another score within "
-            f"{RANK_TIE_TOL}; equal to one device's {bool(torch.equal(sharded, single))}; "
-            f"mAP {maps}")
-        if len(set(maps.values())) != 1:
-            raise AssertionError("sharded, single-device and dense mAP differ")
-        out.update(rank_candidates_ms=t_rank * 1e3, rank_differ=n_moved, map=maps["sharded"])
+            f"{SHARDS} shards: {t_rank[0] * 1e3:.1f} / {t_rank[1] * 1e3:.1f} ms (one device: "
+            f"cuBLAS {t_single[0] * 1e3:.1f} / {t_single[1] * 1e3:.1f} ms, B3 "
+            f"{t_single_b3[0] * 1e3:.1f} / {t_single_b3[1] * 1e3:.1f} ms); ranks differing "
+            f"{n_moved}; "
+            f"{int((near > 0).sum())} candidates have another score within {RANK_TIE_TOL}, "
+            f"{int((near_band > 0).sum())} within {band:.3e} (B3 vs cuBLAS max|diff| "
+            f"{noise:.3e}); mAP {maps}")
+        if maps["single"] != maps["dense_cublas"] or maps["sharded"] != maps["dense_b3"]:
+            raise AssertionError("candidate-rank mAP differs from its dense ranking's")
+        out.update(rank_candidates_ms=t_rank[0] * 1e3, rank_candidates_warm_ms=t_rank[1] * 1e3,
+                   single_rank_candidates_warm_ms=t_single[1] * 1e3,
+                   single_rank_candidates_b3_warm_ms=t_single_b3[1] * 1e3, rank_differ=n_moved,
+                   rank_score_diff_b3_cublas=noise, rank_tie_band=band, map=maps)
     finally:
         dist.destroy_process_group()
 
@@ -1679,7 +1727,7 @@ def config4_phase(dev, db, qd, gnd, ann):
         raise AssertionError("a kernel disagrees with its plain version at path E's shapes")
     out.update(scores_blockmax_err=e_sb)
     keep = {"gallery": gallery, "queries": q_np}
-    del res, si, sivf, spq, s, ps, a, pa, dense, near
+    del res, si, sivf, spq, s, ps, a, pa, dense, dense_b3, near, near_band, single_b3
     torch.cuda.empty_cache()
     log(json.dumps({"config4": out}))
     return launches, out, keep
@@ -1688,6 +1736,32 @@ def config4_phase(dev, db, qd, gnd, ann):
 RERANK = dict(qe_nqe=10, qe_alpha=3.0, dba_nqe=10, k_graph=50, k_seed=10, gamma=3.0,
               alpha=0.9, iters=30)
 RERANK_SLICE = 10_000  # rows of path F's card-vs-CPU check
+GRAPH_TOL = 1e-6  # diffusion graph weights, card against CPU (as the CPU tests hold them)
+
+
+def _graph_entry_diff(a, b):
+    """Largest |S_a - S_b| over the entries (src, dst) whose two rows have
+    the same edges in both graphs, so that the degrees normalizing them sum
+    the same edges (a near tie can give a row another neighbour, or take
+    the row itself out of its own list, and so change its degree by a whole
+    edge); with the count of such entries and of all of a's entries."""
+    import numpy as np
+
+    def rows_and_entries(g):
+        src, dst, off = g.src.numpy(), g.dst.numpy(), g.offsets.numpy()
+        srt = src[np.lexsort((src, dst))]  # each row's sources, sorted
+        rows = [srt[off[r] : off[r + 1]] for r in range(g.n)]
+        uniq, inv = np.unique(src * g.n + dst, return_inverse=True)
+        return rows, uniq, np.bincount(inv, weights=g.w.double().numpy())
+
+    ra, ua, va = rows_and_entries(a)
+    rb, ub, vb = rows_and_entries(b)
+    same_row = np.array([np.array_equal(x, y) for x, y in zip(ra, rb)])
+    _, ia, ib = np.intersect1d(ua, ub, assume_unique=True, return_indices=True)
+    keys = ua[ia]
+    held = same_row[keys // a.n] & same_row[keys % a.n]
+    diff = np.abs(va[ia][held] - vb[ib][held]).max(initial=0.0)
+    return float(diff), int(held.sum()), int(len(ua))
 
 
 def rerank_phase(dev, e):
@@ -1703,7 +1777,10 @@ def rerank_phase(dev, e):
     lists and the top-100 of the card's expanded queries equal except where
     scores tie within twice their measured card-vs-CPU difference (1e-6 at
     least), scores within 1e-5; expanded queries within 1e-5 of the host's
-    expansion of the card's neighbours; f within 1e-5 of max|f| on one
+    expansion of the card's neighbours; the card's graph against the CPU's
+    graph_from_knn on the card's kNN lists (edges and offsets equal, weights
+    within 1e-6) and against the CPU's build_graph (S's entries within 1e-6
+    between rows that have the same edges on both); f within 1e-5 of max|f| on one
     graph and one seeding; and scores_blockmax
     at the graph's block shape against its plain version."""
     import numpy as np
@@ -1720,6 +1797,7 @@ def rerank_phase(dev, e):
         build_graph,
         diffuse,
         diffusion_scores,
+        graph_from_knn,
         seed_matrix,
     )
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
@@ -1848,6 +1926,19 @@ def rerank_phase(dev, e):
     qe = tuple(t.cpu().numpy() for t in knn_search(sl, x, 100))
     qe_c = tuple(t.numpy() for t in knn_search(slc, x.cpu(), 100))
     graph = build_graph(sl, k=cfg["k_graph"], gamma=cfg["gamma"])
+    # the graph's arithmetic (weights, offsets, segment-sum degrees): the
+    # CPU's graph_from_knn on the card's kNN lists against the card's graph;
+    # then the CPU's own build_graph, on the entries of S whose two rows
+    # have the same edges on both sides (a list may take another row at a
+    # near tie)
+    g_card = DiffusionGraph(*(t.cpu() for t in graph[:4]), graph.n)
+    g_from = graph_from_knn(torch.from_numpy(graph_knn[0][0]),
+                            torch.from_numpy(graph_knn[0][1]), cfg["gamma"])
+    g_cpu = build_graph(slc, k=cfg["k_graph"], gamma=cfg["gamma"])
+    same_edges = all(torch.equal(getattr(g_card, a), getattr(g_from, a))
+                     for a in ("src", "dst", "offsets"))
+    e_w = float((g_card.w - g_from.w).abs().max()) if same_edges else float("inf")
+    e_s, n_common, n_entries = _graph_entry_diff(g_card, g_cpu)
     s_seed, i_seed = knn_search(sl, qt.to(dev), cfg["k_seed"])
     seeds = seed_matrix(s_seed, i_seed, graph.n, cfg["gamma"])
     f = diffuse(graph, seeds, alpha=cfg["alpha"], iters=cfg["iters"]).cpu().numpy()
@@ -1862,14 +1953,20 @@ def rerank_phase(dev, e):
         f"{int((graph_knn[0][1] != graph_knn[1][1]).sum())}, "
         f"{int((qe[1] != qe_c[1]).sum())}); {same_set} of {len(q_np)} queries have the same "
         f"{nqe} neighbours on both; expanded queries against the host's on the card's "
-        f"neighbours max|diff| {e_qx:.3e}; diffusion on one "
-        f"graph and one seeding: f max|diff| / max|f| {e_f:.3e} "
+        f"neighbours max|diff| {e_qx:.3e}; the graph from the card's lists: edges and "
+        f"offsets equal {same_edges}, w max|diff| {e_w:.3e}; against the CPU's graph: "
+        f"{n_common:,} of {n_entries:,} entries of S between rows with the same edges, "
+        f"max|diff| {e_s:.3e}; "
+        f"diffusion on one graph and one seeding: f max|diff| / max|f| {e_f:.3e} "
         f"({time.perf_counter() - t0:.1f} s)")
-    if not all(c["ok"] for c in checks.values()) or e_qx > TOPK_TOL or e_f > TOPK_TOL:
+    if (not all(c["ok"] for c in checks.values()) or e_qx > TOPK_TOL or e_f > TOPK_TOL
+            or e_w > GRAPH_TOL or e_s > GRAPH_TOL):
         raise AssertionError("re-ranking on the card disagrees with the CPU")
     out.update(card_vs_cpu=dict(checks, expanded_max_abs_diff=e_qx, f_rel_diff=e_f,
+                                graph_w_max_abs_diff=e_w, graph_s_max_abs_diff=e_s,
+                                graph_s_entries_compared=n_common, graph_s_entries=n_entries,
                                 queries_same_neighbours=int(same_set)))
-    del graph, seeds
+    del graph, seeds, g_card, g_from, g_cpu
 
     # scores_blockmax at the graph's block shape (GRAPH_BLOCK queries, one chunk)
     chunk = auto_chunk(n, GRAPH_BLOCK)

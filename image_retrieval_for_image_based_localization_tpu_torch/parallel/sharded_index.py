@@ -23,7 +23,10 @@ single-device ``knn_search`` bit for bit, ties included.
 :func:`sharded_rank_candidates` is the streaming mAP path:
 ``knn.rank_candidates_core`` over the local shards, partial candidate
 scores and counts summed and all-reduced, so no ``[Ng, Nq]`` matrix exists
-anywhere.
+anywhere. On the card each shard scores through kernel B3, so the ranks
+are those of one device's B3 scores bit for bit; single-device
+``rank_candidates`` scores with cuBLAS, whose roundings differ from B3's,
+and may order a near tie (scores within a few 1e-6) the other way.
 """
 
 from __future__ import annotations
@@ -108,7 +111,8 @@ def sharded_rank_candidates(
     layout = _shard_layout(shards, mesh, n_valid)
     return rank_candidates_core(list(shards), queries, cand, chunk=chunk,
                                 n_valid=[v for _, v in layout],
-                                index_offset=[o for o, _ in layout], reduce=all_reduce_sum)
+                                index_offset=[o for o, _ in layout], reduce=all_reduce_sum,
+                                stable=True)
 
 
 def _host_rows(gallery, start: int, stop: int) -> torch.Tensor:

@@ -59,14 +59,22 @@ def build_graph(gallery: torch.Tensor, k: int = 50, gamma: float = 3.0) -> Diffu
     normalized: ``A = max(s, 0)^gamma`` on each row's top-k (self-edge
     dropped), ``A_sym = A + A^T``, ``S = D^-1/2 A_sym D^-1/2``."""
     n = int(gallery.shape[0])
-    dev = gallery.device
     kk = min(k + 1, n)  # +1: each row's list holds the row itself
     s_blocks, i_blocks = [], []
     for start in range(0, n, GRAPH_BLOCK):
         s, i = knn_search(gallery, gallery[start : start + GRAPH_BLOCK].float(), k=kk)
         s_blocks.append(s)
         i_blocks.append(i.to(torch.int64))
-    scores, idx = torch.cat(s_blocks), torch.cat(i_blocks)
+    return graph_from_knn(torch.cat(s_blocks), torch.cat(i_blocks), gamma)
+
+
+def graph_from_knn(scores: torch.Tensor, idx: torch.Tensor, gamma: float = 3.0) -> DiffusionGraph:
+    """:func:`build_graph` from each row's kNN list (``scores``, ``idx``
+    [N, k + 1], row ``r``'s list on row ``r``), on their device."""
+    n = int(idx.shape[0])
+    kk = int(idx.shape[1])
+    dev = idx.device
+    idx = idx.to(torch.int64)
     w = torch.clamp(scores, min=0.0) ** float(gamma)
     rows = torch.arange(n, device=dev)
     # by identity: a zero-weight edge adds nothing to degrees or products

@@ -23,9 +23,13 @@ at a shard's end and ``index_offset`` maps local rows to global ones
 (``parallel.sharded_index``). A shard's scores must be the bits one device
 computes for the same (query, row) pair, or a planted tie across a shard
 border breaks. Kernel B3 keeps one FMA order per pair whatever the shapes,
-so on the card both cores score f32 and bf16 through it; cuBLAS and CPU
-``torch.matmul`` round differently for other matrix shapes, so the CPU
-scores fixed, zero-padded tiles (:func:`_tiled_scores`).
+so on the card the search scores f32 and bf16 through it, and so do
+sharded candidate ranks; cuBLAS and CPU ``torch.matmul`` round
+differently for other matrix shapes, so the CPU scores fixed, zero-padded
+tiles (:func:`_tiled_scores`). Single-device candidate ranks on the card
+keep the cuBLAS scoring they had before sharding (one device has no shard
+border to agree across), so they stay held against an independent cuBLAS
+ranking; sharded ranks pass ``stable``.
 """
 
 from __future__ import annotations
@@ -89,39 +93,43 @@ def auto_chunk(Ng: int, Nq: int, budget_bytes: int = 256 * 1024 * 1024) -> int:
     return min(Ng, chunk)
 
 
-# CPU score tiles: queries x gallery rows per torch.matmul
-_TILE_Q, _TILE_G = 16, 256
+# CPU score tiles: queries x gallery rows per torch.mm
+_TILE_Q, _TILE_G = 64, 4096
 
 
 def _tiled_scores(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """:func:`score_matrix` on the CPU from fixed ``[16, D] x [D, 256]``
+    """:func:`score_matrix` on the CPU from fixed ``[64, D] x [D, 4096]``
     products on zero-padded tiles, so a (query, row) pair gets the same bits
     whatever the batch's and the gallery's sizes, as kernel B3 gives on the
     card: a row scored in its shard equals the row scored in the whole
-    gallery, and a block of queries equals the whole batch."""
+    gallery, and a block of queries equals the whole batch. (One batched
+    ``torch.matmul`` over the tiles is not enough: MKL's batched product
+    rounds differently for another batch count.)"""
     Nq, Ng = queries.shape[0], gallery.shape[0]
-    if gallery.dtype == torch.int8:
-        q, g = queries.float(), gallery.float()
-    else:
-        q, g = queries.to(gallery.dtype).float(), gallery.float()
-    q = F.pad(q, (0, 0, 0, -Nq % _TILE_Q))
-    g = F.pad(g, (0, 0, 0, -Ng % _TILE_G))
-    out = torch.empty((q.shape[0], g.shape[0]), dtype=torch.float32)
-    for i in range(0, q.shape[0], _TILE_Q):
-        for j in range(0, g.shape[0], _TILE_G):
-            out[i : i + _TILE_Q, j : j + _TILE_G] = q[i : i + _TILE_Q] @ g[j : j + _TILE_G].T
+    q = queries.float() if gallery.dtype == torch.int8 else queries.to(gallery.dtype).float()
+    if Nq % _TILE_Q:
+        q = F.pad(q, (0, 0, 0, -Nq % _TILE_Q))
+    out = torch.empty((q.shape[0], Ng + (-Ng % _TILE_G)), dtype=torch.float32)
+    for j in range(0, Ng, _TILE_G):
+        g = gallery[j : j + _TILE_G].float()
+        if g.shape[0] < _TILE_G:
+            g = F.pad(g, (0, 0, 0, _TILE_G - g.shape[0]))
+        for i in range(0, q.shape[0], _TILE_Q):
+            torch.mm(q[i : i + _TILE_Q], g.T, out=out[i : i + _TILE_Q, j : j + _TILE_G])
     out = out[:Nq, :Ng]
     return out * (1.0 / 127.0) if gallery.dtype == torch.int8 else out
 
 
-def _dense_scores(gallery: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """:func:`score_matrix`'s values with the same bits for a (query, row)
-    pair whatever the shapes: tiled on the CPU; on the card kernel B3 for an
-    f32 or bf16 gallery (cuBLAS picks other algorithms, so other roundings,
-    for other shapes), cuBLAS for int8, which B3 does not take."""
+def _dense_scores(gallery: torch.Tensor, queries: torch.Tensor,
+                  stable: bool = False) -> torch.Tensor:
+    """:func:`score_matrix`'s values, tiled on the CPU (the same bits for a
+    (query, row) pair whatever the shapes). On the card cuBLAS, or with
+    ``stable`` kernel B3 for an f32 or bf16 gallery, which keeps those bits
+    at any shape where cuBLAS picks other algorithms for other shapes (int8,
+    which B3 does not take, stays on cuBLAS)."""
     if gallery.device.type == "cpu":
         return _tiled_scores(gallery, queries)
-    if gallery.dtype in (torch.float32, torch.bfloat16):
+    if stable and gallery.dtype in (torch.float32, torch.bfloat16):
         return scores_blockmax(gallery, queries.to(gallery.dtype).float())[0][:, : gallery.shape[0]]
     return score_matrix(gallery, queries)
 
@@ -187,7 +195,7 @@ def full_ranks(gallery: torch.Tensor, queries: torch.Tensor, batch: int = 256) -
     return np.concatenate(ranks, axis=1)
 
 
-def _candidate_scores(gallery, queries, cand, chunk, index_offset) -> torch.Tensor:
+def _candidate_scores(gallery, queries, cand, chunk, index_offset, stable) -> torch.Tensor:
     """Pass 1 of :func:`rank_candidates_core`: each candidate's own score,
     read out of the chunk's score block that holds its row; 0 where this
     gallery (shard) does not hold it."""
@@ -196,7 +204,7 @@ def _candidate_scores(gallery, queries, cand, chunk, index_offset) -> torch.Tens
     cs = torch.zeros((Nq, C), dtype=torch.float32, device=gallery.device)
     local = cand - index_offset
     for start in range(0, Ng, chunk):
-        s = _dense_scores(gallery[start : start + chunk], queries)  # [Nq, n]
+        s = _dense_scores(gallery[start : start + chunk], queries, stable)  # [Nq, n]
         lc = local - start
         inb = (lc >= 0) & (lc < s.shape[1])
         g = torch.gather(s, 1, torch.clamp(lc, 0, s.shape[1] - 1))
@@ -204,14 +212,15 @@ def _candidate_scores(gallery, queries, cand, chunk, index_offset) -> torch.Tens
     return cs
 
 
-def _count_ahead(gallery, queries, cand, cs, chunk, n_valid, index_offset) -> torch.Tensor:
+def _count_ahead(gallery, queries, cand, cs, chunk, n_valid, index_offset,
+                 stable) -> torch.Tensor:
     """Pass 2 of :func:`rank_candidates_core`: per candidate, the valid rows
     of this gallery (shard) that rank ahead of it. It scores the chunks of
     pass 1, pad rows included, so each score is the same product's bits."""
     Nq, C = cand.shape
     counts = torch.zeros((Nq, C), dtype=torch.int64, device=gallery.device)
     for start in range(0, n_valid, chunk):
-        s = _dense_scores(gallery[start : start + chunk], queries)  # [Nq, n]
+        s = _dense_scores(gallery[start : start + chunk], queries, stable)  # [Nq, n]
         lidx = torch.arange(start, start + s.shape[1], device=s.device)
         s3, c3 = s[:, :, None], cs[:, None, :]
         ahead = (s3 > c3) | ((s3 == c3) & (lidx[None, :, None] + index_offset
@@ -228,6 +237,7 @@ def rank_candidates_core(
     n_valid=None,
     index_offset=0,
     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    stable: bool = False,
 ) -> torch.Tensor:
     """Global 0-based rank of each candidate gallery row, by streaming count
     (the JAX package's ``rank_candidates_core``).
@@ -251,7 +261,11 @@ def rank_candidates_core(
     order on the queries' device, then ``reduce`` runs on each sum: the
     sharded path passes ``dist.all_reduce(SUM)`` over the process group,
     the JAX package's psum. Exactly one shard holds a candidate's row, the
-    others add literal zeros, so the summed scores are exact.
+    others add literal zeros, so the summed scores are exact. The sharded
+    path also passes ``stable``: on the card each shard then scores through
+    kernel B3, so its ranks are those of one device's B3 scores bit for bit
+    (cuBLAS at a shard's shape can round a row otherwise than at the whole
+    gallery's, and a near tie then ranks the other way).
 
     Args:
       gallery: [Ng, D] f32, bf16 or int8 (as ``score_matrix`` takes it), or
@@ -278,11 +292,12 @@ def rank_candidates_core(
     def on(g):
         return queries.to(g.device), cand.to(g.device)
 
-    cs = sum(_candidate_scores(g, *on(g), chunk_of(g.shape[0]), off).to(out)
+    cs = sum(_candidate_scores(g, *on(g), chunk_of(g.shape[0]), off, stable).to(out)
              for g, _, off in shards)
     if reduce is not None:
         cs = reduce(cs)
-    counts = sum(_count_ahead(g, *on(g), cs.to(g.device), chunk_of(g.shape[0]), nv, off).to(out)
+    counts = sum(_count_ahead(g, *on(g), cs.to(g.device), chunk_of(g.shape[0]), nv, off,
+                              stable).to(out)
                  for g, nv, off in shards)
     if reduce is not None:
         counts = reduce(counts)

@@ -30,8 +30,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.diffusion 
     build_graph,
     diffuse,
     diffusion_scores,
+    graph_from_knn,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
+from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.query_expansion import (
     expand_queries,
     expand_queries_host,
@@ -161,6 +163,17 @@ def test_graph_matches_jax(graphs):
     assert (torch.diff(t.dst) >= 0).all() and t.offsets[-1] == len(t.dst)
     np.testing.assert_array_equal(torch.bincount(t.dst, minlength=t.n).numpy(),
                                   torch.diff(t.offsets).numpy())
+
+
+def test_graph_from_knn_lists_is_build_graph(corpus, graphs):
+    # the graph's arithmetic alone, on lists made elsewhere (the card's, in
+    # chip_smoke.py's card-vs-CPU check): bit for bit build_graph's
+    t, _ = graphs
+    s, i = knn_search(torch.from_numpy(corpus[0]), torch.from_numpy(corpus[0]), k=9)
+    got = graph_from_knn(s, i, gamma=3.0)
+    assert got.n == t.n
+    for a in ("src", "dst", "w", "offsets"):
+        assert torch.equal(getattr(got, a), getattr(t, a)), a
 
 
 def test_diffusion_scores_match_jax_and_direct_solve(corpus, graphs):
