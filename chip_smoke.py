@@ -127,6 +127,7 @@ It imports the port only (never JAX) and needs the repository next to it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1502,7 +1503,7 @@ def config5_phase(dev):
     del ex, ex32
     torch.cuda.empty_cache()
     log(json.dumps({"config5": out}))
-    return launches, out, (db, qd, gnd)
+    return launches, out, (db, qd, gnd), q_u8
 
 
 SHARDS = 4  # path E's row shards, all on the one card
@@ -1726,7 +1727,8 @@ def config4_phase(dev, db, qd, gnd, ann):
     if e_sb > TOPK_TOL or not (torch.equal(a, pa) and torch.equal(ab, pab)):
         raise AssertionError("a kernel disagrees with its plain version at path E's shapes")
     out.update(scores_blockmax_err=e_sb)
-    keep = {"gallery": gallery, "queries": q_np}
+    keep = {"gallery": gallery, "queries": q_np, "whitening": res["whitening"],
+            "n_core": len(db)}
     del res, si, sivf, spq, s, ps, a, pa, dense, dense_b3, near, near_band, single_b3
     torch.cuda.empty_cache()
     log(json.dumps({"config4": out}))
@@ -1982,6 +1984,440 @@ def rerank_phase(dev, e):
     del sb, pb
     torch.cuda.empty_cache()
     log(json.dumps({"rerank": out}))
+    return launches, out
+
+
+SERVE_K = 100        # path G's shortlist: config 4's k
+SERVE_REPS = 40      # timed single-query /query requests
+# the closed-loop bench: config 4's gallery shape, the JAX bench's clients
+SERVE_BENCH = dict(n=100_000, d=2048, concurrency=16, requests=200, k=10, batch_window_ms=5.0)
+
+
+def _http(url, data=None, headers=None, timeout=120.0):
+    """The JSON reply of a request; any status but 200 fails the run (a
+    kernel that fails to launch must not pass as a client's 400)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{url} answered {e.code}: {e.read()[:300]!r}") from None
+
+
+def _ms_summary(lat_s):
+    import numpy as np
+
+    lat = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)), "n": int(lat.size)}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside are a check's reference computation: the counts are
+    put back after it, so a path's window counts the path's own work."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+
+    saved = {fn: fn.launches for fn in kernels.KERNELS}
+    try:
+        yield
+    finally:
+        for fn, n in saved.items():
+            fn.launches = n
+
+
+def serving_phase(dev, e, ann, qd, q_u8):
+    """Path G: config 4's deployment served over HTTP on the card, through
+    serving.serve and the CLI. The server holds config 4's Index as path E
+    built it (100,000 x 2,048 f32, PCA learned on the core and 50,000
+    distractors, so the one-hop query whitens on the card) and config 5's
+    Extractor (resnet101 bf16, GeM kernel head, 1024 px, seed 0: config 4's
+    trunk). In one counting window: path C's 20 query images as PNG bytes
+    to /extract_query?k=100, each held against /extract then /query (ids
+    equal except where scores lie within twice the measured descriptor
+    difference); /query in JSON and raw f32 at k=100 (fused top-k), k=1000
+    (score/block-max) and with qe_nqe=10, each equal to a direct
+    Index.query bit for bit; serve(pq=...) over path A's D=2048, M=64 PQ
+    index with and without refine against PQIndex.search; /healthz, /statz
+    and /admin/reload from a saved artifact; micro-batches against lone
+    queries bit for bit; `cli serve --no-model` as a subprocess answering a
+    /query; and benchmarks.run_serving_bench (100,000 x 2,048, 16 clients,
+    200 requests, k=10, unbatched and with a 5 ms window). Every reply
+    status but 200 fails the run. After the window, the path's four
+    kernels against their plain versions at its own shapes, and fused
+    top-k at one query timed beside torch.topk(q @ g.T)."""
+    import concurrent.futures
+    import dataclasses
+    import io
+    import signal
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        run_serving_bench,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        feature_mask,
+        rect_sizes,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        adc_scores,
+        adc_scores_plain,
+        fused_topk_plain,
+        fused_topk_search,
+        gem_l2n_fused_rect,
+        gem_l2n_plain,
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import _build_luts
+    from image_retrieval_for_image_based_localization_tpu_torch.serving import (
+        RetrievalService,
+        serve,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+
+    t_path = time.perf_counter()
+    out = {}
+    # whitening in f32, as Index.build keeps it
+    m, P = (np.asarray(a, np.float32) for a in e["whitening"])
+    index = Index(gallery=e["gallery"], m=m, P=P, storage="float32", device=dev)
+    cfg = dataclasses.replace(GRADED_CONFIGS[5].extract, batch_size=16)
+    ex = port.Extractor(cfg, seed=0, device=dev)
+    nq = len(q_u8)
+    n_rows, D = index.gallery.shape
+
+    def png(a):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="PNG", compress_level=1)
+        return buf.getvalue()
+
+    blobs = [png(a) for a in q_u8]
+    tmp = tempfile.TemporaryDirectory(prefix="serving_")
+    procs, servers = [], []
+    try:
+        ipath = os.path.join(tmp.name, "config4_index.npz")
+        t0 = time.perf_counter()
+        index.save(ipath, external_gallery=True)
+        log(f"[serving] config 4's index ({index.gallery.shape[0]:,} x "
+            f"{index.gallery.shape[1]} f32, PCA) saved in {time.perf_counter() - t0:.2f} s; "
+            f"{nq} query images as PNG bytes ({sum(map(len, blobs)) / 1e6:.1f} MB)")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        srv = serve(index, extractor=ex, block=False, port=0, reload_paths={"index": ipath},
+                    device=dev)
+        servers.append(srv)
+        url = "http://%s:%d" % srv.server_address[:2]
+        health = _http(f"{url}/healthz")
+        if (health["gallery"], health["dim"], health["model"]) != (n_rows, D, True):
+            raise AssertionError(f"/healthz: {health}")
+
+        # the one hop against /extract then /query, image by image
+        one_hop, two_hop, d_two = [], [], []
+        lat = {"extract_query": [], "extract": [], "query_after_extract": []}
+        for rep in range(2):  # a first pass on two images meets every shape once
+            for i, b in enumerate(blobs if rep else blobs[:2]):
+                t0 = time.perf_counter()
+                r1 = _http(f"{url}/extract_query?k={SERVE_K}", b)
+                t1 = time.perf_counter()
+                r2 = _http(f"{url}/extract", b)
+                t2 = time.perf_counter()
+                r3 = _http(f"{url}/query", json.dumps({"descriptors": [r2["descriptor"]],
+                                                       "k": SERVE_K}).encode())
+                t3 = time.perf_counter()
+                if rep:
+                    lat["extract_query"].append(t1 - t0)
+                    lat["extract"].append(t2 - t1)
+                    lat["query_after_extract"].append(t3 - t2)
+                    one_hop.append((r1["scores"], r1["ids"]))
+                    two_hop.append((r3["scores"][0], r3["ids"][0]))
+                    d_two.append(r2["descriptor"])
+        s1, i1 = (np.asarray([o[j] for o in one_hop]) for j in (0, 1))
+        s2, i2 = (np.asarray([o[j] for o in two_hop]) for j in (0, 1))
+        d_two = np.asarray(d_two, np.float32)
+        # the one hop's descriptor, as the server makes it: one image a batch
+        with _uncounted(), torch.inference_mode():
+            d_one = torch.cat([ex.forward_u8(torch.from_numpy(q_u8[i : i + 1]).to(dev),
+                                             torch.tensor([q_u8.shape[1:3]], dtype=torch.int32,
+                                                          device=dev))
+                               for i in range(nq)])
+            dq = (index.transform_queries(d_one)
+                  - index.transform_queries(torch.from_numpy(d_two).to(dev))).norm(dim=1)
+            d_one = d_one.cpu().numpy()
+        band = float(dq.max())  # |score difference| <= |whitened query difference|
+        agree = _agree_where_separated(s1, i1, s2, i2, tol=2 * band,
+                                       score_tol=band + TOPK_TOL)
+        d_c = float(np.abs(d_two - qd).max())
+        log(f"[serving] /extract_query?k={SERVE_K} vs /extract + /query, {nq} images: ids "
+            f"equal {int((i1 == i2).sum())} of {i1.size}, max|score diff| "
+            f"{float(np.abs(s1 - s2).max()):.3e}; descriptors one image a batch vs /extract's "
+            f"batch of {cfg.batch_size}: max|diff| {float(np.abs(d_one - d_two).max()):.3e}, "
+            f"whitened query diff {band:.3e} (band {2 * band:.3e}); /extract vs path C's "
+            f"unmasked batch of query pixels max|diff| {d_c:.3e}; agree {agree}")
+        if not agree or i1.shape != (nq, SERVE_K):
+            raise AssertionError("the one-hop query disagrees with /extract then /query")
+        if not (np.isfinite(d_two).all() and np.abs(np.linalg.norm(d_two, axis=1) - 1).max()
+                < 1e-4):
+            raise AssertionError("/extract's descriptors are not finite unit rows")
+        top1_core = float(np.mean(i1[:, 0] < e["n_core"]))
+        if top1_core <= 0.8:
+            raise AssertionError(f"one-hop top-1 in core {top1_core}: core matches must beat "
+                                 f"random distractors")
+        out.update(one_hop_vs_two_hop=dict(ids_equal=int((i1 == i2).sum()), places=i1.size,
+                                           score_diff=float(np.abs(s1 - s2).max()),
+                                           descriptor_diff=float(np.abs(d_one - d_two).max()),
+                                           whitened_diff=band, top1_in_core=top1_core))
+
+        # /query over the 20 descriptors: JSON and raw, k = 100, 1000 and αQE
+        qraw = np.ascontiguousarray(qd, np.float32)
+        for name, k, extra in (("k100", 100, {}), ("k1000", 1000, {}),
+                               ("k100_qe10", 100, {"qe_nqe": 10})):
+            with _uncounted():
+                want_s, want_i = index.query(qraw, k=k, **extra)
+            for form in ("json", "raw"):
+                if form == "json":
+                    r = _http(f"{url}/query", json.dumps({"descriptors": qraw.tolist(), "k": k,
+                                                          **extra}).encode())
+                else:
+                    qs = "&".join([f"k={k}"] + [f"qe={v}" for v in extra.values()])
+                    r = _http(f"{url}/query?{qs}", qraw.tobytes(), {"X-Shape": f"{nq},{D}"})
+                ids, sc = np.asarray(r["ids"]), np.asarray(r["scores"])
+                if not (np.array_equal(ids, want_i)
+                        and np.abs(sc - want_s).max() <= TOPK_TOL):
+                    raise AssertionError(f"/query {name} {form} differs from Index.query")
+            log(f"[serving] /query {name}: JSON and raw equal to Index.query, {nq} x {k}")
+        # single-query latency at k=100, raw, and the same search in process
+        lat["query"], lat["index_query_in_process"] = [], []
+        for rep in range(SERVE_REPS + 5):
+            t0 = time.perf_counter()
+            r = _http(f"{url}/query?k={SERVE_K}", qraw[rep % nq].tobytes(),
+                      {"X-Shape": f"1,{D}"})
+            t1 = time.perf_counter()
+            with _uncounted():
+                index.query(qraw[rep % nq : rep % nq + 1], k=SERVE_K)
+            if rep >= 5:
+                lat["query"].append(t1 - t0)
+                lat["index_query_in_process"].append(time.perf_counter() - t1)
+        lat = {k: _ms_summary(v) for k, v in lat.items()}
+        two = lat["extract"]["p50_ms"] + lat["query_after_extract"]["p50_ms"]
+        log(f"[serving] latency through HTTP on one card: {json.dumps(lat)}; one hop p50 "
+            f"{lat['extract_query']['p50_ms']:.3f} ms against two hops (p50 sum) {two:.3f} ms")
+        out["latency"] = lat
+
+        # micro-batches against lone queries, bit for bit (k across 128)
+        svc = RetrievalService(index, batch_window_ms=20.0, device=dev)
+        reqs = [(qraw[[i % nq]], (10, 100, 200)[i % 3]) for i in range(48)]
+        try:
+            with concurrent.futures.ThreadPoolExecutor(16) as exe:
+                got = list(exe.map(lambda a: svc.query(*a), reqs))
+            batches = svc.batcher.batches
+        finally:
+            svc.batcher.close()
+        for (q, k), (s, i, _) in zip(reqs, got):
+            with _uncounted():
+                ws, wi = index.query(q, k=k)
+            if not (np.array_equal(i, wi) and np.array_equal(s, ws)):
+                raise AssertionError("a micro-batched query differs from the lone query")
+        log(f"[serving] micro-batching: {len(reqs)} queries (k 10/100/200) in {batches} "
+            f"searches, bit-equal to lone queries")
+        out["microbatch"] = {"requests": len(reqs), "batches": batches, "bit_equal": True}
+
+        # /statz, then /admin/reload from the saved artifact: same answers
+        statz = _http(f"{url}/statz")
+        for ep in ("/extract_query", "/extract", "/query"):
+            if statz["endpoints"].get(ep, {}).get("count", 0) <= 0:
+                raise AssertionError(f"/statz has no {ep}")
+        t0 = time.perf_counter()
+        rel = _http(f"{url}/admin/reload", b"")
+        t_reload = time.perf_counter() - t0
+        if rel != {"reloaded": True, "gallery": n_rows, "dim": D, "ivf": False, "pq": False}:
+            raise AssertionError(f"/admin/reload: {rel}")
+        r = _http(f"{url}/query", json.dumps({"descriptors": qraw.tolist(), "k": SERVE_K}).encode())
+        with _uncounted():
+            want_s, want_i = index.query(qraw, k=SERVE_K)
+        if not (np.array_equal(np.asarray(r["ids"]), want_i)
+                and np.array_equal(np.asarray(r["scores"], np.float32), want_s)):
+            raise AssertionError("the reloaded index answers otherwise")
+        log(f"[serving] /statz counts "
+            f"{ {k: v['count'] for k, v in statz['endpoints'].items()} }; /admin/reload "
+            f"{t_reload:.2f} s (load, upload, swap), answers bit-equal after it")
+        out.update(reload_s=t_reload)
+        svc_main = srv.service
+        srv.shutdown()
+        srv.server_close()
+        servers.remove(srv)
+
+        # PQ serving over path A's D=2048, M=64 index, unwhitened
+        g_a, q_a, pq = ann["g"], ann["q"][:32], ann["pq"]
+        pq_index = Index.build(g_a, port.IndexConfig(whitening=None), device=dev)
+        psrv = serve(pq_index, pq=pq, block=False, port=0, device=dev)
+        servers.append(psrv)
+        purl = "http://%s:%d" % psrv.server_address[:2]
+        h = _http(f"{purl}/healthz")
+        if h["pq"] != {"m": pq.codebooks.shape[0], "refine": 0, "ivf": False}:
+            raise AssertionError(f"/healthz pq: {h['pq']}")
+        gd = pq_index.device_gallery()
+        for refine in (0, 400):
+            r = _http(f"{purl}/query?k={SERVE_K}&refine={refine}",
+                      np.ascontiguousarray(q_a).tobytes(),
+                      {"X-Shape": f"{len(q_a)},{q_a.shape[1]}"})
+            with _uncounted():
+                ws, wi = pq.search(q_a, k=SERVE_K, refine=refine,
+                                   gallery=gd if refine else None)
+            ids, sc = np.asarray(r["ids"]), np.asarray(r["scores"], np.float32)
+            if not (np.array_equal(ids, wi) and np.array_equal(sc, ws)):
+                raise AssertionError(f"PQ /query refine={refine} differs from PQIndex.search")
+        log(f"[serving] PQ (M={pq.codebooks.shape[0]}) /query for {len(q_a)} queries, refine 0 and 400: equal to "
+            f"PQIndex.search bit for bit")
+        psrv.shutdown()
+        psrv.server_close()
+        servers.remove(psrv)
+        del pq_index, gd
+
+        # the CLI as a process on the card: `serve --index ... --no-model`
+        root = os.path.dirname(os.path.abspath(__file__))
+        port_no = _free_port()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "image_retrieval_for_image_based_localization_tpu_torch.cli",
+             "serve", "--index", ipath, "--no-model", "--port", str(port_no)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        curl = f"http://127.0.0.1:{port_no}"
+        while True:
+            try:
+                with urllib.request.urlopen(f"{curl}/healthz", timeout=5) as resp:
+                    ch = json.loads(resp.read())
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError("cli serve exited: "
+                                         + proc.stdout.read().decode()[-2000:]) from None
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("cli serve did not answer /healthz in 180 s") from None
+                time.sleep(0.25)
+        t_up = time.perf_counter() - t0
+        r = _http(f"{curl}/query?k={SERVE_K}", qraw[:1].tobytes(), {"X-Shape": f"1,{D}"})
+        with _uncounted():
+            want_s, want_i = index.query(qraw[:1], k=SERVE_K)
+        if not (ch["gallery"] == n_rows and np.array_equal(np.asarray(r["ids"]), want_i)):
+            raise AssertionError("cli serve answers otherwise than Index.query")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+        banner = proc.stdout.read().decode()
+        procs.remove(proc)
+        log(f"[serving] cli serve --no-model as a process: /healthz after {t_up:.1f} s, "
+            f"/query k={SERVE_K} equal to Index.query; stopped ({banner.strip()[:120]!r})")
+        out.update(cli_serve_up_s=t_up)
+
+        t0 = time.perf_counter()
+        bench = run_serving_bench(**SERVE_BENCH, device=dev)
+        log(f"[serving] run_serving_bench {json.dumps(SERVE_BENCH)} "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(bench)}")
+        out["bench"] = bench
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+        tmp.cleanup()
+    log(f"[serving] launches {launches}")
+    for name in ("gem_l2n_fused_rect", "scores_blockmax", "fused_topk_search", "adc_scores"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
+
+    # where one /extract_query's time goes: its stages on one image, each
+    # ended by a synchronize, host clock, median of 5
+    stages = {"png_decode_and_write": [], "batch_native_decode": [], "trunk_and_head": [],
+              "whiten_search_copy": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        with svc_main._png_path(blobs[0]) as path:
+            t1 = time.perf_counter()
+            batch = next(iter(ex.make_input_batches([path], batch_size=1)))
+            t2 = time.perf_counter()
+        with torch.inference_mode():
+            t2b = time.perf_counter()  # the temporary file's unlink is no stage
+            d = ex.forward_u8(torch.from_numpy(batch.pixels_u8).to(dev),
+                              torch.from_numpy(batch.sizes).to(dev))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            s_, i_ = index.query_device(d, 128)
+            s_, i_ = s_.cpu(), i_.cpu()
+            t4 = time.perf_counter()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2b, t4 - t3)):
+            stages[key].append(dt * 1e3)
+    stages = {key: float(np.median(v)) for key, v in stages.items()}
+    log(f"[serving] one /extract_query's stages (ms, median of 5): {json.dumps(stages)}")
+    out["extract_query_stages_ms"] = stages
+
+    # the four kernels at this path's shapes, against their plain versions
+    g = index.device_gallery()
+    q1 = index.transform_queries(qraw[:1]).contiguous()
+    q20 = index.transform_queries(qraw).contiguous()
+    a, ai = fused_topk_search(g, q1, 128)
+    b, bi = fused_topk_plain(g, q1, 128)
+    e_topk = (a - b).abs().max().item()
+    # cuBLAS sums in another order: indices held where scores are separated
+    same_i = _agree_where_separated(a.cpu().numpy(), ai.cpu().numpy(), b.cpu().numpy(),
+                                    bi.cpu().numpy())
+    t_bytes = (g.numel() + q1.numel() + 2 * 128) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * g.numel() / F32_FLOP_PER_S * 1e3
+    nq1 = {"ms": time_ms(lambda: fused_topk_search(g, q1, 128)),
+           "plain_ms": time_ms(lambda: fused_topk_plain(g, q1, 128)),
+           "library_ms": time_ms(lambda: torch.topk(q1 @ g.T, 128, dim=1)),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": e_topk,
+           "shape": f"1 x {g.shape[0]} x {g.shape[1]} f32, k=128 (the one hop's)"}
+    s3, _ = scores_blockmax(g, q20)
+    p3, _ = scores_blockmax_plain(g, q20)
+    e_sb = (s3[:, : g.shape[0]] - p3[:, : g.shape[0]]).abs().max().item()
+    lut = _build_luts(torch.from_numpy(pq.codebooks).to(dev), torch.from_numpy(q_a).to(dev))
+    codes = torch.from_numpy(pq.codes).to(dev)
+    ka, kb = adc_scores(lut, codes)
+    pa, pb = adc_scores_plain(lut, codes)
+    adc_same = bool(torch.equal(ka, pa) and torch.equal(kb, pb))
+    with torch.inference_mode():
+        px = torch.from_numpy(q_u8[:1]).to(dev)
+        mask = torch.ones(px.shape[:3], dtype=torch.bool, device=dev)
+        x = px.to(ex._nrm_a.dtype) * ex._nrm_a + ex._nrm_b
+        feats = ex.model.trunk_nhwc(x)
+        fsz = rect_sizes(feature_mask(mask, x.shape[1:3], feats.shape[1:3]))
+        pgem = ex.model.pool.p
+        e_gem = (gem_l2n_fused_rect(feats, pgem, fsz)
+                 - gem_l2n_plain(feats, pgem, fsz)).abs().max().item()
+    log(f"[serving] kernels at path G's shapes: fused_topk {nq1['shape']} max|err| {e_topk:.3e}"
+        f" (indices agree {same_i}), kernel {nq1['ms']:.4f} ms, plain {nq1['plain_ms']:.4f} ms,"
+        f" torch.topk(q @ g.T) {nq1['library_ms']:.4f} ms, bound {nq1['bound_ms']:.4f} ms; "
+        f"scores_blockmax {tuple(q20.shape)} x {tuple(g.shape)} max|err| {e_sb:.3e}; "
+        f"adc_scores {tuple(lut.shape)} x {tuple(codes.shape)} bit-equal {adc_same}; "
+        f"gem_l2n_fused_rect {list(feats.shape)} {feats.dtype} max|err| {e_gem:.3e}")
+    if not (e_topk <= TOPK_TOL and same_i and e_sb <= TOPK_TOL and adc_same
+            and e_gem <= GEM_TOL):
+        raise AssertionError("a kernel disagrees with its plain version at path G's shapes")
+    out.update(fused_topk_err=e_topk, scores_blockmax_err=e_sb, adc_err=0.0, gem_err=e_gem,
+               fused_topk_nq1=nq1, wall_s=time.perf_counter() - t_path)
+    del ex, feats, x, g, s3, p3, ka, kb, pa, pb, lut, codes
+    torch.cuda.empty_cache()
+    log(f"[serving] path G wall {out['wall_s']:.1f} s")
+    log(json.dumps({"serving": out}))
     return launches, out
 
 
@@ -2519,27 +2955,30 @@ def main() -> int:
     launches_long, long_main = long_search_phase(dev)
     launches_ann, ann_main, ann_keep = ann_phase(dev)
     launches_b, main_b = fused_trunk_phase(dev, db2, main2)
-    launches_c5, main_c5, c5_desc = config5_phase(dev)
+    launches_c5, main_c5, c5_desc, q_u8 = config5_phase(dev)
     launches_e, main_e, e_keep = config4_phase(dev, *c5_desc, ann_keep)
-    del ann_keep
     launches_f, main_f = rerank_phase(dev, e_keep)
-    del e_keep
+    launches_g, main_g = serving_phase(dev, e_keep, ann_keep, c5_desc[1], q_u8)
+    del e_keep, ann_keep, q_u8
     launches_d, main_d = training_phase(dev, smi)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config4": launches_e, "rerank": launches_f,
-               "training": launches_d}
+               "serving": launches_g, "training": launches_d}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
                 fused_topk_search=max(topk_err, main2["topk_main_err"], main3["topk_main_err"],
-                                      main_b["topk_main_err"], shape_errs["fused_topk_search"]),
+                                      main_b["topk_main_err"], shape_errs["fused_topk_search"],
+                                      main_g["fused_topk_err"]),
                 scores_blockmax=max(sb_err, long_err, long_main["long_query_err"],
                                     main_d["mining_check"]["scores_blockmax_err"],
                                     main_e["scores_blockmax_err"],
                                     main_f["scores_blockmax_err"],
+                                    main_g["scores_blockmax_err"],
                                     shape_errs["scores_blockmax"]),
-                adc_scores=adc_in["err"], bottleneck_fused=bn_err)
+                adc_scores=max(adc_in["err"], main_g["adc_err"]), bottleneck_fused=bn_err)
+    errs["gem_l2n_fused_rect"] = max(errs["gem_l2n_fused_rect"], main_g["gem_err"])
     bf16 = main_c5["bf16_kernels"]
     for kname, r in bf16.items():
         errs[kname] = max(errs[kname], r["max_abs_err"])
@@ -2547,12 +2986,14 @@ def main() -> int:
     for r in rows:  # rows 1-4 also carry their bf16 times at path C's shapes
         if r["name"] in bf16:
             r["bf16"] = bf16[r["name"]]
+        if r["name"] == "fused_topk_search":  # and the one hop's single query (path G)
+            r["serving_nq1"] = main_g["fused_topk_nq1"]
     log(json.dumps({"main_path": {"config2": main2, "config3": main3, "long_search": long_main,
                                   "ann": ann_main, "config2_fused_trunk": main_b,
                                   "config5": {k: v for k, v in main_c5.items()
                                               if k != "bf16_kernels"},
                                   "config4": main_e, "rerank": main_f,
-                                  "training": main_d,
+                                  "serving": main_g, "training": main_d,
                                   "bottleneck_rel_err": bn_rel,
                                   "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)

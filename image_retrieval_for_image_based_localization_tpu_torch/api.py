@@ -194,14 +194,18 @@ class Extractor:
         m = None if mask is None else torch.as_tensor(np.asarray(mask, bool)).to(self.device)
         return self.forward(x, m).cpu().numpy()
 
-    def make_input_batches(self, images: Sequence, bbxs=None):
+    def make_input_batches(self, images: Sequence, bbxs=None,
+                           batch_size: Optional[int] = None):
         """The host pipeline for ``images`` (paths or HWC arrays), by the JAX
         package's rule: all-path inputs go through the native C++ decode and
         resize unless ``native_preproc`` is False, ``squarify`` is on, or the
         library is unavailable (``native_preproc=True`` insists on it); the
         rest go through PIL. One place decides, so both packages give the
-        same pixels for the same input."""
+        same pixels for the same input. ``batch_size`` overrides the
+        config's: serving's one-hop query takes 1, where the config's would
+        pad one image to ``cfg.batch_size`` rows of trunk work."""
         cfg = self.cfg
+        batch_size = batch_size or cfg.batch_size
         bucket_multiple = 1 if cfg.exact else cfg.bucket_multiple
         use_native = (cfg.native_preproc is not False and not cfg.squarify and len(images) > 0
                       and all(isinstance(im, str) for im in images))
@@ -209,7 +213,7 @@ class Extractor:
             return make_batches_native(
                 images,
                 image_size=cfg.image_size,
-                batch_size=cfg.batch_size,
+                batch_size=batch_size,
                 bucket_multiple=bucket_multiple,
                 bbxs=bbxs,
                 upscale=cfg.upscale,
@@ -218,7 +222,7 @@ class Extractor:
         return make_batches(
             images,
             image_size=cfg.image_size,
-            batch_size=cfg.batch_size,
+            batch_size=batch_size,
             bucket_multiple=bucket_multiple,
             bbxs=bbxs,
             squarify=cfg.squarify,

@@ -1,6 +1,8 @@
 """Runners for the graded benchmark configs, the JAX package's
 ``benchmarks.py::run_graded_config`` for configs 1 to 5, and its
-train-step throughput bench (:func:`run_training_bench`).
+benches: train-step throughput (:func:`run_training_bench`), the
+recall-vs-q/s sweep of the search family (:func:`run_ann_bench`) and the
+closed-loop load test of the HTTP server (:func:`run_serving_bench`).
 
 Each config runs on its dataset when it is on disk, else on the synthetic
 corpus; gallery scale is reached with random, L2-normalized distractor
@@ -71,13 +73,13 @@ PCA_DISTRACTORS = 50_000
 def _timed_queries(fn, reps: int = 7):
     """Run a query fn ``reps`` times; return (last indices as numpy,
     latencies in seconds). Copying the indices to the host waits for the
-    device."""
+    device (the IVF and PQ searches return host arrays already)."""
     lat = []
     idx = None
     for _ in range(reps):
         t0 = time.perf_counter()
         _, idx = fn()
-        idx = idx.cpu().numpy()
+        idx = idx.cpu().numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
         lat.append(time.perf_counter() - t0)
     return idx, np.asarray(lat)
 
@@ -418,4 +420,159 @@ def run_training_bench(
             sync()
 
         out["profile"] = profile(more_steps)
+    return out
+
+
+def run_ann_bench(
+    n: int = 20_000,
+    d: int = 256,
+    nq: int = 256,
+    k: int = 10,
+    n_clusters: Optional[int] = None,
+    m: Optional[int] = None,
+    reps: int = 5,
+    seed: int = 0,
+    device: DeviceLike = "cuda",
+) -> Dict[str, Dict[str, float]]:
+    """Recall-vs-q/s sweep over the search family on one corpus, the JAX
+    package's ``run_ann_bench``: exact top-k (the recall-1 anchor), IVF at
+    nprobe {1, C/8, C/4, C/2, C}, flat PQ and OPQ (pure ADC and refined),
+    IVF-PQ (probe and refine). The corpus is the JAX bench's, from
+    ``numpy.random.RandomState(seed)``: gaussian cells around random unit
+    centres, queries noisy members; recall@k is against the exact top-k.
+    The ``approx_r*`` rows stand for the JAX package's hardware-approximate
+    selection, which the port runs as exact search (``Index.query``'s
+    ``method="approx"``), so they read recall 1.
+
+    Returns ``{method: {recall_at_k, qps, **knobs}}``, also logged as JSON
+    lines."""
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.ivf import IVFIndex
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import (
+        IVFPQIndex,
+        PQIndex,
+    )
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    n_clusters = n_clusters or max(8, int(np.sqrt(n)))
+    m = m or max(4, d // 32)
+    n_cells = max(32, n // 256)
+
+    def unit(a: np.ndarray) -> np.ndarray:
+        return l2n(torch.from_numpy(a)).numpy()
+
+    centers = unit(rng.randn(n_cells, d).astype(np.float32))
+    assign = rng.randint(0, n_cells, size=n)
+    g = unit(centers[assign] + 0.35 * rng.randn(n, d).astype(np.float32))
+    q = unit(g[rng.choice(n, nq, replace=False)] + 0.15 * rng.randn(nq, d).astype(np.float32))
+
+    gt, qt = torch.from_numpy(g).to(dev), torch.from_numpy(q).to(dev)
+    exact_i, _ = _timed_queries(lambda: knn_search(gt, qt, k), reps=reps)
+    exact_sets = [set(row) for row in exact_i]
+
+    def measure(fn, **knobs):
+        idx, lat = _timed_queries(fn, reps=reps)
+        rec = float(np.mean([len(exact_sets[r] & set(idx[r])) / k for r in range(nq)]))
+        return {"recall_at_k": round(rec, 4), "qps": round(nq / float(np.median(lat)), 1),
+                **knobs}
+
+    out: Dict[str, Dict[str, float]] = {"exact": measure(lambda: knn_search(gt, qt, k))}
+    for rt in (0.9, 0.95, 0.99):
+        out[f"approx_r{int(rt * 100)}"] = measure(lambda: knn_search(gt, qt, k),
+                                                  recall_target=rt)
+
+    ivf = IVFIndex.build(g, n_clusters=n_clusters, device=dev)
+    C = ivf.centroids.shape[0]
+    for nprobe in sorted({1, max(1, C // 8), max(1, C // 4), max(1, C // 2), C}):
+        out[f"ivf_nprobe{nprobe}"] = measure(lambda p=nprobe: ivf.search(q, k=k, nprobe=p),
+                                             nprobe=nprobe, clusters=C)
+
+    refine = max(4 * k, 100)
+    for label, opq_iters in (("pq", 0), ("opq", 8)):
+        pq = PQIndex.build(g, m=m, opq_iters=opq_iters, device=dev)
+        out[f"{label}_adc"] = measure(lambda pq=pq: pq.search(q, k=k), m=m,
+                                      compression=round(g.shape[1] * 4 / m, 1))
+        out[f"{label}_refine{refine}"] = measure(
+            lambda pq=pq: pq.search(q, k=k, refine=refine, gallery=gt), m=m, refine=refine)
+
+    ivfpq = IVFPQIndex.from_ivf(ivf, m=m, device=dev)
+    p_mid = max(1, C // 4)
+    out[f"ivfpq_nprobe{p_mid}_refine{refine}"] = measure(
+        lambda: ivfpq.search(q, k=k, nprobe=p_mid, refine=refine, gallery=gt),
+        nprobe=p_mid, m=m, refine=refine)
+
+    logger = MetricsLogger(echo=False)
+    for name, row in out.items():
+        logger.log(event="ann_bench", method=name, n=n, d=d, **row)
+    return out
+
+
+def run_serving_bench(
+    n: int = 10_000,
+    d: int = 256,
+    concurrency: int = 16,
+    requests: int = 200,
+    k: int = 10,
+    batch_window_ms: float = 5.0,
+    seed: int = 0,
+    device: DeviceLike = "cuda",
+) -> Dict[str, Dict[str, float]]:
+    """Closed-loop load test of the HTTP server, the JAX package's
+    ``run_serving_bench``: one in-process server per mode, unbatched and
+    micro-batched, over a random unit gallery [n, d] (``numpy.random.
+    RandomState(seed)``, no whitening). ``concurrency`` client threads send
+    single-query ``POST /query`` requests until ``requests`` complete; a
+    warm pass at the same concurrency comes first. Returns q/s and the
+    client-side p50/p95/p99 latency per mode, and the q/s ratio.
+    """
+    import concurrent.futures
+    import json
+    import urllib.request
+
+    from image_retrieval_for_image_based_localization_tpu_torch.serving import serve
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import IndexConfig
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import (
+        percentile_summary,
+    )
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    g = l2n(torch.from_numpy(rng.randn(n, d).astype(np.float32))).numpy()
+    index = Index.build(g, IndexConfig(whitening=None), device=dev)
+    qpool = g[rng.choice(n, 256, replace=False)] + 0.02 * rng.randn(256, d).astype(np.float32)
+    bodies = [json.dumps({"descriptors": qpool[[i]].tolist(), "k": k}).encode()
+              for i in range(256)]
+
+    out: Dict[str, Dict[str, float]] = {}
+    for mode, window in (("unbatched", 0.0), ("batched", batch_window_ms)):
+        srv = serve(index, block=False, port=0, batch_window_ms=window, device=dev)
+        host, port = srv.server_address
+        url = f"http://{host}:{port}/query"
+        lat = []
+
+        def one(i, record=True):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(url, data=bodies[i % 256])) as r:
+                r.read()
+            if record:
+                lat.append(time.perf_counter() - t0)
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(concurrency) as exe:
+                list(exe.map(lambda i: one(i, record=False), range(requests)))
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(concurrency) as exe:
+                list(exe.map(one, range(requests)))
+            wall = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        pct = percentile_summary(lat, unit="ms")
+        out[mode] = {"qps": round(requests / wall, 1), "lat_p50_ms": pct["p50_ms"],
+                     "lat_p95_ms": pct["p95_ms"], "lat_p99_ms": pct["p99_ms"],
+                     "concurrency": concurrency, "batch_window_ms": window}
+    out["speedup"] = {"qps_ratio": round(out["batched"]["qps"] / out["unbatched"]["qps"], 2)}
+    logger = MetricsLogger(echo=False)
+    for mode, row in out.items():
+        logger.log(event="serving_bench", mode=mode, n=n, d=d, **row)
     return out

@@ -77,9 +77,19 @@ def _prepare(gallery: torch.Tensor, queries: torch.Tensor, k: int):
 def fused_topk_plain(gallery: torch.Tensor, queries: torch.Tensor,
                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: f32 scores, then a stable descending sort
-    (equal scores keep index order, so the lower index wins)."""
+    (equal scores keep index order, so the lower index wins). On the CPU
+    the scores come from ``retrieval.knn``'s fixed tiles, so a query gets
+    the same bits in any batch, as it does from the kernel (serving's
+    micro-batches rely on it)."""
     q, k = _prepare(gallery, queries, k)
-    scores = torch.matmul(q, gallery.float().T)
+    if gallery.device.type == "cpu":
+        from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import (
+            _tiled_scores,
+        )
+
+        scores = _tiled_scores(gallery, q)
+    else:
+        scores = torch.matmul(q, gallery.float().T)
     top, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return top[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 

@@ -175,8 +175,12 @@ class Index:
         )
 
     def transform_queries(self, qdescriptors) -> torch.Tensor:
-        """The index's whitening applied to query descriptors, on the device."""
-        q = torch.as_tensor(np.asarray(qdescriptors, dtype=np.float32)).to(self.device)
+        """The index's whitening applied to query descriptors (a host array,
+        or a tensor, which is not copied through the host), on the device."""
+        if isinstance(qdescriptors, torch.Tensor):
+            q = qdescriptors.to(self.device, torch.float32)
+        else:
+            q = torch.as_tensor(np.asarray(qdescriptors, dtype=np.float32)).to(self.device)
         if q.dim() == 1:
             q = q[None, :]
         if self.P is None:
@@ -186,10 +190,14 @@ class Index:
                                torch.from_numpy(self.P).to(self.device))
         return whiten_apply(q, *self._device_mP, self.dims)
 
-    def _search_queries(self, qdescriptors, qe_nqe: int = 0,
-                        qe_alpha: float = 3.0) -> torch.Tensor:
-        """Whitened and, with ``qe_nqe``, αQE-expanded queries on the device."""
-        q = self.transform_queries(qdescriptors)
+    def _search_queries(self, qdescriptors, qe_nqe: int = 0, qe_alpha: float = 3.0,
+                        pre_transformed: bool = False) -> torch.Tensor:
+        """Whitened (unless ``pre_transformed``) and, with ``qe_nqe``,
+        αQE-expanded queries on the device."""
+        if pre_transformed:
+            q = torch.as_tensor(qdescriptors).to(self.device, torch.float32)
+        else:
+            q = self.transform_queries(qdescriptors)
         if qe_nqe:
             q = expand_queries(self.device_gallery(), q,
                                nqe=min(int(qe_nqe), self.gallery.shape[0]), alpha=qe_alpha)
@@ -211,13 +219,25 @@ class Index:
             raise ValueError(f"unknown query method {method!r} (exact|approx)")
         if method == "approx" and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
-        q = self._search_queries(qdescriptors, qe_nqe, qe_alpha)
+        scores, idx = self.query_device(qdescriptors, k, qe_nqe, qe_alpha)
+        return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def query_device(self, qdescriptors, k: int = 10, qe_nqe: int = 0,
+                     qe_alpha: float = 3.0, pre_transformed: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`query`'s exact search, its result left on the device:
+        ``(scores [Nq, k] f32, indices [Nq, k] int32)`` tensors.
+        ``qdescriptors`` may be a tensor already on the device (serving's
+        one-hop query hands the extractor's output over this way), and
+        already whitened with ``pre_transformed``.
+
+        Routing: whitening, then the fused top-k kernel for ``k <= 128``
+        over f32 or bf16 storage without αQE, else ``knn_search``."""
+        q = self._search_queries(qdescriptors, qe_nqe, qe_alpha, pre_transformed)
         g = self.device_gallery()
         if not qe_nqe and k <= LANES and self.storage in ("float32", "bfloat16"):
-            scores, idx = fused_topk_search(g, q, k)
-        else:
-            scores, idx = knn_search(g, q, k)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+            return fused_topk_search(g, q, k)
+        return knn_search(g, q, k)
 
     def ranks(self, qdescriptors, qe_nqe: int = 0, qe_alpha: float = 3.0) -> np.ndarray:
         """Full ranking [N, Nq] for mAP evaluation (αQE with ``qe_nqe``)."""

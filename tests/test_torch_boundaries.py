@@ -10,6 +10,11 @@ import pytest
 import torch
 
 import image_retrieval_for_image_based_localization_tpu_torch as port
+from image_retrieval_for_image_based_localization_tpu_torch.cli import main as cli_main
+from image_retrieval_for_image_based_localization_tpu_torch.serving import (
+    RetrievalService,
+    serve,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_retrieval_for_image_based_localization_tpu_torch")
@@ -54,10 +59,12 @@ def _needs_no_cuda():
 @pytest.mark.parametrize("entry", ["Extractor", "extract_features", "build_index",
                                    "Index.load", "IVFIndex.build", "PQIndex.build",
                                    "load_pq_artifact", "default_mesh", "ShardedIndex",
-                                   "initialize_distributed"])
+                                   "initialize_distributed", "RetrievalService", "serve",
+                                   "cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     _needs_no_cuda()
     cfg = port.ExtractConfig(model=port.ModelConfig(arch="resnet18"), image_size=64)
+    cpu_index = port.build_index(np.eye(4, dtype=np.float32), device="cpu")
     calls = {
         "Extractor": lambda: port.Extractor(cfg),
         "extract_features": lambda: port.extract_features(
@@ -71,6 +78,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
         "ShardedIndex": lambda: port.parallel.ShardedIndex(np.eye(4, dtype=np.float32)),
         "initialize_distributed": lambda: port.parallel.distributed.initialize_distributed(
             "127.0.0.1:1", num_processes=2, process_id=0),
+        "RetrievalService": lambda: RetrievalService(cpu_index),
+        "serve": lambda: serve(cpu_index, block=False, port=0),
+        "cli": lambda: cli_main(["query", "--index", str(tmp_path / "none.npz"),
+                                 "--queries", str(tmp_path / "none.npy")]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
