@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
      port's native preproc library (native/preproc.cpp, host decode of path
      inputs) built too, for information only;
   3. each kernel against its plain PyTorch version on the card:
-     - gem_l2n at the GeM head's full width (B=16, 32x32 map, C=2048, f32
-       and bf16, ragged extents), and a second call bit for bit;
+     - gem_l2n at the GeM head's widths (B=16, 32x32 map, C=2048, and the
+       other trunks' 256, 1024, 1664 and 2208; f32 and bf16, ragged
+       extents), and a second call bit for bit;
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
        ragged extents with a (0, 0) row, one image with zero-mass clusters),
        and on the same map at K=256; a second call bit for bit;
@@ -30,7 +31,7 @@ Phases (any failure exits non-zero):
        16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
        with random biases;
-  4. nine paths at full width, each with the launch counts set to 0 just
+  4. eleven paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -90,6 +91,19 @@ Phases (any failure exits non-zero):
        the QE top-100, the diffusion graph's weights, offsets and degrees,
        the diffusion relevance) and scores_blockmax at the
        graph's block shape against its plain version;
+     - the other trunks and regional extraction (path H, after the serving
+       path G and before path D): densenet121 + GeM with the fused head at config 2's shape
+       (1024 px, three scales, f32) through extract_features ->
+       build_index(pca) -> Index.query(k=10) -> mAP, held against the plain
+       head, img/s cold and warm, idle share; alexnet-gem and
+       squeezenet1_1-gem on one padded bucket through the masked GeM kernel
+       against the plain head; vgg16-rmac on bucketed batches, rmac_bucketed
+       per image against rmac on its own corner of the map (region counts
+       equal); resnet101 + GeM regional with whiten_dim 2048:
+       extract_regional and extract_local on the 20 queries; densenet121's
+       extract_resumable in shards of 32, the later two deleted and resumed
+       bit for bit; every MODEL_ZOO preset built and one .pth loaded back
+       through load_model bit for bit;
      - path D, training (cirtorch's retrievalSfM120k-resnet101-gem recipe:
        contrastive margin 0.85, Adam lr 5e-7, 5 negatives, 5 tuples a step,
        362 px, f32, the kernel head): run_training for one epoch on a
@@ -112,7 +126,8 @@ Phases (any failure exits non-zero):
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
      on a log line the launch plan the built kernel reports) beside each
-     kernel's bound, and
+     kernel's bound (gem_l2n also at densenet169's C = 1,664, and at 1,666,
+     whose C % 4 != 0 takes the kernel's scalar path), and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
      the bottleneck at each block shape and summed over resnet50's 12
      stride-1 blocks at the 1024 px bucket, beside three cuDNN convs;
@@ -263,8 +278,31 @@ def build_phase():
         f"{native.native_available()}")
 
 
+# B1 and B2 run at these widths on the main paths: resnet50/101 (2,048, the
+# timing row's), alexnet (256), densenet121 (1,024), densenet169 (1,664),
+# densenet161 (2,208)
+GEM_WIDTHS = (2048, 256, 1024, 1664, 2208)
+GEM_TIMED_WIDTH = 1664  # densenet169's: a second timing point for rows 1-2
+
+
+def _gem_inputs(C, B=16, H=32, W=32, seed=1):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x32 = torch.relu(torch.randn((B, H, W, C), generator=gen))
+    hs = torch.randint(1, H + 1, (B,), generator=gen)
+    ws = torch.randint(1, W + 1, (B,), generator=gen)
+    hs[0], ws[0] = H, W      # full extent
+    hs[1], ws[1] = 0, 0      # batch-pad row
+    hs[2], ws[2] = H - 9, W  # h < H
+    hs[3], ws[3] = H, W - 5  # w < W
+    return x32, hs, ws
+
+
 def check_gem(dev):
-    """Both GeM+L2N kernels against the plain version; returns stats."""
+    """Both GeM+L2N kernels against the plain version at every width of
+    GEM_WIDTHS, f32 and bf16, ragged extents, a second call bit for bit;
+    returns the inputs at C = 2,048 and C = 1,664 and the stats."""
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         gem_l2n_fused,
@@ -272,45 +310,55 @@ def check_gem(dev):
         gem_l2n_plain,
     )
 
-    B, H, W, C = 16, 32, 32, 2048
-    gen = torch.Generator().manual_seed(1)
-    x32 = torch.relu(torch.randn((B, H, W, C), generator=gen)).to(dev)
-    hs = torch.randint(1, H + 1, (B,), generator=gen)
-    ws = torch.randint(1, W + 1, (B,), generator=gen)
-    hs[0], ws[0] = H, W      # full extent
-    hs[1], ws[1] = 0, 0      # batch-pad row
-    hs[2], ws[2] = H - 9, W  # h < H
-    hs[3], ws[3] = H, W - 5  # w < W
-    sizes = torch.stack([hs, ws], 1).to(torch.int32).to(dev)
     p = torch.tensor([3.0], device=dev)
     err = {"gem_l2n_fused_rect": 0.0, "gem_l2n_fused": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype).contiguous()
-        got = gem_l2n_fused_rect(x, p, sizes)
-        want = gem_l2n_plain(x, p, sizes)
-        e_rect = (got - want).abs().max().item()
-        got_u = gem_l2n_fused(x, p)
-        e_un = (got_u - gem_l2n_plain(x, p)).abs().max().item()
-        same = (torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
-                and torch.equal(got_u, gem_l2n_fused(x, p)))
-        torch.cuda.synchronize()
-        log(f"[check] gem_l2n {dtype}: rect max|err| {e_rect:.3e}, unmasked {e_un:.3e}, "
-            f"second call bit-equal {same}")
-        if not (e_rect <= GEM_TOL and e_un <= GEM_TOL):
-            raise AssertionError(f"gem_l2n {dtype} disagrees with its plain version")
-        if not same:
-            raise AssertionError(f"gem_l2n {dtype} is not deterministic")
-        if got[1].abs().max().item() != 0.0:
-            raise AssertionError("a (0, 0) row must give a zero descriptor")
-        err["gem_l2n_fused_rect"] = max(err["gem_l2n_fused_rect"], e_rect)
-        err["gem_l2n_fused"] = max(err["gem_l2n_fused"], e_un)
-    valid = int((hs * ws).sum())
-    log(f"[check] gem_l2n extents: {valid} of {B * H * W} positions valid")
-    dev_ms = {"gem_l2n_fused_rect": device_ms(lambda: gem_l2n_fused_rect(x32, p, sizes),
-                                              "gem_l2n_kernel"),
-              "gem_l2n_fused": device_ms(lambda: gem_l2n_fused(x32, p), "gem_l2n_kernel")}
-    return {"x": x32, "p": p, "sizes": sizes, "valid_positions": valid, "err": err,
-            "device_ms": dev_ms}
+    kept = {}
+    for C in GEM_WIDTHS:
+        x32, hs, ws = _gem_inputs(C)
+        B, H, W, _ = x32.shape
+        x32 = x32.to(dev)
+        sizes = torch.stack([hs, ws], 1).to(torch.int32).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype).contiguous()
+            got = gem_l2n_fused_rect(x, p, sizes)
+            want = gem_l2n_plain(x, p, sizes)
+            e_rect = (got - want).abs().max().item()
+            got_u = gem_l2n_fused(x, p)
+            e_un = (got_u - gem_l2n_plain(x, p)).abs().max().item()
+            same = (torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
+                    and torch.equal(got_u, gem_l2n_fused(x, p)))
+            torch.cuda.synchronize()
+            log(f"[check] gem_l2n C={C} {dtype}: rect max|err| {e_rect:.3e}, unmasked "
+                f"{e_un:.3e}, second call bit-equal {same}")
+            if not (e_rect <= GEM_TOL and e_un <= GEM_TOL):
+                raise AssertionError(f"gem_l2n C={C} {dtype} disagrees with its plain version")
+            if not same:
+                raise AssertionError(f"gem_l2n C={C} {dtype} is not deterministic")
+            if got[1].abs().max().item() != 0.0:
+                raise AssertionError("a (0, 0) row must give a zero descriptor")
+            err["gem_l2n_fused_rect"] = max(err["gem_l2n_fused_rect"], e_rect)
+            err["gem_l2n_fused"] = max(err["gem_l2n_fused"], e_un)
+        if C in (GEM_WIDTHS[0], GEM_TIMED_WIDTH):
+            valid = int((hs * ws).sum())
+            dev_ms = {"gem_l2n_fused_rect": device_ms(
+                          lambda: gem_l2n_fused_rect(x32, p, sizes), "gem_l2n_kernel"),
+                      "gem_l2n_fused": device_ms(lambda: gem_l2n_fused(x32, p),
+                                                 "gem_l2n_kernel")}
+            if C == GEM_TIMED_WIDTH:
+                # a width that is not a multiple of 4 takes the kernel's
+                # scalar path (no trunk of the repo has one): the same map
+                # at C + 2
+                xs = torch.nn.functional.pad(x32, (0, 2)).contiguous()
+                dev_ms["scalar_rect"] = device_ms(lambda: gem_l2n_fused_rect(xs, p, sizes),
+                                                  "gem_l2n_kernel")
+                del xs
+            kept[C] = {"x": x32, "p": p, "sizes": sizes, "valid_positions": valid,
+                       "device_ms": dev_ms}
+        else:
+            del x32
+    log(f"[check] gem_l2n extents: {kept[GEM_WIDTHS[0]]['valid_positions']} of "
+        f"{B * H * W} positions valid")
+    return dict(kept[GEM_WIDTHS[0]], err=err, at_timed_width=kept[GEM_TIMED_WIDTH])
 
 
 _TOPK_CACHE = {}
@@ -598,18 +646,29 @@ def _ragged_search_case(dev, dtype, nq, ng, d, layout, seed):
     return g[1:].clone(), q
 
 
-def _check_search_case(s, i, ps, pi):
+def _check_search_case(s, i, ps, pi, next_score=None):
     """Scores within TOPK_TOL, indices equal where the plain scores are
-    separated, strict (score desc, index asc) order."""
+    separated, strict (score desc, index asc) order. ``next_score`` [Nq] is
+    the plain score of each row's first place past the shortlist: a last
+    place tied with it (within TOPK_TOL) may name either row."""
     import torch
 
     err = (s - ps).abs().max().item()
     big = torch.full_like(ps[:, :1], float("inf"))
-    gap_next = torch.cat([ps[:, :-1] - ps[:, 1:], big], 1)
+    last = big if next_score is None else ps[:, -1:] - next_score[:, None]
+    gap_next = torch.cat([ps[:, :-1] - ps[:, 1:], last], 1)
     gap_prev = torch.cat([big, ps[:, :-1] - ps[:, 1:]], 1)
     clear = (gap_next > TOPK_TOL) & (gap_prev > TOPK_TOL)
     ordered = (s[:, :-1] > s[:, 1:]) | ((s[:, :-1] == s[:, 1:]) & (i[:, :-1] < i[:, 1:]))
-    ok = err <= TOPK_TOL and torch.equal(i[clear], pi[clear]) and bool(ordered.all())
+    moved = clear & (i != pi)
+    ok = err <= TOPK_TOL and not bool(moved.any()) and bool(ordered.all())
+    if not ok:
+        def cols(m):
+            return sorted(set(torch.nonzero(m)[:, 1].tolist()))
+
+        log(f"[search check] {tuple(s.shape)} fails: score max|err| {err:.3e} (tol {TOPK_TOL}); "
+            f"another index at a clear place in columns {cols(moved)}; out of order after "
+            f"columns {cols(~ordered)}")
     return ok, err
 
 
@@ -2421,6 +2480,270 @@ def serving_phase(dev, e, ann, qd, q_u8):
     return launches, out
 
 
+REGIONAL_TOL = 1e-6  # sum of unit region vectors vs the descriptor, one trunk on both
+RESUME_SHARD = 32
+
+
+def other_trunks_phase(dev):
+    """Path H: the other trunks, R-MAC and regional extraction on the card,
+    random weights from seeded generators, on the in-memory corpus.
+
+    1. densenet121 + GeM, kernel head, f32, 1024 px, three scales (config 2
+       with the trunk swapped): extract_features -> build_index(pca) ->
+       Index.query(k=10) through the fused top-k kernel -> mAP, held against
+       the same run with use_pallas=False; img/s cold and warm, idle share;
+    2. alexnet-gem and squeezenet1_1-gem: one padded 720 x 1024 bucket each
+       through the masked GeM kernel against the plain head;
+    3. vgg16-rmac on bucketed batches: rmac_bucketed per image against rmac
+       on the image's own (h, w) corner of the map, region counts equal;
+    4. resnet101 + GeM, regional, whiten_dim=2048: extract_regional and
+       extract_local on the 20 queries, shapes against rmac_regions, the
+       region sum against the model's own descriptor;
+    5. extract_resumable over the 100 images in shards of 32, the later two
+       shards deleted and resumed, bit for bit;
+    6. every MODEL_ZOO preset builds; one .pth saved and loaded back through
+       load_model bit for bit.
+    The launch counts are read over the whole path: the comparisons run
+    plain heads, which launch nothing."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        compute_map,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models import init_random_, zoo
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        feature_mask,
+        rect_sizes,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.normalization import l2n
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.pooling import (
+        rmac,
+        rmac_bucketed,
+        rmac_region_counts,
+        rmac_regions,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+
+    t_path = time.perf_counter()
+    images, labels, q_u8 = make_corpus()
+    q_pixels = ((q_u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+    queries = list(q_u8)
+    out = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # 1. densenet121 + GeM at config 2's shape
+    g2 = GRADED_CONFIGS[2]
+    mc = dataclasses.replace(g2.extract.model, arch="densenet121", use_pallas=True)
+    cfg = dataclasses.replace(g2.extract, model=mc, batch_size=16)
+    log(f"[densenet121] {mc.arch} {mc.pooling} fused head, {cfg.image_size} px, scales "
+        f"{tuple(round(s, 4) for s in cfg.scales)}, f32, index {g2.index}, {len(images)} db "
+        f"images, {len(queries)} queries")
+    ex = port.Extractor(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    db = ex.extract(images)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    qd = ex(q_pixels)
+    index = port.build_index(db, g2.index, device=dev)
+    scores, idx = index.query(qd, k=10)
+    _, self_idx = index.query(db, k=10)
+    ranks = index.ranks(qd)
+    gnd = [{"ok": np.flatnonzero(labels == s)} for s in range(len(q_u8))]
+    mAP = compute_map(ranks, gnd)[0]
+    self_top1 = float(np.mean(self_idx[:, 0] == np.arange(len(db))))
+    t0 = time.perf_counter()
+    db_warm = ex.extract(images)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    prof = profile_window(lambda: ex.extract(images))
+    plain = port.Extractor(dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, use_pallas=False)), state_dict=ex.model.state_dict(), device=dev)
+    d_err = float(max(np.abs(plain.extract(images) - db).max(), np.abs(plain(q_pixels) - qd).max()))
+    log(f"[densenet121] extraction cold {len(images) / t_cold:.2f} img/s ({t_cold:.2f} s), warm "
+        f"{len(images) / t_warm:.2f} img/s ({t_warm:.2f} s, max|diff| to cold "
+        f"{np.abs(db_warm - db).max():.3e}), descriptors {db.shape}, index "
+        f"{index.gallery.shape}, self top-1 {self_top1:.3f}, mAP {mAP:.4f}, kernel vs plain "
+        f"head (all 100 + 20 images x 3 scales): max|descriptor err| {d_err:.3e}")
+    log(f"[densenet121] profiled extraction: {json.dumps(prof)}")
+    if db.shape != (len(images), 1024) or not np.isfinite(db).all() or \
+            np.abs(np.linalg.norm(db, axis=1) - 1).max() > 1e-4:
+        raise AssertionError("densenet121 descriptors are not finite unit-norm [N, 1024]")
+    if self_top1 != 1.0 or not (np.isfinite(scores).all() and 0.0 <= mAP <= 1.0):
+        raise AssertionError(f"densenet121: self top-1 {self_top1}, mAP {mAP}")
+    if d_err > GEM_TOL:
+        raise AssertionError("densenet121 kernel-head descriptors disagree with the plain head")
+    out["densenet121"] = {"extract_img_per_s": len(images) / t_cold,
+                          "extract_warm_img_per_s": len(images) / t_warm, "map": mAP,
+                          "self_top1": self_top1, "d_err": d_err, "profile": prof}
+    del plain
+
+    # 5. resumable extraction with the same extractor: stopped after two shards
+    cache = tempfile.mkdtemp(prefix="resume_")
+    try:
+        first = ex.extract_resumable(images, cache, shard_size=RESUME_SHARD)
+        shards = sorted(os.listdir(cache))
+        for name in shards[2:]:
+            os.remove(os.path.join(cache, name))
+        resumed = ex.extract_resumable(images, cache, shard_size=RESUME_SHARD)
+        left = sorted(os.listdir(cache))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    bitwise = bool(np.array_equal(resumed, first))
+    r_err = float(np.abs(resumed - db_warm).max())
+    log(f"[resumable] {len(shards)} shards of {RESUME_SHARD}, {len(shards) - 2} deleted and "
+        f"resumed: bit-equal to the uninterrupted run {bitwise}; "
+        f"max|diff| to one extract of all 100 (other batches) {r_err:.3e}; files left {left}")
+    if not bitwise or left != shards or r_err > GEM_TOL:
+        raise AssertionError("resumed extraction differs from the uninterrupted one")
+    out["resumable"] = {"shards": len(shards), "bitwise": bitwise, "vs_extract_err": r_err}
+    del ex
+
+    # 2. alexnet and squeezenet: one padded bucket each through the masked kernel
+    rect = [im for im in images if im.shape == images[1].shape][:16]  # 720 x 1024
+    for name in ("alexnet-gem", "squeezenet1_1-gem"):
+        zcfg = port.ExtractConfig(model=dataclasses.replace(zoo.MODEL_ZOO[name], use_pallas=True),
+                                  image_size=1024, batch_size=16)
+        before = kernels.gem_l2n_fused_rect.launches
+        zex = port.Extractor(zcfg, seed=1, device=dev)
+        d = zex.extract(rect)
+        n_rect = kernels.gem_l2n_fused_rect.launches - before
+        zplain = port.Extractor(dataclasses.replace(zcfg, model=dataclasses.replace(
+            zcfg.model, use_pallas=False)), state_dict=zex.model.state_dict(), device=dev)
+        e = float(np.abs(zplain.extract(rect) - d).max())
+        log(f"[{name}] one bucket of {len(rect)} {rect[0].shape[0]} x {rect[0].shape[1]} "
+            f"images (rows padded to a multiple of 32), C={zex.out_dim}: gem_l2n_fused_rect "
+            f"launches {n_rect}, kernel vs plain head max|err| {e:.3e}")
+        if n_rect != 1 or e > GEM_TOL or not np.isfinite(d).all():
+            raise AssertionError(f"{name}: the bucket did not go through the masked kernel "
+                                 f"or disagrees with the plain head")
+        out[name] = {"rect_launches": n_rect, "d_err": e}
+        del zex, zplain
+
+    # 3. vgg16-rmac on bucketed batches
+    rex = port.Extractor(port.ExtractConfig(model=zoo.MODEL_ZOO["vgg16-rmac"], image_size=1024,
+                                            batch_size=16), seed=2, device=dev)
+    sub = images[:32]
+    drm = rex.extract(sub)
+    e_rmac, e_head, n_img, counts = 0.0, 0.0, 0, []
+    with torch.no_grad():
+        for batch in rex.make_input_batches(sub):
+            px = torch.from_numpy(batch.pixels_u8).to(dev)
+            sz = torch.from_numpy(batch.sizes).to(dev)
+            B, H, W, _ = px.shape
+            row = torch.arange(H, device=dev)[None, :, None]
+            col = torch.arange(W, device=dev)[None, None, :]
+            mask = (row < sz[:, 0, None, None]) & (col < sz[:, 1, None, None])
+            x = (px.float() * rex._nrm_a + rex._nrm_b) * mask[..., None]
+            feats = rex.model.trunk_nhwc(x).float()
+            fsz = rect_sizes(feature_mask(mask, (H, W), feats.shape[1:3]))
+            bucketed = rmac_bucketed(feats, fsz)
+            n_regions = rmac_region_counts(fsz).tolist()
+            e_head = max(e_head, (l2n(bucketed) - rex.forward_u8(px, sz)).abs().max().item())
+            for r in range(batch.valid):
+                h, w = fsz[r].tolist()
+                want = rmac(feats[r:r + 1, :h, :w])
+                e_rmac = max(e_rmac, (bucketed[r] - want[0]).abs().max().item())
+                if n_regions[r] != 1 + len(rmac_regions(h, w)):
+                    raise AssertionError(f"rmac_bucketed pools {n_regions[r]} regions of a "
+                                         f"{h} x {w} map, rmac {1 + len(rmac_regions(h, w))}")
+                counts.append((h, w, n_regions[r]))
+                n_img += 1
+    log(f"[vgg16-rmac] {len(sub)} images in buckets: rmac_bucketed vs exact rmac per image "
+        f"max|err| {e_rmac:.3e}, head vs l2n(rmac_bucketed) {e_head:.3e}, (h, w, regions) "
+        f"{sorted(set(counts))}, descriptors {drm.shape}")
+    if n_img != len(sub) or e_rmac > GEM_TOL or e_head > GEM_TOL or not np.isfinite(drm).all():
+        raise AssertionError("vgg16-rmac: bucketed R-MAC disagrees with exact-shape R-MAC")
+    out["vgg16_rmac"] = {"rmac_err": e_rmac, "head_err": e_head,
+                         "grids": sorted(set(counts))}
+    del rex
+
+    # 4. resnet101 + GeM, regional, per-region whitening to 2048
+    gex = port.Extractor(port.ExtractConfig(model=port.ModelConfig(
+        arch="resnet101", regional=True, whiten_dim=2048), image_size=1024, batch_size=16),
+        seed=3, device=dev)
+    regs = gex.extract_regional(queries)
+    locs = gex.extract_local(queries)
+    agg = gex.extract(queries)
+    fh, fw = (-(-n // 32) for n in q_u8.shape[1:3])  # resnet101's map: 32 x 32 at 1024 px
+    n_reg = 1 + len(rmac_regions(fh, fw))
+    shapes_ok = (all(r.shape == (n_reg, 2048) for r in regs)
+                 and all(f.shape == (fh * fw, 2048) for f in locs)
+                 and agg.shape == (len(queries), 2048))
+    e_sum = float(max(np.abs(l2n(torch.from_numpy(r.sum(axis=0))).numpy() - a).max()
+                      for r, a in zip(regs, agg)))
+    e_norm = float(max(np.abs(np.linalg.norm(r, axis=1) - 1).max() for r in regs + locs))
+    log(f"[regional] resnet101 + GeM regional, whiten 2048, exact {gex.cfg.exact}: "
+        f"extract_regional {len(regs)} x {regs[0].shape}, extract_local {len(locs)} x "
+        f"{locs[0].shape}, region sum vs descriptor max|err| {e_sum:.3e}, max|norm - 1| "
+        f"{e_norm:.3e}")
+    if not (shapes_ok and gex.cfg.exact) or e_sum > REGIONAL_TOL or e_norm > 1e-4:
+        raise AssertionError("regional extraction: wrong shapes or the region sum disagrees")
+    out["regional"] = {"regions": n_reg, "sum_err": e_sum, "norm_err": e_norm}
+    del gex, regs, locs
+
+    # 6. the zoo
+    widths = {name: zoo.create_model_from_zoo(name).out_dim for name in zoo.MODEL_ZOO}
+    tmp = tempfile.mkdtemp(prefix="zoo_")
+    try:
+        net = zoo.create_model_from_zoo("densenet121-gem")
+        init_random_(net, torch.Generator().manual_seed(4))
+        path = os.path.join(tmp, "densenet121-gem.pth")
+        torch.save({"state_dict": net.state_dict(), "meta": zoo.model_to_meta(net)}, path)
+        loaded, _ = zoo.load_model("densenet121-gem", checkpoint=path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(v, loaded.state_dict()[k]) for k, v in net.state_dict().items())
+    log(f"[zoo] {len(widths)} presets built, widths {widths}; densenet121-gem .pth loaded back "
+        f"bit for bit {same}")
+    if len(widths) != 12 or not same:
+        raise AssertionError("zoo: a preset failed or the checkpoint did not load back")
+    out["zoo"] = {"presets": len(widths), "roundtrip_bitwise": same}
+
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"[other trunks] launches {launches}")
+    for name in ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on path H")
+
+    # the search kernel at step 1's own shapes, after the counts are read:
+    # these launches compare and do not count
+    g = index.device_gallery()
+    errs = {}
+    for tag, qs in (("queries", qd), ("db", db)):
+        qt = index.transform_queries(qs)
+        s_k, i_k = kernels.fused_topk_search(g, qt, 10)
+        s_p, i_p = kernels.fused_topk_plain(g, qt, 11)
+        ok, e = _check_search_case(s_k, i_k.long(), s_p[:, :10], i_p[:, :10].long(),
+                                   next_score=s_p[:, 10])
+        errs[tag] = e
+        log(f"[densenet121] fused_topk_search {tuple(qt.shape)} x {tuple(g.shape)} k 10 vs "
+            f"plain: max|err| {e:.3e}, {int((i_k != i_p[:, :10]).sum())} of {i_k.numel()} "
+            f"places name another row, ok {ok}")
+        if not ok:
+            raise AssertionError(f"fused top-k disagrees with its plain version on path H "
+                                 f"({tag})")
+    out["densenet121"]["topk_err"] = max(errs.values())
+    del index, g, qt, s_k, i_k, s_p, i_p
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"[other trunks] path H wall {out['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 # cirtorch's retrievalSfM120k-resnet101-gem training recipe (README,
 # cirtorch.examples.train): --arch resnet101 --pool gem --loss contrastive
 # --loss-margin 0.85 --optimizer adam --lr 5e-7 --neg-num 5 --query-size 2000
@@ -2508,10 +2831,20 @@ def _mining_check(dev, smi, args, paths, clusters, qidxs, pidxs):
     k = min(200, len(paths))
     ok_sb, e_sb = _check_blockmax_case(g, q)
     cs, ci = (t.cpu() for t in knn_search(g, q, k))
-    ps, pi = knn_search(g.cpu(), q.cpu(), k)  # the dense route, as CPU mining runs it
-    ok_knn, e_knn = _check_search_case(cs, ci.long(), ps, pi.long())
+    # the dense route, as CPU mining runs it, one place further: the first
+    # row past the shortlist tells whether the last place is a tie
+    ps, pi = knn_search(g.cpu(), q.cpu(), min(k + 1, len(paths)))
+    nxt = ps[:, k] if ps.shape[1] > k else None
+    ps, pi = ps[:, :k], pi[:, :k]
+    ok_knn, e_knn = _check_search_case(cs, ci.long(), ps, pi.long(), next_score=nxt)
     reordered = int((ci.long() != pi.long()).sum())
     spread = float((ps[:, 0] - ps[:, -1]).median())  # the top-k's score range
+    # where the card names another row than the CPU, how far apart the two
+    # rows' plain scores are (a tie is within TOPK_TOL)
+    plain_all = q.cpu() @ g.cpu().T
+    diff = ci.long() != pi.long()
+    pick_gap = float((plain_all.gather(1, ci.long()) - ps).abs()[diff].max()) if diff.any() \
+        else 0.0
 
     row = {p: i for i, p in enumerate(paths)}
     kw = dict(clusters=clusters, n_neg=r["n_neg"], seed=0, qsize=TRAIN_QSIZE)
@@ -2523,21 +2856,22 @@ def _mining_check(dev, smi, args, paths, clusters, qidxs, pidxs):
                   and np.array_equal(t_card.qidxs, t_cpu.qidxs)
                   and np.array_equal(t_card.pidxs, t_cpu.pidxs))
     rows, cols = np.nonzero(t_card.nidxs != t_cpu.nidxs)
-    plain = (q.cpu() @ g.cpu().T).numpy()  # the CPU's scores; rows are sel's queries
+    plain = plain_all.numpy()  # the CPU's scores; rows are sel's queries
     gap = float(np.abs(plain[rows, t_card.nidxs[rows, cols]]
                        - plain[rows, t_cpu.nidxs[rows, cols]]).max()) if len(rows) else 0.0
     log(f"[training] mining search at its shape: Nq {q.shape[0]} Ng {g.shape[0]} D {g.shape[1]} "
         f"k {k} f32: scores_blockmax max|err| {e_sb:.3e} (tol {TOPK_TOL}) ok {ok_sb}, "
         f"knn_search vs the CPU's max|err| {e_knn:.3e} ok {ok_knn}; top-{k} score range "
         f"(median over rows) {spread:.3e}, {reordered} of {ci.numel()} top-{k} places name "
-        f"another pool row (near-ties); tuples card vs CPU: {len(t_card.qidxs)} tuples, "
+        f"another pool row, their plain scores within {pick_gap:.3e} of the CPU's picks; "
+        f"tuples card vs CPU: {len(t_card.qidxs)} tuples, "
         f"{len(np.unique(rows))} rows differ, the differing picks' plain scores within "
         f"{gap:.3e} | {smi}")
-    if not (ok_sb and ok_knn and same_pairs and gap <= TOPK_TOL):
+    if not (ok_sb and ok_knn and pick_gap <= TOPK_TOL and same_pairs and gap <= TOPK_TOL):
         raise AssertionError("[training] mining: the card's search or tuples disagree with "
                              "the plain search's")
     return {"scores_blockmax_err": e_sb, "knn_err": e_knn, "topk_score_range": spread,
-            "topk_places_reordered": reordered, "tuple_rows_differ": int(len(np.unique(rows))),
+            "topk_places_reordered": reordered, "topk_pick_score_gap": pick_gap, "tuple_rows_differ": int(len(np.unique(rows))),
             "tuple_pick_score_gap": gap}
 
 
@@ -2789,19 +3123,52 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
 
     src_gem = CSRC + "gem_l2n.cu"
     valid = gem_in["valid_positions"]
-    # the kernel reads only the valid rows of each rectangle; ~4 ops an
-    # element. ms is through the wrapper (host work included), device_ms the
-    # kernel's own profiler interval (taken in phase 3, same inputs)
+
+    def gem_bytes(xg, valid_g, rect):
+        """Bytes and ~4 ops an element: the rect kernel reads only the valid
+        rows of each rectangle (and the extents), the unmasked one all of x."""
+        Bg, Cg = xg.shape[0], xg.shape[-1]
+        n = valid_g if rect else xg.numel() // Cg
+        return n * Cg * 4 + Bg * Cg * 4 + (Bg * 8 if rect else 0) + 4, 4 * n * Cg
+
+    # densenet169's width, [16, 32 x 32, 1664] f32: wrapper and device time
+    # beside its bytes bound, for rows 1-2
+    at = gem_in["at_timed_width"]
+    xw, pw, sw = at["x"], at["p"], at["sizes"]
+    width_extra = {}
+    for name, fn, plain, rect in (
+            ("gem_l2n_fused_rect", lambda: gem_l2n_fused_rect(xw, pw, sw),
+             lambda: gem_l2n_plain(xw, pw, sw), True),
+            ("gem_l2n_fused", lambda: gem_l2n_fused(xw, pw), lambda: gem_l2n_plain(xw, pw), False)):
+        byts, flops = gem_bytes(xw, at["valid_positions"], rect)
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        width_extra[name] = {
+            "shape": list(xw.shape), "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "device_ms": at["device_ms"][name], "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": byts}
+        log(f"[timing] {name} at {list(xw.shape)} f32: {json.dumps(width_extra[name])}")
+    # the scalar path: the same map at C = 1,666 (C % 4 != 0)
+    xs = torch.nn.functional.pad(xw, (0, 2)).contiguous()
+    width_extra["gem_l2n_fused_rect"]["scalar_c1666"] = {
+        "ms": time_ms(lambda: gem_l2n_fused_rect(xs, pw, sw)),
+        "device_ms": at["device_ms"]["scalar_rect"]}
+    log(f"[timing] gem_l2n_fused_rect scalar path (C % 4 != 0) at C=1666: "
+        f"{json.dumps(width_extra['gem_l2n_fused_rect']['scalar_c1666'])}, against C=1664 "
+        f"{width_extra['gem_l2n_fused_rect']['ms']:.4f} ms (device "
+        f"{at['device_ms']['gem_l2n_fused_rect']} ms)")
+    del xs
+
+    byts, flops = gem_bytes(x, valid, True)
     row("gem_l2n_fused_rect", src_gem, PALLAS + "gem_l2n.py:238",
         time_ms(lambda: gem_l2n_fused_rect(x, p, sizes)),
-        time_ms(lambda: gem_l2n_plain(x, p, sizes)),
-        valid * C * 4 + out_bytes + B * 8 + 4, 4 * valid * C, None,
-        device_ms=gem_in["device_ms"]["gem_l2n_fused_rect"])
+        time_ms(lambda: gem_l2n_plain(x, p, sizes)), byts, flops, None,
+        device_ms=gem_in["device_ms"]["gem_l2n_fused_rect"],
+        at_c1664=width_extra["gem_l2n_fused_rect"])
+    byts, flops = gem_bytes(x, valid, False)
     row("gem_l2n_fused", src_gem, PALLAS + "gem_l2n.py:218",
         time_ms(lambda: gem_l2n_fused(x, p)),
-        time_ms(lambda: gem_l2n_plain(x, p)),
-        x.numel() * 4 + out_bytes + 4, 4 * x.numel(), None,
-        device_ms=gem_in["device_ms"]["gem_l2n_fused"])
+        time_ms(lambda: gem_l2n_plain(x, p)), byts, flops, None,
+        device_ms=gem_in["device_ms"]["gem_l2n_fused"], at_c1664=width_extra["gem_l2n_fused"])
     # the plan as the built kernel reports it, with how many clusters the
     # card holds at once: images past that run in a second wave
     log(f"[timing] gem_l2n launch plan at C={C} f32: {json.dumps(gem_mod.launch_plan(C))}")
@@ -2960,11 +3327,12 @@ def main() -> int:
     launches_f, main_f = rerank_phase(dev, e_keep)
     launches_g, main_g = serving_phase(dev, e_keep, ann_keep, c5_desc[1], q_u8)
     del e_keep, ann_keep, q_u8
+    launches_h, main_h = other_trunks_phase(dev)
     launches_d, main_d = training_phase(dev, smi)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config4": launches_e, "rerank": launches_f,
-               "serving": launches_g, "training": launches_d}
+               "serving": launches_g, "other_trunks": launches_h, "training": launches_d}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -2978,7 +3346,11 @@ def main() -> int:
                                     main_g["scores_blockmax_err"],
                                     shape_errs["scores_blockmax"]),
                 adc_scores=max(adc_in["err"], main_g["adc_err"]), bottleneck_fused=bn_err)
-    errs["gem_l2n_fused_rect"] = max(errs["gem_l2n_fused_rect"], main_g["gem_err"])
+    errs["gem_l2n_fused_rect"] = max(errs["gem_l2n_fused_rect"], main_g["gem_err"],
+                                     main_h["densenet121"]["d_err"],
+                                     main_h["alexnet-gem"]["d_err"],
+                                     main_h["squeezenet1_1-gem"]["d_err"])
+    errs["gem_l2n_fused"] = max(errs["gem_l2n_fused"], main_h["densenet121"]["d_err"])
     bf16 = main_c5["bf16_kernels"]
     for kname, r in bf16.items():
         errs[kname] = max(errs[kname], r["max_abs_err"])
@@ -2993,7 +3365,8 @@ def main() -> int:
                                   "config5": {k: v for k, v in main_c5.items()
                                               if k != "bf16_kernels"},
                                   "config4": main_e, "rerank": main_f,
-                                  "serving": main_g, "training": main_d,
+                                  "serving": main_g, "other_trunks": main_h,
+                                  "training": main_d,
                                   "bottleneck_rel_err": bn_rel,
                                   "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -3,13 +3,16 @@
 The JAX package's ``api.py`` on PyTorch: batched multi-scale extraction over
 uint8 aspect buckets (normalize and mask on the device), the reference's
 generalized mean over scales ``l2n((mean_s d_s^msp)^(1/msp))``, then
-whitening, index build and exact search. Entry points run on the card
-unless ``device="cpu"`` is passed.
+whitening, index build and exact search; beside it the structured
+extraction of region vectors and local features, and extraction that
+resumes from shards on disk. Entry points run on the card unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 from typing import Dict, Optional, Sequence, Tuple
@@ -70,6 +73,16 @@ def _prefetched(iterator, depth: int = 2):
         yield item
 
 
+def rescale(pixels: torch.Tensor, scale: float) -> torch.Tensor:
+    """NHWC pixels at ``scale``, the reference's way: ``floor(size * s)``
+    (at least 32), bilinear at half-pixel centres, no antialiasing (the JAX
+    package's ``jax.image.resize(..., "bilinear", antialias=False)``)."""
+    _, H, W, _ = pixels.shape
+    size = (max(int(H * scale), 32), max(int(W * scale), 32))
+    return F.interpolate(pixels.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                         align_corners=False, antialias=False).permute(0, 2, 3, 1)
+
+
 def resize_mask_nearest(mask: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of a [B, H, W] bool mask, index for index the JAX
     package's ``jax.image.resize(mask, ..., "nearest") >= 0.5``: output row
@@ -87,9 +100,12 @@ class Extractor:
     """Descriptor extraction engine.
 
     Args:
-      cfg: ExtractConfig (ResNet or VGG-16 + GeM/MAC/SPoC/NetVLAD, float32
-        or bfloat16 compute; ``use_pallas`` selects the hand-written CUDA
-        head).
+      cfg: ExtractConfig (any arch of ``models.retrieval_net.OUTPUT_DIM``
+        with GeM/GeMmp/MAC/SPoC/R-MAC/NetVLAD or the regional pool, float32,
+        or bfloat16 for the resnet and vgg16 trunks; ``use_pallas`` selects
+        the hand-written CUDA head). ``regional=True`` switches to exact
+        shapes (``exact=True``), as in the JAX package: the region grid is a
+        function of each image's own shape.
       state_dict: weights for ``RetrievalNet`` (this package's layout; see
         ``models.flax_port`` for flax variables). None: random weights from
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
@@ -108,11 +124,13 @@ class Extractor:
     def __init__(self, cfg: ExtractConfig, state_dict: Optional[Dict] = None,
                  seed: int = 0, device: DeviceLike = "cuda"):
         check_supported(cfg)
+        mc = cfg.model
+        if mc.regional and not cfg.exact:
+            cfg = dataclasses.replace(cfg, exact=True)
         self.cfg = cfg
         self.device = resolve_device(device)
-        mc = cfg.model
         model = RetrievalNet(arch=mc.arch, pooling=mc.pooling, whiten_dim=mc.whiten_dim,
-                             gem_p=mc.gem_p, use_kernel=mc.use_pallas,
+                             regional=mc.regional, gem_p=mc.gem_p, use_kernel=mc.use_pallas,
                              netvlad_clusters=mc.netvlad_clusters, dtype=mc.dtype)
         if state_dict is None:
             init_random_(model, torch.Generator().manual_seed(seed))
@@ -135,25 +153,25 @@ class Extractor:
         return self.model.out_dim
 
     def _msp(self) -> torch.Tensor:
-        """Multi-scale power: cfg.msp, else GeM's p for whitening-free GeM, else 1
-        (NetVLAD included)."""
+        """Multi-scale power: cfg.msp, else GeM's p for whitening-free GeM
+        that is not regional, else 1 (GeMmp, R-MAC and NetVLAD included; a
+        regional descriptor is a sum of unit region vectors, so cirtorch
+        averages its scales plainly)."""
         if self.cfg.msp is not None:
             return torch.tensor(self.cfg.msp, dtype=torch.float32, device=self.device)
         model = self.model
-        if model.pooling == "gem" and model.whiten_dim is None:
+        if model.pooling == "gem" and model.whiten_dim is None and not model.regional:
             return model.pool.p.reshape(()).float()
         return torch.tensor(1.0, dtype=torch.float32, device=self.device)
 
     def _single_scale(self, pixels: torch.Tensor, mask: Optional[torch.Tensor],
                       scale: float) -> torch.Tensor:
+        if self.model.regional:
+            mask = None  # exact shapes: the mask is full, and the regional head takes none
         if scale != 1.0:
-            B, H, W, _ = pixels.shape
-            # reference semantics: floor(size * s), bilinear half-pixel, no antialias
-            size = (max(int(H * scale), 32), max(int(W * scale), 32))
-            pixels = F.interpolate(pixels.permute(0, 3, 1, 2), size=size, mode="bilinear",
-                                   align_corners=False, antialias=False).permute(0, 2, 3, 1)
+            pixels = rescale(pixels, scale)
             if mask is not None:
-                mask = resize_mask_nearest(mask, size)
+                mask = resize_mask_nearest(mask, tuple(pixels.shape[1:3]))
         if self._folded is None:
             return self.model(pixels, mask)
         feats = trunk_apply_fused(self._folded, pixels)
@@ -246,6 +264,72 @@ class Extractor:
         for d, ix in pending:
             out[ix] = d[: len(ix)].cpu().numpy()
         return out
+
+    @torch.no_grad()
+    def _extract_structured(self, images: Sequence, bbxs, kind: str) -> list:
+        """Per-image outputs of the model's structured forms, as a list:
+        ``kind`` "regions" gives [R, D] region vectors, "features" [P, C]
+        local features (positions flattened row-major). Exact shapes (PIL
+        host pipeline, ``bucket_multiple=1``), f32 pixels normalized as the
+        JAX package's structured path does; every scale runs and the
+        per-scale outputs are concatenated along the first axis."""
+        cfg = self.cfg
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=self.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=self.device)
+        kw = {"return_regions": True} if kind == "regions" else {"return_features": True}
+        out: list = [None] * len(images)
+        for batch in make_batches(images, image_size=cfg.image_size, batch_size=cfg.batch_size,
+                                  bucket_multiple=1, bbxs=bbxs, squarify=cfg.squarify,
+                                  upscale=cfg.upscale, resize_filter=cfg.resize_filter):
+            x = torch.from_numpy(batch.pixels_u8).to(self.device).float() / 255.0
+            x = (x - mean) / std
+            outs = []
+            for s in self.scales:
+                r = self.model(x if s == 1.0 else rescale(x, s), **kw)
+                outs.append(r.reshape(r.shape[0], -1, r.shape[-1]))
+            res = torch.cat(outs, dim=1).cpu().numpy()
+            for row, ix in enumerate(batch.indices):
+                out[ix] = res[row]
+        return out
+
+    def extract_regional(self, images: Sequence, bbxs=None) -> list:
+        """Per-image region vectors (cirtorch ``extract_regional_vectors``):
+        a list of [R_i, D] arrays, each region pooled, L2-normalized and
+        whitened (where the model whitens), not summed. Needs a regional
+        model. R_i follows each image's exact shape (the R-MAC grid) and, for
+        several scales, adds up over them."""
+        if not self.model.regional:
+            raise ValueError("extract_regional requires ModelConfig(regional=True)")
+        return self._extract_structured(images, bbxs, "regions")
+
+    def extract_local(self, images: Sequence, bbxs=None) -> list:
+        """Per-image local features (cirtorch ``extract_local_vectors``): a
+        list of [P_i, C] arrays, every trunk position L2-normalized over the
+        channels; several scales concatenate their positions."""
+        return self._extract_structured(images, bbxs, "features")
+
+    def extract_resumable(self, images: Sequence, cache_dir: str,
+                          bbxs: Optional[Sequence] = None, shard_size: int = 1024) -> np.ndarray:
+        """``extract`` in shards of ``shard_size`` images, each kept on disk as
+        ``cache_dir/descs_{start:08d}.npy``: a run that was stopped resumes
+        from the shards already written. A shard is written to a ``.tmp``
+        file and renamed into place, so no shard is ever torn."""
+        os.makedirs(cache_dir, exist_ok=True)
+        n = len(images)
+        parts = []
+        for s in range(0, n, shard_size):
+            shard_path = os.path.join(cache_dir, f"descs_{s:08d}.npy")
+            if os.path.exists(shard_path):
+                parts.append(np.load(shard_path))
+                continue
+            sel = slice(s, min(s + shard_size, n))
+            d = self.extract(images[sel], bbxs=None if bbxs is None else bbxs[sel])
+            tmp = shard_path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, d)
+            os.replace(tmp, shard_path)
+            parts.append(d)
+        return np.concatenate(parts, axis=0)
 
 
 def extract_features(images: Sequence, cfg: ExtractConfig = ExtractConfig(),

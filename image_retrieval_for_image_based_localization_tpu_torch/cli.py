@@ -51,7 +51,7 @@ def _model_args(p: argparse.ArgumentParser):
     p.add_argument("--pooling", default="gem",
                    choices=["gem", "gemmp", "mac", "spoc", "rmac", "netvlad"])
     p.add_argument("--regional", action="store_true",
-                   help="cirtorch Rpool (not yet ported: ROADMAP A7)")
+                   help="cirtorch Rpool: the base pool per R-MAC region (forces --exact)")
     p.add_argument("--whiten-dim", type=int, default=None,
                    help="learned FC whitening output dim")
     p.add_argument("--netvlad-clusters", type=int, default=64,
@@ -73,7 +73,7 @@ def _model_args(p: argparse.ArgumentParser):
                    help="this package's checkpoint directory (its 'best') or a torch "
                         "state_dict .pth/.pt")
     p.add_argument("--network", default=None,
-                   help="pretrained zoo network (not yet ported: ROADMAP A7)")
+                   help="pretrained zoo network (not yet ported: needs the download, ROADMAP A9)")
 
 
 def _build_extract_cfg(args):
@@ -132,7 +132,8 @@ def _load_state_dict(args):
 
 def _extractor(args):
     if args.network is not None:
-        raise NotPorted("--network (the pretrained zoo) is not yet ported (ROADMAP A7)")
+        raise NotPorted("--network (the pretrained zoo) is not yet ported: it needs the "
+                        "download (ROADMAP A9)")
     from image_retrieval_for_image_based_localization_tpu_torch.api import Extractor
 
     return Extractor(_build_extract_cfg(args), state_dict=_load_state_dict(args),
@@ -277,7 +278,8 @@ def cmd_train(argv):
     p.add_argument("--data-root", default=os.path.join(tempfile.gettempdir(), "irtpu_data"))
     args = p.parse_args(argv)
     if args.network is not None:
-        raise NotPorted("--network (the pretrained zoo) is not yet ported (ROADMAP A7)")
+        raise NotPorted("--network (the pretrained zoo) is not yet ported: it needs the "
+                        "download (ROADMAP A9)")
 
     from image_retrieval_for_image_based_localization_tpu_torch.training.loop import (
         run_training,

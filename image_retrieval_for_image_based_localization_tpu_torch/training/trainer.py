@@ -93,6 +93,14 @@ def check_trainable(model: RetrievalNet, cfg: TrainConfig, mesh=None) -> None:
             "remat is not supported: torch.utils.checkpoint re-runs the forward, which "
             "would move the BatchNorm running statistics a second time, where flax's "
             "functional jax.checkpoint does not (ROADMAP C3, remat)")
+    if (not model.arch.startswith("resnet") and model.arch != "vgg16") or model.regional \
+            or model.pooling not in ("gem", "mac", "spoc", "netvlad"):
+        raise NotImplementedError(
+            f"training {model.arch} with pooling {model.pooling!r}"
+            f"{' (regional)' if model.regional else ''} is not supported: the trainer takes "
+            f"the resnet and vgg16 trunks with GeM, MAC, SPoC or NetVLAD; the other trunks "
+            f"need flax's train-mode BatchNorm (densenet) and parity tests "
+            f"(ROADMAP A11, training the other trunks and heads)")
     if model.use_kernel and model.pooling not in ("gem", "netvlad"):
         raise ValueError(
             "training with use_pallas=True is only supported for GeM and NetVLAD pooling "

@@ -2,11 +2,13 @@
 
 Copied from the JAX package's ``utils/config.py`` (same fields, defaults and
 graded configs), so a config written for one package means the same thing in
-the other. A field that selects TPU-only machinery (``s2d_stem``) is kept
-for compatibility and rejected by :func:`check_supported` when set;
+the other. Every arch, pooling and ``regional`` of the JAX package is taken.
+A field that selects TPU-only machinery (``s2d_stem``) is kept for
+compatibility and rejected by :func:`check_supported` when set;
 ``fuse_blocks`` is taken for f32 bottleneck resnets, ``dtype="bfloat16"``
-runs the trunk in bf16 (graded configs 4 and 5), and ``native_preproc``
-selects the native C++ decoder for path inputs as in the JAX package.
+runs the resnet and vgg16 trunks in bf16 (graded configs 4 and 5), and
+``native_preproc`` selects the native C++ decoder for path inputs as in the
+JAX package.
 What the training path refuses (bf16 training, ``remat``, data-parallel
 training over a mesh) is checked by ``training.trainer.check_trainable``;
 ``parallel/`` shards the search gallery only, and a mesh with a ``data``
@@ -124,15 +126,16 @@ GRADED_CONFIGS = {
     ),
 }
 
-# what this package runs so far; the rest of the JAX package's options come
-# with later parts of the port
-_SUPPORTED_POOLING = ("gem", "mac", "spoc", "netvlad")
 _SUPPORTED_DTYPES = ("float32", "bfloat16")
 _BOTTLENECK_ARCHS = ("resnet50", "resnet101", "resnet152")
 
 
 def check_supported(cfg: ExtractConfig) -> None:
-    """Raise on a config field this package does not implement yet."""
+    """Raise on a config field this package does not implement. The arch,
+    the pooling and what they admit (bf16 trunks, regional bases) are
+    checked where the model is built (``models.retrieval_net``);
+    ``regional`` without ``exact`` is taken: the Extractor switches to
+    exact shapes."""
     mc = cfg.model
     if mc.s2d_stem:
         raise ValueError("s2d_stem is a TPU layout rewrite; not supported")
@@ -145,11 +148,3 @@ def check_supported(cfg: ExtractConfig) -> None:
         raise ValueError(f"fuse_blocks with dtype {mc.dtype!r}: the fused bottleneck kernel "
                          f"(csrc/bottleneck.cu, kernel B8) has no bf16 variant yet; "
                          f"it runs float32 only")
-    if mc.regional:
-        raise ValueError("regional pooling is not supported")
-    if not (mc.arch.startswith("resnet") or mc.arch == "vgg16"):
-        raise ValueError(f"arch {mc.arch!r} is not supported; resnet or vgg16 only")
-    if mc.pooling not in _SUPPORTED_POOLING:
-        raise ValueError(f"pooling {mc.pooling!r} is not supported "
-                         f"(one of {_SUPPORTED_POOLING})")
-

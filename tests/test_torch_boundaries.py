@@ -89,11 +89,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
 def test_unported_options_raise():
     for mc in (port.ModelConfig(dtype="float16"), port.ModelConfig(s2d_stem=True),
-               port.ModelConfig(regional=True), port.ModelConfig(arch="alexnet"),
-               port.ModelConfig(arch="squeezenet1_1"), port.ModelConfig(arch="densenet121"),
-               port.ModelConfig(arch="vgg16", pooling="gemmp")):
+               port.ModelConfig(arch="densenet121", dtype="bfloat16")):
         with pytest.raises(ValueError):
             port.Extractor(port.ExtractConfig(model=mc), device="cpu")
+    # the trainer takes the resnet and vgg16 trunks with GeM/MAC/SPoC/NetVLAD only
+    for kw in (dict(arch="densenet121"), dict(arch="resnet18", pooling="gemmp"),
+               dict(arch="resnet18", regional=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            port.create_train_state(port.models.RetrievalNet(**kw), device="cpu")
     # the fused bottleneck trunk takes bottleneck resnets only
     for arch in ("resnet18", "vgg16"):
         with pytest.raises(ValueError, match="fuse_blocks"):

@@ -52,12 +52,13 @@ def _rand(shape, seed, dev, dtype=torch.float32):
     return torch.randn(shape, generator=g).abs().to(dev).to(dtype)
 
 
-@pytest.mark.parametrize("C", [300, 2048])
+@pytest.mark.parametrize("C", [256, 300, 1664, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gem_kernels_match_plain(dev, dtype, C):
     """One cluster of eight CTAs per image: (0, 0) rows, images with fewer
     valid positions than the cluster has CTAs, C = 300 (bf16: the scalar
-    path), within 1e-5 of plain and the same bits on a second call."""
+    path) and the trunks' widths 256 (alexnet), 1,664 (densenet169) and
+    2,048, within 1e-5 of plain and the same bits on a second call."""
     x = _rand((7, 5, 7, C), 0, dev, dtype)
     sizes = torch.tensor([[5, 7], [0, 0], [3, 2], [1, 7], [5, 1], [2, 6], [1, 1]],
                          dtype=torch.int32, device=dev)
@@ -69,6 +70,34 @@ def test_gem_kernels_match_plain(dev, dtype, C):
     got = gem_l2n_fused(x, p)
     torch.testing.assert_close(got, gem_l2n_plain(x, p), rtol=0, atol=1e-5)
     assert torch.equal(got, gem_l2n_fused(x, p))
+
+
+@pytest.mark.parametrize("arch", ["alexnet", "squeezenet1_1", "densenet121"])
+def test_other_trunks_reach_the_gem_kernels(dev, arch):
+    """The kernel head of the other trunks on a padded bucket (B1) and on
+    whole images (B2) against the plain head, with one launch each."""
+    from image_retrieval_for_image_based_localization_tpu_torch.models import (
+        RetrievalNet,
+        init_random_,
+    )
+
+    net = RetrievalNet(arch, "gem", use_kernel=True)
+    init_random_(net, torch.Generator().manual_seed(0))
+    net = net.to(dev).eval()
+    x = _rand((2, 160, 224, 3), 2, dev)
+    mask = torch.zeros((2, 160, 224), dtype=torch.bool, device=dev)
+    mask[0] = True
+    mask[1, :120, :200] = True
+    x = x * mask[..., None]
+    with torch.no_grad():
+        for m, fn in ((mask, gem_l2n_fused_rect), (None, gem_l2n_fused)):
+            before = fn.launches
+            got = net(x, m)
+            assert fn.launches == before + 1
+            net.use_kernel = False
+            want = net(x, m)
+            net.use_kernel = True
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 def test_gem_kernel_refuses_more_channels_than_a_cluster_holds(dev):
