@@ -30,8 +30,12 @@ Phases (any failure exits non-zero):
      - bottleneck_fused at resnet50's four stride-1 block shapes of a
        16-image 1024 px bucket, at layer1 of a 720 x 1024 bucket, and at a
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
-       with random biases;
-  4. eleven paths at full width, each with the launch counts set to 0 just
+       with random biases; in f32 (1e-5 of max|plain|) and in bf16 at the
+       same shapes (the bf16 kernel against the plain version at the JAX
+       kernel's rounding points, within one bf16 ulp at max|plain|, the
+       share of values not equal bit for bit logged, a second call bit for
+       bit);
+  4. twelve paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -68,6 +72,15 @@ Phases (any failure exits non-zero):
        B3 route that sharded ranks take, the bf16 descriptors against an
        f32 run of the same weights on 16 images, and the four bf16 kernels
        of the path against their plain versions at its own shapes;
+     - graded config 5 with fuse_blocks=True (path I, after path C): the
+       same corpus, queries and weights through extract_features ->
+       build_index(pca) -> Index.query(k=10) -> mAP, resnet101's 29
+       stride-1 blocks of every batch through the bf16 bottleneck kernel
+       (launches gated at 29 x the GeM head's); descriptors against path
+       C's unfused bf16 ones (1e-2, cosine 0.999), self top-1, mAP beside
+       path C's on the same 100-row index with any moved positive and its
+       score gap named, img/s cold and warm beside path C's, the idle share
+       and the device time by group;
      - graded config 4 (path E, r101-gem-100k-sharded: config 5's trunk,
        so path C's core and query descriptors): an NCCL process group of
        world size 1 and a mesh of 4 row shards on the card;
@@ -97,7 +110,10 @@ Phases (any failure exits non-zero):
        build_index(pca) -> Index.query(k=10) -> mAP, held against the plain
        head, img/s cold and warm, idle share; alexnet-gem and
        squeezenet1_1-gem on one padded bucket through the masked GeM kernel
-       against the plain head; vgg16-rmac on bucketed batches, rmac_bucketed
+       against the plain head; alexnet-gem, squeezenet1_1-gem and
+       densenet121-gem in bf16 on the same bucket through the masked GeM
+       kernel, against the plain head (1e-5) and against the f32 run of
+       the same weights (1e-2, cosine 0.999); vgg16-rmac on bucketed batches, rmac_bucketed
        per image against rmac on its own corner of the map (region counts
        equal); resnet101 + GeM regional with whiten_dim 2048:
        extract_regional and extract_local on the 20 queries; densenet121's
@@ -130,7 +146,10 @@ Phases (any failure exits non-zero):
      whose C % 4 != 0 takes the kernel's scalar path), and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
      the bottleneck at each block shape and summed over resnet50's 12
-     stride-1 blocks at the 1024 px bucket, beside three cuDNN convs;
+     stride-1 blocks at the 1024 px bucket, beside three cuDNN convs; its
+     bf16 form at the same shapes and summed over resnet101's 29 stride-1
+     blocks, beside its bound, its plain version and cuDNN's three bf16
+     convolutions;
 each config's extraction also runs once more under torch.profiler, which
 gives the card's busy and idle share of the wall time and the device time
 of the head kernels, the convolutions and cuDNN's layout transforms;
@@ -159,6 +178,8 @@ F32_FLOP_PER_S = 67e12
 # product costs three of these flop
 TF32_FLOP_PER_S = 495e12
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+# dense bf16 on the tensor cores (NVIDIA H100 SXM data sheet)
+BF16_FLOP_PER_S = 989e12
 BOTTLENECK_TOL = 1e-5  # max|err| / max|plain| per block: f32 sums in another order
 GEM_TOL = 1e-5
 TOPK_TOL = 1e-5
@@ -807,6 +828,7 @@ BOTTLENECK_SHAPES = (((16, 256, 256, 256), 64), ((16, 128, 128, 512), 128),
                      ((16, 64, 64, 1024), 256), ((16, 32, 32, 2048), 512),
                      ((16, 180, 256, 256), 64))
 BOTTLENECK_MIX = (2, 3, 5, 2, 0)
+R101_MIX = (2, 3, 22, 2, 0)  # resnet101's 29 stride-1 blocks over the same shapes
 # checked too: 128-pixel tiles that span small images, where a 3x3 tap that
 # leaked across an image border would show
 BOTTLENECK_SPANNING = ((37, 5, 7, 256), 64)
@@ -851,6 +873,75 @@ def check_bottleneck(dev):
         del args, got, want
     torch.cuda.empty_cache()
     return err, rel
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at a positive normal magnitude v: 2^(floor(log2 v) - 7)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+BF16_NOT_EQUAL_SHARE = 0.05  # of a bf16 block's values; sound runs read 0.04-0.95 %
+
+
+def _compare_bottleneck_bf16(tag, got, again, want):
+    """Gate one bf16 bottleneck result against its plain version: bf16, a
+    second call bit for bit, max|err| within one bf16 ulp of max|plain|, and
+    at most BF16_NOT_EQUAL_SHARE of the values not bit-equal. The kernel and
+    the plain version sum in f32 in different orders, so a few roundings
+    flip by one ulp; a flip at a value in max|plain|'s binade is one ulp
+    there, between 2^-8 and 2^-7 of max|plain|. One ulp alone cannot tell a
+    rounding toward zero from one to nearest even; the share can, since a
+    wrong rounding mode flips tens of percent. Returns (max|err|, max|err| /
+    max|plain|, share not bit-equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+        raise AssertionError(f"{tag}: not bf16, or a second call gave other bits")
+    n_neq = int((got != want).sum())
+    share = n_neq / got.numel()
+    g, w = got.float(), want.float()
+    e, top = (g - w).abs().max().item(), w.abs().max().item()
+    log(f"[check] {tag}: max|err| {e:.3e}, relative to max|plain| {e / top:.3e}, "
+        f"{e / bf16_ulp(top):.3g} of the gate: one bf16 ulp at max|plain| {top:.4g}, "
+        f"{bf16_ulp(top):.3e} ({bf16_ulp(top) / top:.3e} of it); {n_neq} of {got.numel()} "
+        f"values not equal bit for bit ({share:.3e}, gate {BF16_NOT_EQUAL_SHARE}); second "
+        f"call bit-equal")
+    if not (e <= bf16_ulp(top) and share <= BF16_NOT_EQUAL_SHARE):
+        raise AssertionError(f"{tag} disagrees with its plain version")
+    return e, e / top, share
+
+
+def check_bottleneck_bf16(dev):
+    """The bf16 form of the fused bottleneck against its plain version (f32
+    cuDNN convolutions of the bf16 values, rounded where the JAX kernel
+    rounds) at the same shapes as the f32 check, the weights packed once as
+    the fused trunk packs them; gated by _compare_bottleneck_bf16. Returns
+    the max error, the max error relative to max|plain| and the largest
+    share of values not equal bit for bit."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        bottleneck_fused,
+        bottleneck_plain,
+        pack_bf16,
+    )
+
+    err = rel = neq_share = 0.0
+    for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES + (BOTTLENECK_SPANNING,)):
+        args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
+        args[0] = args[0].to(torch.bfloat16)
+        pk = pack_bf16(args[1], args[3], args[5])
+        got = bottleneck_fused(*args, packed=pk)
+        again = bottleneck_fused(*args, packed=pk)
+        want = bottleneck_plain(*args)
+        e, r, share = _compare_bottleneck_bf16(f"bottleneck_fused bf16 {list(shape)} Cm={cm}",
+                                               got, again, want)
+        err, rel, neq_share = max(err, e), max(rel, r), max(neq_share, share)
+        del args, got, again, want
+    torch.cuda.empty_cache()
+    return err, rel, neq_share
 
 
 def make_corpus(n_scenes=20, views=5, seed=0):
@@ -1563,6 +1654,196 @@ def config5_phase(dev):
     torch.cuda.empty_cache()
     log(json.dumps({"config5": out}))
     return launches, out, (db, qd, gnd), q_u8
+
+
+# resnet101's stride-1 identity blocks: layers 1-4 hold 2, 3, 22 and 2
+R101_STRIDE1_BLOCKS = 29
+BF16_DESC_MAX_DIFF = 1e-2   # bf16 descriptors against another rounding of the same model
+BF16_DESC_MIN_COS = 0.999
+
+
+def _desc_gap(a, b):
+    """max|a - b| and the least row cosine of two descriptor sets."""
+    import numpy as np
+
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    return float(np.abs(a - b).max()), float(cos.min())
+
+
+def _moved_ranks(ranks_a, ranks_b, scores_b, gnd):
+    """Where two rankings [N, Nq] put a query's positives at other places:
+    for each such positive, its place in each and, in ranking b, the score
+    gap to the row that holds its place from ranking a."""
+    import numpy as np
+
+    moved = []
+    for q, g in enumerate(gnd):
+        pos_a = {int(r): int(np.flatnonzero(ranks_a[:, q] == r)[0]) for r in g["ok"]}
+        pos_b = {int(r): int(np.flatnonzero(ranks_b[:, q] == r)[0]) for r in g["ok"]}
+        for r in g["ok"]:
+            r = int(r)
+            if pos_a[r] != pos_b[r]:
+                other = int(ranks_b[pos_a[r], q])
+                moved.append({"query": q, "row": r, "place_a": pos_a[r], "place_b": pos_b[r],
+                              "holder_b": other,
+                              "score_gap_b": float(scores_b[q, r] - scores_b[q, other])})
+    return moved
+
+
+def config5_fused_phase(dev, c5_desc, c5_main):
+    """Path I: graded config 5 (resnet101 bf16, GeM kernel head, 1024 px)
+    with fuse_blocks=True on path C's corpus, queries and weights (seed 0):
+    extract_features -> build_index(pca) -> Index.query(k=10) -> mAP, in one
+    counting window. The 29 stride-1 blocks of every batch go through the
+    bf16 bottleneck kernel. Descriptors are held against path C's unfused
+    bf16 ones; mAP is set beside path C's on the same 100-row index."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        compute_map,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+
+    db_c, qd_c, gnd = c5_desc
+    images, _, q_u8 = make_corpus()
+    q_pixels = ((q_u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(
+        np.float32)
+    graded = GRADED_CONFIGS[5]
+    cfg = dataclasses.replace(graded.extract, batch_size=16, fuse_blocks=True)
+    mc = cfg.model
+    log(f"[config 5 fused trunk] {graded.name}: {mc.arch} {mc.pooling} {mc.dtype}, fused head "
+        f"{mc.use_pallas}, fuse_blocks {cfg.fuse_blocks}, {cfg.image_size} px, batch "
+        f"{cfg.batch_size}, index {graded.index}, {len(images)} db images, {len(q_u8)} queries")
+    ex = port.Extractor(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    db = ex.extract(images)                       # bucketed: masked head kernel
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    qd = ex(q_pixels)                             # whole images: unmasked head kernel
+    index = port.build_index(db, graded.index, device=dev)
+    _, idx = index.query(qd, k=10)                # fused top-k kernel
+    _, self_idx = index.query(db, k=10)
+    ranks = index.ranks(qd)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"[config 5 fused trunk] launches {launches}")
+
+    heads = launches["gem_l2n_fused_rect"] + launches["gem_l2n_fused"]
+    want = R101_STRIDE1_BLOCKS * heads
+    if heads <= 0 or launches["fused_topk_search"] <= 0:
+        raise AssertionError("path I did not launch the GeM head or the top-k kernel")
+    if launches["bottleneck_fused_bf16"] != want or launches["bottleneck_fused"] != 0:
+        raise AssertionError(f"bottleneck_fused_bf16 launched "
+                             f"{launches['bottleneck_fused_bf16']} times (the f32 form "
+                             f"{launches['bottleneck_fused']}), want {want} bf16 and no f32: "
+                             f"{R101_STRIDE1_BLOCKS} blocks x {heads} head launches")
+    if db.shape != db_c.shape or not np.isfinite(db).all() or not np.isfinite(qd).all():
+        raise AssertionError("path I descriptors are not finite or not path C's shape")
+    self_top1 = float(np.mean(self_idx[:, 0] == np.arange(len(db))))
+    if self_top1 != 1.0:
+        raise AssertionError(f"path I self-retrieval top-1 is {self_top1}, want 1.0")
+    d_db, cos_db = _desc_gap(db, db_c)
+    d_q, cos_q = _desc_gap(qd, qd_c)
+    log(f"[config 5 fused trunk] vs path C's unfused bf16 descriptors, same weights: db "
+        f"max|diff| {d_db:.3e} min cosine {cos_db:.6f}; queries {d_q:.3e} / {cos_q:.6f} "
+        f"(gates {BF16_DESC_MAX_DIFF}, {BF16_DESC_MIN_COS})")
+    if max(d_db, d_q) > BF16_DESC_MAX_DIFF or min(cos_db, cos_q) < BF16_DESC_MIN_COS:
+        raise AssertionError("path I descriptors stray from path C's")
+
+    gnd_map = compute_map(ranks, gnd)[0]
+    index_c = port.build_index(db_c, graded.index, device=dev)
+    ranks_c = index_c.ranks(qd_c)
+    map_c = compute_map(ranks_c, gnd)[0]
+    scores = (index.transform_queries(qd) @ index.device_gallery().float().T).cpu().numpy()
+    moved = _moved_ranks(ranks_c, ranks, scores, gnd)
+    log(f"[config 5 fused trunk] mAP {gnd_map:.4f} against path C's {map_c:.4f} on the same "
+        f"100-row PCA index; self top-1 {self_top1:.3f}; {len(moved)} positives at another "
+        f"place: {json.dumps(moved[:20])}")
+
+    t0 = time.perf_counter()
+    db_warm = ex.extract(images)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    prof = profile_window(lambda: ex.extract(images))
+    blocks = _check_path_blocks([lambda: ex.extract(images), lambda: ex(q_pixels)])
+    groups = prof["device_ms_by_group"]
+    busy = prof["busy_ms"]
+    split = {k: (v, v / busy) for k, v in sorted(groups.items())}
+    log(f"[config 5 fused trunk] extraction cold {len(images) / t_extract:.2f} img/s "
+        f"({t_extract:.2f} s), warm {len(images) / t_warm:.2f} img/s (max|diff| to cold "
+        f"{np.abs(db_warm - db).max():.3e}); path C in this run: cold "
+        f"{c5_main['extract_img_per_s']:.2f}, warm {c5_main['extract_warm_img_per_s']:.2f} "
+        f"img/s; idle share {prof['idle_share']:.4f} (path C "
+        f"{c5_main['profile']['idle_share']:.4f}), busy {busy:.1f} ms (path C "
+        f"{c5_main['profile']['busy_ms']:.1f}); device ms and share of busy by group: "
+        f"{json.dumps(split)}; path C's: {json.dumps(c5_main['profile']['device_ms_by_group'])}")
+    del ex, index, index_c
+    torch.cuda.empty_cache()
+    out = {"extract_img_per_s": len(images) / t_extract,
+           "extract_warm_img_per_s": len(images) / t_warm, "map": gnd_map,
+           "map_path_c": map_c, "moved_positives": len(moved), "self_top1": self_top1,
+           "vs_path_c_max_abs_diff": max(d_db, d_q), "vs_path_c_min_cos": min(cos_db, cos_q),
+           "block_shapes_checked": len(blocks),
+           "block_max_abs_err": max(e for e, _, _ in blocks.values()),
+           "block_max_rel_err": max(r for _, r, _ in blocks.values()),
+           "block_max_not_bit_equal_share": max(n for _, _, n in blocks.values()),
+           "profile": prof}
+    log(json.dumps({"config5_fused_trunk": out}))
+    return launches, out
+
+
+def _check_path_blocks(runs):
+    """Hold the bf16 bottleneck kernel against its plain version at every
+    block shape (B, H, W, Cin, Cm) that ``runs`` give it: each bucket, the
+    whole-image queries and a short last batch. The fused trunk's kernel
+    call is wrapped for the runs; the first call at each shape also runs
+    the kernel a second time and the plain version, on the trunk's own
+    inputs and packed weights, and is gated by _compare_bottleneck_bf16.
+    These launches compare and are not counted by any path. Returns
+    {shape: (max|err|, relative, share not bit-equal)}."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.models import fused_trunk
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        bottleneck_plain,
+    )
+
+    launch = fused_trunk.bottleneck_fused
+    seen = {}
+
+    def recording(x, w1, b1, w2, b2, w3, b3, packed=None):
+        got = launch(x, w1, b1, w2, b2, w3, b3, packed=packed)
+        key = (*x.shape, w1.shape[1])
+        if key not in seen:
+            if packed is None:
+                raise AssertionError("the bf16 fused trunk gave the kernel no packed weights")
+            again = launch(x, w1, b1, w2, b2, w3, b3, packed=packed)
+            want = bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+            seen[key] = _compare_bottleneck_bf16(
+                f"path I block {list(key[:4])} Cm={key[4]}", got, again, want)
+        return got
+
+    fused_trunk.bottleneck_fused = recording
+    try:
+        for run in runs:
+            run()
+    finally:
+        fused_trunk.bottleneck_fused = launch
+    torch.cuda.synchronize()
+    log(f"[config 5 fused trunk] bf16 bottleneck against its plain version at the "
+        f"{len(seen)} block shapes path I runs: {json.dumps([list(k) for k in seen])}")
+    return seen
 
 
 SHARDS = 4  # path E's row shards, all on the one card
@@ -2632,6 +2913,37 @@ def other_trunks_phase(dev):
         out[name] = {"rect_launches": n_rect, "d_err": e}
         del zex, zplain
 
+    # 2b. the three trunks in bf16 on the same bucket: the masked GeM kernel
+    # reads the bf16 map; kernel head against plain head, bf16 against the
+    # f32 run of the same weights
+    for name in ("alexnet-gem", "squeezenet1_1-gem", "densenet121-gem"):
+        mc16 = dataclasses.replace(zoo.MODEL_ZOO[name], use_pallas=True, dtype="bfloat16")
+        zcfg = port.ExtractConfig(model=mc16, image_size=1024, batch_size=16)
+        before = kernels.gem_l2n_fused_rect.launches
+        zex = port.Extractor(zcfg, seed=1, device=dev)
+        d = zex.extract(rect)
+        n_rect = kernels.gem_l2n_fused_rect.launches - before
+        sd = zex.model.state_dict()
+        zplain = port.Extractor(dataclasses.replace(zcfg, model=dataclasses.replace(
+            mc16, use_pallas=False)), state_dict=sd, device=dev)
+        e = float(np.abs(zplain.extract(rect) - d).max())
+        z32 = port.Extractor(dataclasses.replace(zcfg, model=dataclasses.replace(
+            mc16, dtype="float32")), state_dict=sd, device=dev)
+        d32 = z32.extract(rect)
+        d_32, cos_32 = _desc_gap(d, d32)
+        log(f"[{name} bf16] one bucket of {len(rect)} {rect[0].shape[0]} x {rect[0].shape[1]} "
+            f"images, bf16 trunk: gem_l2n_fused_rect launches {n_rect}, kernel vs plain head "
+            f"max|err| {e:.3e}; bf16 vs f32 run of the same weights max|diff| {d_32:.3e}, min "
+            f"cosine {cos_32:.6f} (gates {BF16_DESC_MAX_DIFF}, {BF16_DESC_MIN_COS})")
+        if n_rect != 1 or e > GEM_TOL or not np.isfinite(d).all():
+            raise AssertionError(f"{name} bf16: the bucket did not go through the masked "
+                                 f"kernel or disagrees with the plain head")
+        if d_32 > BF16_DESC_MAX_DIFF or cos_32 < BF16_DESC_MIN_COS:
+            raise AssertionError(f"{name} bf16 descriptors stray from the f32 run")
+        out[f"{name}_bf16"] = {"rect_launches": n_rect, "d_err": e, "vs_f32_max_abs_diff": d_32,
+                               "vs_f32_min_cos": cos_32}
+        del zex, zplain, z32
+
     # 3. vgg16-rmac on bucketed batches
     rex = port.Extractor(port.ExtractConfig(model=zoo.MODEL_ZOO["vgg16-rmac"], image_size=1024,
                                             batch_size=16), seed=2, device=dev)
@@ -3089,6 +3401,7 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         netvlad_fused,
         netvlad_fused_rect,
         netvlad_plain,
+        pack_bf16,
         scores_blockmax,
         scores_blockmax_plain,
     )
@@ -3103,20 +3416,23 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     rows = []
 
     def row(name, src, replaces, ms, plain_ms, byts, flops, library_ms, lookups=0,
-            tf32x3_flops=0, **extra):
+            tf32x3_flops=0, bf16_flops=0, **extra):
         # operations: f32 FMA work at the f32 rate, shared-memory lookups at
-        # the lookup rate, or 3xTF32 work as three TF32 tensor-core flop each,
-        # whichever takes longer
+        # the lookup rate, 3xTF32 work as three TF32 tensor-core flop each, or
+        # bf16 tensor-core work at the bf16 rate, whichever takes longer
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
         t_ops = max(flops / F32_FLOP_PER_S, lookups / SMEM_LOOKUPS_PER_S,
-                    3 * tf32x3_flops / TF32_FLOP_PER_S) * 1e3
+                    3 * tf32x3_flops / TF32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S) * 1e3
         r = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+             "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": library_ms}
         if tf32x3_flops:
             r["bound_note"] = "3xTF32 on the tensor cores at 495 TFLOP/s, or the bytes"
+        if bf16_flops:
+            r["bound_note"] = "bf16 on the tensor cores at 989 TFLOP/s, or the bytes"
         r.update(extra)
         log(json.dumps({"kernel_timing": r}))
         rows.append(r)
@@ -3285,12 +3601,64 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
             mix[key] += n_blocks * v
         if i == 0:
             row("bottleneck_fused", CSRC + "bottleneck.cu", PALLAS + "bottleneck_block.py:204",
-                ms, plain_ms, byts, 0, None, tf32x3_flops=flops)
+                ms, plain_ms, byts, 0, None, tf32x3_flops=flops, form="float32")
         del args
     log(f"[timing] bottleneck_fused over resnet50's 12 stride-1 blocks at the 1024 px bucket "
         f"(layers 1-4: {', '.join(map(str, BOTTLENECK_MIX[:4]))} blocks): kernel "
         f"{mix['ms']:.3f} ms, plain (three cuDNN convs) {mix['plain_ms']:.3f} ms, bound "
         f"{mix['bound_ms']:.3f} ms (f32-FMA bound {mix['f32_bound_ms']:.3f} ms)")
+
+    # the bf16 form at the same shapes, its weights packed once as the fused
+    # trunk packs them: the same flop at the dense bf16 rate; bytes: x read
+    # and out written in bf16, the bf16 weights, the f32 biases. Plain: three
+    # f32 cuDNN convolutions of the bf16 values, rounded where the kernel
+    # rounds. Library: cuDNN's three bf16 convolutions with bias and ReLU and
+    # the skip added (they round before the bias). Summed over resnet101's 29
+    # stride-1 blocks at the 1024 px bucket. The row is layer1's.
+    mix16 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for i, ((shape, cm), n_blocks) in enumerate(zip(BOTTLENECK_SHAPES, R101_MIX)):
+        args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
+        args[0] = args[0].to(torch.bfloat16)
+        x, w1, b1, w2, b2, w3, b3 = args
+        pk = pack_bf16(w1, w2, w3)
+        B, H, W, cin = shape
+        flops = 2 * B * H * W * (2 * cin * cm + 9 * cm * cm)
+        byts = (2 * B * H * W * cin * BF16_BYTES + (2 * cin * cm + 9 * cm * cm) * BF16_BYTES
+                + (2 * cm + cin) * 4)
+        xc = x.permute(0, 3, 1, 2)
+        lw = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+              for w in (w1.t()[:, :, None, None], w2.permute(3, 2, 0, 1),
+                        w3.t()[:, :, None, None])]
+        lb = [b.to(torch.bfloat16) for b in (b1, b2, b3)]
+
+        def library():
+            y = torch.relu(torch.nn.functional.conv2d(xc, lw[0], lb[0]))
+            y = torch.relu(torch.nn.functional.conv2d(y, lw[1], lb[1], padding=1))
+            return torch.relu(torch.nn.functional.conv2d(y, lw[2], lb[2]) + xc)
+
+        ms = time_ms(lambda: bottleneck_fused(*args, packed=pk))
+        plain_ms = time_ms(lambda: bottleneck_plain(*args))
+        lib_ms = time_ms(library)
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, byts / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        log(f"[timing] bottleneck_fused bf16 {list(shape)} Cm={cm}: {ms:.3f} ms, plain (three "
+            f"f32 cuDNN convs of the bf16 values) {plain_ms:.3f} ms, library (three bf16 cuDNN "
+            f"convs) {lib_ms:.3f} ms, bound {bound:.3f} ms (operations {t_ops:.3f}, bytes "
+            f"{t_bytes:.3f}), {flops / ms / 1e9:.2f} TFLOP/s")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                       ("library_ms", lib_ms)):
+            mix16[key] += n_blocks * v
+        if i == 0:
+            row("bottleneck_fused_bf16", CSRC + "bottleneck_bf16.cu",
+                PALLAS + "bottleneck_block.py:204", ms, plain_ms, byts, 0, lib_ms,
+                bf16_flops=flops, form="bfloat16", shape=f"{list(shape)} Cm={cm} bf16")
+        del args, x, pk, xc, lw, lb
+    torch.cuda.empty_cache()
+    log(f"[timing] bottleneck_fused bf16 over resnet101's 29 stride-1 blocks at the 1024 px "
+        f"bucket (layers 1-4: {', '.join(map(str, R101_MIX[:4]))} blocks): kernel "
+        f"{mix16['ms']:.3f} ms, plain {mix16['plain_ms']:.3f} ms, library (three bf16 cuDNN "
+        f"convs) {mix16['library_ms']:.3f} ms, bound {mix16['bound_ms']:.3f} ms")
+    rows[-1]["r101_29_blocks"] = mix16
     return rows
 
 
@@ -3315,6 +3683,7 @@ def main() -> int:
     shape_errs = check_search_shapes(dev)
     adc_in = check_adc(dev)
     bn_err, bn_rel = check_bottleneck(dev)
+    bn16_err, bn16_rel, bn16_neq = check_bottleneck_bf16(dev)
     launches2, main2, db2 = main_path_phase(
         dev, 2, ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"))
     launches3, main3, _ = main_path_phase(
@@ -3323,6 +3692,7 @@ def main() -> int:
     launches_ann, ann_main, ann_keep = ann_phase(dev)
     launches_b, main_b = fused_trunk_phase(dev, db2, main2)
     launches_c5, main_c5, c5_desc, q_u8 = config5_phase(dev)
+    launches_i, main_i = config5_fused_phase(dev, c5_desc, main_c5)
     launches_e, main_e, e_keep = config4_phase(dev, *c5_desc, ann_keep)
     launches_f, main_f = rerank_phase(dev, e_keep)
     launches_g, main_g = serving_phase(dev, e_keep, ann_keep, c5_desc[1], q_u8)
@@ -3331,7 +3701,8 @@ def main() -> int:
     launches_d, main_d = training_phase(dev, smi)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
-               "config5": launches_c5, "config4": launches_e, "rerank": launches_f,
+               "config5": launches_c5, "config5_fused_trunk": launches_i,
+               "config4": launches_e, "rerank": launches_f,
                "serving": launches_g, "other_trunks": launches_h, "training": launches_d}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
@@ -3345,7 +3716,8 @@ def main() -> int:
                                     main_f["scores_blockmax_err"],
                                     main_g["scores_blockmax_err"],
                                     shape_errs["scores_blockmax"]),
-                adc_scores=max(adc_in["err"], main_g["adc_err"]), bottleneck_fused=bn_err)
+                adc_scores=max(adc_in["err"], main_g["adc_err"]), bottleneck_fused=bn_err,
+                bottleneck_fused_bf16=max(bn16_err, main_i["block_max_abs_err"]))
     errs["gem_l2n_fused_rect"] = max(errs["gem_l2n_fused_rect"], main_g["gem_err"],
                                      main_h["densenet121"]["d_err"],
                                      main_h["alexnet-gem"]["d_err"],
@@ -3364,10 +3736,13 @@ def main() -> int:
                                   "ann": ann_main, "config2_fused_trunk": main_b,
                                   "config5": {k: v for k, v in main_c5.items()
                                               if k != "bf16_kernels"},
+                                  "config5_fused_trunk": main_i,
                                   "config4": main_e, "rerank": main_f,
                                   "serving": main_g, "other_trunks": main_h,
                                   "training": main_d,
                                   "bottleneck_rel_err": bn_rel,
+                                  "bottleneck_bf16_rel_err": bn16_rel,
+                                  "bottleneck_bf16_not_bit_equal_share": bn16_neq,
                                   "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -101,9 +101,9 @@ class Extractor:
 
     Args:
       cfg: ExtractConfig (any arch of ``models.retrieval_net.OUTPUT_DIM``
-        with GeM/GeMmp/MAC/SPoC/R-MAC/NetVLAD or the regional pool, float32,
-        or bfloat16 for the resnet and vgg16 trunks; ``use_pallas`` selects
-        the hand-written CUDA head). ``regional=True`` switches to exact
+        with GeM/GeMmp/MAC/SPoC/R-MAC/NetVLAD or the regional pool, float32
+        or bfloat16; ``use_pallas`` selects the hand-written CUDA head).
+        ``regional=True`` switches to exact
         shapes (``exact=True``), as in the JAX package: the region grid is a
         function of each image's own shape.
       state_dict: weights for ``RetrievalNet`` (this package's layout; see
@@ -111,9 +111,10 @@ class Extractor:
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
       device: "cuda" (default) or "cpu".
 
-    ``cfg.fuse_blocks=True`` (bottleneck resnets) folds the trunk's BN once
-    here and runs it through ``models.fused_trunk``, the fused bottleneck
-    kernel included; the head then runs on the precomputed features.
+    ``cfg.fuse_blocks=True`` (bottleneck resnets, f32 or bf16) folds the
+    trunk's BN once here and runs it through ``models.fused_trunk``, the
+    fused bottleneck kernel (the bf16 form in bf16) included; the head then
+    runs on the precomputed features.
 
     With ``dtype="bfloat16"`` the model computes in bf16 (parameters stay
     f32): uint8 input is normalized straight into bf16, a multi-scale
@@ -174,7 +175,7 @@ class Extractor:
                 mask = resize_mask_nearest(mask, tuple(pixels.shape[1:3]))
         if self._folded is None:
             return self.model(pixels, mask)
-        feats = trunk_apply_fused(self._folded, pixels)
+        feats = trunk_apply_fused(self._folded, pixels.to(self.model.compute_dtype))
         fmask = None if mask is None else feature_mask(mask, pixels.shape[1:3], feats.shape[1:3])
         return self.model.head(feats, fmask)
 

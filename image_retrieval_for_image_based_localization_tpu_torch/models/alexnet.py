@@ -7,12 +7,19 @@ with the final max-pool stripped, as the cirtorch lineage does
 so the map is not the input over a power of two (a 1,024-row input gives a
 63-row map, not 64: ``H // h`` is 16). The convolutions sit at torchvision's indices
 0, 3, 6, 8 and 10, so a torchvision or cirtorch ``features.N.weight/bias``
-``state_dict`` loads as it is. Float32 only.
+``state_dict`` loads as it is.
+
+A bf16 input runs in bf16 with flax's rounding points, vgg16's rule
+(``models.vgg.biased_conv``): each convolution rounds to bf16, the bias
+cast to bf16 is added in bf16; ReLU and max-pool stay in bf16.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+
+from image_retrieval_for_image_based_localization_tpu_torch.models.vgg import sequential_forward
 
 # (out_ch, kernel, stride, pad) per conv; "M" is a 3x3/2 max-pool
 ALEXNET_CFG = ((64, 11, 4, 2), "M", (192, 5, 1, 2), "M", (384, 3, 1, 1), (256, 3, 1, 1),
@@ -35,3 +42,6 @@ class AlexNetTrunk(nn.Sequential):
                 layers += [nn.Conv2d(in_ch, ch, k, s, p), nn.ReLU(inplace=True)]
                 in_ch = ch
         super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sequential_forward(self, x)

@@ -9,9 +9,14 @@ channels) -> 2x2 average pool. Modules sit at torchvision's attribute names
 so a torchvision or cirtorch trunk ``state_dict`` loads as it is (cirtorch's
 numeric keys through ``models.flax_port.cirtorch_to_torchvision_keys``).
 
-Float32 inference only: bf16 compute and train-mode BatchNorm stay with the
-ResNet and VGG trunks (``utils.config.check_supported``,
-``training.trainer.check_trainable``).
+A bf16 input runs in bf16 with flax's rounding points: each convolution
+rounds to bf16 (``resnet.conv_lowp``), each BatchNorm computes in f32 and
+rounds once (``resnet.bn_lowp``), ReLU, max-pool and the concatenations run
+in bf16, and a transition's 2x2 average pool sums its four values in bf16
+in row-major order, rounding after each add, then divides by 4 in bf16, as
+XLA reduces flax's ``avg_pool`` (:func:`avg_pool2x2_lowp`). Inference only:
+train-mode BatchNorm stays with the ResNet trunks
+(``training.trainer.check_trainable``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
+    bn_lowp,
+    conv_lowp,
+)
 
 # (growth_rate, block_config, num_init_features)
 DENSENET_SPECS = {
@@ -40,6 +50,24 @@ def densenet_out_channels(arch: str) -> int:
     return ch
 
 
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    return bn(x) if x.dtype == torch.float32 else bn_lowp(bn, x)
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return conv(x) if x.dtype == torch.float32 else conv_lowp(conv, x)
+
+
+def avg_pool2x2_lowp(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``avg_pool(x, (2, 2), strides=(2, 2))`` on a bf16 map as XLA
+    reduces it: ``((x00 + x01) + x10) + x11`` in bf16 (each add rounded),
+    then ``/ 4`` in bf16; an odd last row or column is dropped."""
+    h, w = x.shape[2] // 2 * 2, x.shape[3] // 2 * 2
+    x = x[:, :, :h, :w]
+    s = x[:, :, 0::2, 0::2] + x[:, :, 0::2, 1::2]
+    return ((s + x[:, :, 1::2, 0::2]) + x[:, :, 1::2, 1::2]) / 4
+
+
 class DenseLayer(nn.Module):
     def __init__(self, in_ch: int, growth: int, bn_size: int = BN_SIZE):
         super().__init__()
@@ -49,8 +77,8 @@ class DenseLayer(nn.Module):
         self.conv2 = nn.Conv2d(bn_size * growth, growth, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.relu(self.norm1(x)))
-        h = self.conv2(F.relu(self.norm2(h)))
+        h = _conv(self.conv1, F.relu(_bn(self.norm1, x)))
+        h = _conv(self.conv2, F.relu(_bn(self.norm2, h)))
         return torch.cat([x, h], dim=1)
 
 
@@ -61,12 +89,13 @@ class Transition(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+        x = _conv(self.conv, F.relu(_bn(self.norm, x)))
+        return F.avg_pool2d(x, 2, 2) if x.dtype == torch.float32 else avg_pool2x2_lowp(x)
 
 
 class DenseNetTrunk(nn.Module):
     """DenseNet feature trunk: [B, 3, H, W] -> [B, C, H/32, W/32] (NCHW logical),
-    float32."""
+    in the input's dtype (float32 or bfloat16)."""
 
     def __init__(self, arch: str = "densenet121"):
         super().__init__()
@@ -89,10 +118,10 @@ class DenseNetTrunk(nn.Module):
         self.n_blocks = len(blocks)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.max_pool2d(F.relu(self.norm0(self.conv0(x))), 3, 2, 1)
+        x = F.max_pool2d(F.relu(_bn(self.norm0, _conv(self.conv0, x))), 3, 2, 1)
         for bi in range(1, self.n_blocks + 1):
             for layer in getattr(self, f"denseblock{bi}").children():
                 x = layer(x)
             if bi < self.n_blocks:
                 x = getattr(self, f"transition{bi}")(x)
-        return F.relu(self.norm5(x))  # cirtorch appends the final ReLU
+        return F.relu(_bn(self.norm5, x))  # cirtorch appends the final ReLU

@@ -4,10 +4,22 @@ counterpart of the JAX package's ``models/fused_trunk.py``.
 :func:`fold_trunk` folds every conv + BN pair of the port's own
 ``ResNetTrunk`` once, in f32 (eps 1e-5). :func:`trunk_apply_fused` runs the
 stem, the max-pool and each stage's strided/projecting first block as
-BN-folded cuDNN convolutions, and every other (stride-1, identity) block
-through the hand-written fused bottleneck kernel (``ops.kernels.bottleneck``),
-which takes every such block of resnet50/101/152 at every size. Inference
-only; basic-block archs (resnet18/34) are refused.
+BN-folded convolutions, and every other (stride-1, identity) block through
+the hand-written fused bottleneck kernel (``ops.kernels.bottleneck``), which
+takes every such block of resnet50/101/152 at every size. Inference only;
+basic-block archs (resnet18/34) are refused.
+
+A bf16 input runs the trunk in bf16 at the JAX fused trunk's rounding
+points: every convolution outside the kernel is the f32 convolution of
+bf16 values (weights rounded to bf16) with the f32 bias added before one
+rounding (the JAX ``_conv``: ``preferred_element_type=float32``, then the
+bias), on the card and on the CPU alike (cuDNN's own bf16 convolution would
+round before the bias; on the card these take TF32 tensor cores, exact for
+bf16 operands); the stem and the first blocks' convolutions then
+ReLU and round, and a first block adds its rounded ``cb3`` to its rounded
+identity in bf16 before its ReLU. The kernel's blocks add the skip in f32
+before their one rounding. The bf16 copies of the weights are made once
+and kept in the folded dict.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
     bottleneck_fused,
     fold_bn,
+    pack_bf16,
 )
 
 BN_EPS = 1e-5
@@ -74,29 +87,75 @@ def fold_trunk(trunk: ResNetTrunk) -> Dict[str, Any]:
     return folded
 
 
+@torch.no_grad()
+def _bf16_weights(folded: Dict[str, Any]) -> Dict[str, Any]:
+    """The folded weights of the bf16 trunk, made at first use and kept in
+    ``folded["_bf16"]``: the convolutions' weights rounded to bf16 and held
+    in f32 (biases f32), the kernel blocks' packed for the bf16 kernel
+    (``pack_bf16``) where they lie on the card (else None)."""
+    if "_bf16" not in folded:
+        def rounded(wb):
+            return wb[0].to(torch.bfloat16).float(), wb[1]
+
+        lp: Dict[str, Any] = {"stem": rounded(folded["stem"])}
+        for key, entry in folded.items():
+            if not key.startswith("layer"):
+                continue
+            if "w1" in entry:
+                lp[key] = (pack_bf16(entry["w1"], entry["w2"], entry["w3"])
+                           if entry["w1"].is_cuda else None)
+            else:
+                lp[key] = {k: rounded(v) for k, v in entry.items()}
+        folded["_bf16"] = lp
+    return folded["_bf16"]
+
+
+def _conv(x: torch.Tensor, wb, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """The JAX fused trunk's ``_conv``: the f32 convolution of x's values and
+    the weights (bf16-rounded for a bf16 x), plus the f32 bias; f32.
+
+    On a bf16 x cuDNN may take TF32 tensor cores: bf16 values are exact in
+    TF32, so the products are the f32 products and only the order of the f32
+    sums differs. An f32 x keeps the package's rule, TF32 off."""
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = x.dtype == torch.bfloat16
+    try:
+        return F.conv2d(x.float(), wb[0], wb[1], stride=stride, padding=padding)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
 def _first_block(x: torch.Tensor, entry: Dict, stride: int) -> torch.Tensor:
-    """A stage's strided/projecting first bottleneck as folded cuDNN convs."""
-    y = F.relu(F.conv2d(x, *entry["cb1"]))
-    y = F.relu(F.conv2d(y, *entry["cb2"], stride=stride, padding=1))
-    y = F.conv2d(y, *entry["cb3"])
-    return F.relu(y + F.conv2d(x, *entry["down"], stride=stride))
+    """A stage's strided/projecting first bottleneck as folded cuDNN convs,
+    rounded to x's dtype where the JAX fused trunk rounds."""
+    dt = x.dtype
+    y = F.relu(_conv(x, entry["cb1"])).to(dt)
+    y = F.relu(_conv(y, entry["cb2"], stride, 1)).to(dt)
+    y = _conv(y, entry["cb3"]).to(dt)
+    return F.relu(y + _conv(x, entry["down"], stride).to(dt))  # in bf16, a bf16 add
 
 
 def trunk_apply_fused(folded: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Run the folded trunk on NHWC pixels [B, H, W, 3] -> NHWC features
-    [B, h, w, C] (contiguous). Every stride-1 identity block goes through
-    ``bottleneck_fused``."""
+    [B, h, w, C] (contiguous), in x's dtype (float32 or bfloat16). Every
+    stride-1 identity block goes through ``bottleneck_fused``."""
     _, stages, _ = RESNET_SPECS[folded["_arch"]]
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the fused trunk runs float32 or bfloat16, not {dt}")
+    w = folded if dt == torch.float32 else _bf16_weights(folded)
     y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    y = F.relu(F.conv2d(y, *folded["stem"], stride=2, padding=3))
+    y = F.relu(_conv(y, w["stem"], 2, 3)).to(dt)
     y = F.max_pool2d(y, 3, 2, 1)  # pads with -inf
     for si, depth in enumerate(stages):
         for bi in range(depth):
-            entry = folded[f"layer{si + 1}_{bi}"]
+            key = f"layer{si + 1}_{bi}"
             if bi == 0:
-                y = _first_block(y, entry, 2 if si > 0 else 1)
+                y = _first_block(y, w[key], 2 if si > 0 else 1)
             else:
+                entry = folded[key]
                 nhwc = y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
                 y = bottleneck_fused(nhwc, entry["w1"], entry["b1"], entry["w2"], entry["b2"],
-                                     entry["w3"], entry["b3"]).permute(0, 3, 1, 2)
+                                     entry["w3"], entry["b3"],
+                                     packed=None if w is folded else w[key]).permute(0, 3, 1, 2)
     return y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)

@@ -14,10 +14,11 @@ torchvision-named loads as it is (see ``models.flax_port``).
 JAX package's ``use_pallas``. Inputs keep the JAX package's layout: NHWC
 pixels ``[B, H, W, 3]`` and an optional validity mask ``[B, H, W]``.
 
-``dtype="bfloat16"`` runs the trunk in bf16 (pixels cast at its input, as
-flax casts at the first convolution) with f32 parameters. The head routes
-by dtype as the JAX head does: the fused GeM kernel reads the bf16 map as
-it is and accumulates in f32; every other head pools ``feats.float()``.
+``dtype="bfloat16"`` runs any trunk in bf16 (pixels cast at its input, as
+flax casts at the first convolution) with f32 parameters, at flax's
+rounding points. The head routes by dtype as the JAX head does: the fused
+GeM kernel reads the bf16 map as it is and accumulates in f32; every other
+head pools ``feats.float()``.
 
 In train mode (``.train()``, f32) the trunk's BatchNorm takes the batch's
 statistics as flax does (``models.resnet.bn_train``) and the kernel head
@@ -69,7 +70,6 @@ OUTPUT_DIM = {**{arch: 512 * spec[2] for arch, spec in RESNET_SPECS.items()}, "v
 POOLINGS = ("gem", "gemmp", "mac", "spoc", "rmac", "netvlad")
 REGIONAL_BASES = ("gem", "mac", "spoc")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-LOWP_ARCHS = (*RESNET_SPECS, "vgg16")  # trunks with a bf16 path
 
 
 def build_trunk(arch: str) -> nn.Module:
@@ -158,9 +158,6 @@ class RetrievalNet(nn.Module):
             raise ValueError(f"unknown pooling {pooling!r}")
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r} (one of {tuple(DTYPES)})")
-        if dtype != "float32" and arch not in LOWP_ARCHS:
-            raise ValueError(f"dtype {dtype!r} runs the resnet and vgg16 trunks only, not "
-                             f"{arch!r} (ROADMAP C3, bf16 for the other trunks)")
         if regional and pooling not in REGIONAL_BASES:
             raise ValueError(f"regional pooling wraps gem/mac/spoc, not {pooling!r}")
         self.arch = arch

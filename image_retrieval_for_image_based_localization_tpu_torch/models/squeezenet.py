@@ -8,7 +8,12 @@ are 3x3/2 in ceil mode, as torchvision's (the JAX package pads one row or
 column of -inf where ``dim - 3`` is odd, which is the same). The fire modules
 sit at torchvision's indices 3, 4, 6, 7, 9-12 with its names
 (``squeeze``, ``expand1x1``, ``expand3x3``), so a torchvision or cirtorch
-``state_dict`` loads as it is. Float32 only.
+``state_dict`` loads as it is.
+
+A bf16 input runs in bf16 with flax's rounding points: each biased
+convolution follows vgg16's rule (``models.vgg.biased_conv``: rounded,
+then the bf16 bias added in bf16), ReLU, max-pool and the fire modules'
+concatenation (exact) stay in bf16.
 """
 
 from __future__ import annotations
@@ -16,6 +21,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from image_retrieval_for_image_based_localization_tpu_torch.models.vgg import (
+    biased_conv,
+    sequential_forward,
+)
 
 # squeezenet1_1 fire parameters: (squeeze, expand1x1, expand3x3)
 FIRES = ((16, 64, 64), (16, 64, 64), (32, 128, 128), (32, 128, 128),
@@ -31,8 +41,9 @@ class Fire(nn.Module):
         self.expand3x3 = nn.Conv2d(squeeze, expand3, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = F.relu(self.squeeze(x))
-        return torch.cat([F.relu(self.expand1x1(s)), F.relu(self.expand3x3(s))], dim=1)
+        s = F.relu(biased_conv(self.squeeze, x))
+        return torch.cat([F.relu(biased_conv(self.expand1x1, s)),
+                          F.relu(biased_conv(self.expand3x3, s))], dim=1)
 
 
 class SqueezeNetTrunk(nn.Sequential):
@@ -50,6 +61,9 @@ class SqueezeNetTrunk(nn.Sequential):
             if i in POOL_AFTER:
                 layers.append(nn.MaxPool2d(3, 2, ceil_mode=True))
         super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sequential_forward(self, x)
 
 
 def fire_indices():

@@ -39,14 +39,23 @@ class VGGTrunk(nn.Sequential):
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32:
-            return super().forward(x)
-        for layer in self:
-            if isinstance(layer, nn.Conv2d):
-                x = conv_lowp(layer, x) + layer.bias.to(x.dtype).reshape(1, -1, 1, 1)
-            else:
-                x = layer(x)
-        return x
+        return sequential_forward(self, x)
+
+
+def biased_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` in x's dtype; on a bf16 map as flax's ``nn.Conv(dtype=bf16)``
+    runs it: the convolution rounded to bf16 (``resnet.conv_lowp``), then the
+    bias, cast to bf16, added in bf16."""
+    if x.dtype == torch.float32:
+        return conv(x)
+    return conv_lowp(conv, x) + conv.bias.to(x.dtype).reshape(1, -1, 1, 1)
+
+
+def sequential_forward(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """A sequence of biased convolutions, ReLUs and max-pools in x's dtype."""
+    for layer in layers:
+        x = biased_conv(layer, x) if isinstance(layer, nn.Conv2d) else layer(x)
+    return x
 
 
 def conv_indices():

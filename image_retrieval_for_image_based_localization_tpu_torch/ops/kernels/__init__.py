@@ -11,8 +11,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.adc impo
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (  # noqa: F401
     bottleneck_fused,
+    bottleneck_fused_bf16,
     bottleneck_plain,
     fold_bn,
+    pack_bf16,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_topk_plain,
@@ -36,7 +38,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_to
 )
 
 KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search, netvlad_fused_rect,
-           netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused)
+           netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused, bottleneck_fused_bf16)
 
 
 def reset_launch_counts() -> None:

@@ -64,6 +64,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "bottleneck_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P),
     },
+    "bottleneck_bf16": {
+        # x, w1t, b1, w2t, b2, w3t, b3, y1, y2, out, B, H, W, Cin, Cm, stream
+        "bottleneck_forward_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,27 @@
-"""Fused stride-1 identity ResNet bottleneck (inference): CUDA kernel, its
+"""Fused stride-1 identity ResNet bottleneck (inference): CUDA kernels, their
 plain version, and the BatchNorm fold.
 
 Replaces the JAX package's ``ops/pallas/bottleneck_block.py::bottleneck_fused``
-(with ``fold_bn`` and ``bottleneck_oracle``). The kernel is
-``csrc/bottleneck.cu`` on the mainloop ``csrc/tf32x3_gemm.cuh``: the three
-BN-folded convolutions of a block run as implicit GEMMs over the whole
-batch on the tensor cores, each f32 product taken as three TF32 products
-(:func:`split_tf32` is the operand split written out) with f32 sums, so the
-result stays within 1e-5 of max|out| of three f32 convolutions. The
-intermediates ``y1`` and ``y2`` and the weights' split planes go through
-device memory, in scratch the wrapper allocates (:func:`_plan`). Every
-stride-1 identity block of resnet50/101/152 at every size goes through it.
+(with ``fold_bn`` and ``bottleneck_oracle``), in its two forms:
+
+- float32: ``csrc/bottleneck.cu`` on the mainloop ``csrc/tf32x3_gemm.cuh``.
+  The three BN-folded convolutions of a block run as implicit GEMMs over the
+  whole batch on the tensor cores, each f32 product taken as three TF32
+  products (:func:`split_tf32` is the operand split written out) with f32
+  sums, so the result stays within 1e-5 of max|out| of three f32
+  convolutions.
+- bfloat16 (:func:`bottleneck_fused_bf16`, which :func:`bottleneck_fused`
+  calls on a bf16 x): ``csrc/bottleneck_bf16.cu`` on ``csrc/bf16_gemm.cuh``, the same
+  three GEMMs with bf16 operands and f32 sums, rounded where the JAX kernel
+  rounds (``y1``, ``y2`` and the output, round to nearest even; the skip is
+  added in f32 before the last rounding). Its weights come cast to bf16 and
+  transposed to the kernel's [N, K] by :func:`pack_bf16`, once per folded
+  trunk.
+
+The intermediates ``y1`` and ``y2`` (in x's dtype) and the f32 form's
+split planes go through device memory, in scratch the wrapper allocates
+(:func:`_plan`). Every stride-1 identity block of resnet50/101/152 at every
+size goes through them.
 
 Layouts are the JAX package's: x [B, H, W, Cin] NHWC, w1 [Cin, Cm], w2 [3,
 3, Cm, Cm] (HWIO), w3 [Cm, Cin], biases f32. A wrapper given CPU tensors
@@ -19,7 +30,7 @@ runs the plain version; given CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,20 +72,44 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(t - hi)
 
 
-def _plan(B: int, H: int, W: int, cin: int, cm: int) -> dict:
-    """The kernel's scratch and grid, the same formula as ``csrc/bottleneck.cu``.
+def _plan(B: int, H: int, W: int, cin: int, cm: int,
+          dtype: torch.dtype = torch.float32) -> dict:
+    """The kernel's scratch and grid, the same formula as ``csrc/bottleneck.cu``
+    and ``csrc/bottleneck_bf16.cu``.
 
     Three phases, each a GEMM over ``M = B H W`` pixels: ``(N, K, blocks)``
     for conv1 (N = Cm, K = Cin), the 3x3 conv (N = Cm, K = 9 Cm) and conv1
     with the skip (N = Cin, K = Cm), a block owning 128 pixels by 64
-    channels. Scratch: ``split_weights`` floats (each weight's hi and lo
-    planes) and ``y1``, ``y2`` of shape ``scratch`` each.
+    channels in both forms. Scratch: ``y1``, ``y2`` of shape ``scratch``
+    each, in ``dtype``; the f32 form also ``split_weights`` floats (each
+    weight's hi and lo planes), the bf16 form none (its weights come packed).
     """
     M = B * H * W
     phases = tuple((n, k, -(-M // _BM) * -(-n // _BN))
                    for n, k in ((cm, cin), (cm, 9 * cm), (cin, cm)))
-    return {"phases": phases, "split_weights": 2 * (2 * cin * cm + 9 * cm * cm),
-            "scratch": (B, H, W, cm)}
+    split = 2 * (2 * cin * cm + 9 * cm * cm) if dtype == torch.float32 else 0
+    return {"phases": phases, "split_weights": split, "scratch": (B, H, W, cm),
+            "scratch_dtype": dtype}
+
+
+class PackedBF16(NamedTuple):
+    """A block's weights as the bf16 kernel reads them: bf16, [N, K]
+    row-major (K contiguous), which is wgmma's K-major B."""
+
+    w1t: torch.Tensor  # [Cm, Cin]
+    w2t: torch.Tensor  # [Cm, 9 Cm], K tap-major as w2's HWIO layout
+    w3t: torch.Tensor  # [Cin, Cm]
+
+
+def pack_bf16(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor) -> PackedBF16:
+    """Cast a block's weights to bf16 (round to nearest even, as the JAX
+    kernel's ``astype``) and transpose them to [N, K]. Make it once per
+    folded trunk (``models.fused_trunk``), not once per call."""
+    cm = w1.shape[1]
+    bf = torch.bfloat16
+    return PackedBF16(w1.to(bf).t().contiguous(),
+                      w2.to(bf).reshape(9 * cm, cm).t().contiguous(),
+                      w3.to(bf).t().contiguous())
 
 
 def _check(x, w1, b1, w2, b2, w3, b3) -> None:
@@ -93,58 +128,133 @@ def _check(x, w1, b1, w2, b2, w3, b3) -> None:
 def bottleneck_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                      b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: three f32 convolutions (cuDNN on the card, TF32
-    off by the package's device rule) in channels_last memory."""
+    off by the package's device rule) in channels_last memory.
+
+    On a bf16 x it takes the JAX ``bottleneck_oracle``'s rounding points:
+    each convolution is the f32 convolution of bf16 values (x, and the
+    weights cast to bf16), so the products are exact and only the order of
+    the f32 sums differs; ``y1 = bf16(relu(conv + b1))``, ``y2 =
+    bf16(relu(conv3x3 + b2))``, ``out = bf16(relu(conv + b3 + f32(x)))``,
+    each rounding to nearest even. Returns x's dtype."""
     _check(x, w1, b1, w2, b2, w3, b3)
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the bottleneck takes float32 or bfloat16, not {dt}")
+
+    def conv(y, w, b, **kw):  # the f32 sums, then the f32 bias
+        return F.conv2d(y, w.to(dt).float(), b.float(), **kw)
+
+    def rnd(y):  # one rounding to x's dtype (none in f32)
+        return y.to(dt).float()
+
     xc = x.float().permute(0, 3, 1, 2)                      # NHWC view as NCHW
-    y = F.relu(F.conv2d(xc, w1.t()[:, :, None, None].float(), b1.float()))
-    y = F.relu(F.conv2d(y, w2.permute(3, 2, 0, 1).float(), b2.float(), padding=1))
-    y = F.conv2d(y, w3.t()[:, :, None, None].float(), b3.float())
-    out = F.relu(y + xc)
-    return out.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    y = rnd(F.relu(conv(xc, w1.t()[:, :, None, None], b1)))
+    y = rnd(F.relu(conv(y, w2.permute(3, 2, 0, 1), b2, padding=1)))
+    out = F.relu(conv(y, w3.t()[:, :, None, None], b3) + xc)
+    return out.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).to(dt)
 
 
-def bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                     b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
-    """``relu(c1x1(relu(c3x3(relu(c1x1(x) + b1)) + b2)) + b3 + x)``, BN folded.
-
-    x: [B, H, W, Cin] f32; returns [B, H, W, Cin] f32 (a new tensor,
-    contiguous NHWC). On the card Cin and Cm must be multiples of 32.
-    """
-    if x.device.type == "cpu":
-        return bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+def _check_launch(x: torch.Tensor, params) -> Tuple[int, int, int, int, int]:
+    """What both kernels refuse before a launch; (B, H, W, Cin, Cm)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, w1, b1, w2, b2, w3, b3)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2, w3, b3)):
+    _check(x, *params)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         raise RuntimeError("the bottleneck kernel is inference-only (no backward)")
-    params = (w1, b1, w2, b2, w3, b3)
-    if x.dtype != torch.float32 or any(t.dtype != torch.float32 for t in params):
-        raise TypeError("the bottleneck kernel takes float32 only")
     if any(t.device != x.device for t in params):
         raise ValueError("x and the weights must be on one device")
     if not (x.is_contiguous() and all(t.is_contiguous() for t in params)):
         raise ValueError("x (NHWC) and the weights must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernels copy 16 bytes "
+                         "at a time)")
     B, H, W, cin = x.shape
-    cm = w1.shape[1]
+    cm = params[0].shape[1]
     if cin % 32 or cm % 32:
         raise ValueError(f"Cin and Cm must be multiples of 32, got {cin} and {cm}")
+    return B, H, W, cin, cm
+
+
+def bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                     packed: Optional[PackedBF16] = None) -> torch.Tensor:
+    """``relu(c1x1(relu(c3x3(relu(c1x1(x) + b1)) + b2)) + b3 + x)``, BN folded.
+
+    x: [B, H, W, Cin] float32 or bfloat16; returns x's dtype (a new tensor,
+    contiguous NHWC). A bfloat16 x goes to :func:`bottleneck_fused_bf16`
+    (with ``packed``); on the card a float32 x goes to the 3xTF32 kernel,
+    its weights and biases f32. Cin and Cm must be multiples of 32.
+    ``launches`` counts the 3xTF32 kernel's launches.
+    """
+    if x.dtype == torch.bfloat16:
+        return bottleneck_fused_bf16(x, w1, b1, w2, b2, w3, b3, packed)
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+    params = (w1, b1, w2, b2, w3, b3)
+    B, H, W, cin, cm = _check_launch(x, params)
+    if x.dtype != torch.float32 or any(t.dtype != torch.float32 for t in params):
+        raise TypeError(f"the bottleneck kernels take float32 or bfloat16 x (float32 "
+                        f"weights with float32 x), not {x.dtype}")
     out = torch.empty_like(x)
     if B == 0 or H == 0 or W == 0:
         return out
     plan = _plan(B, H, W, cin, cm)
-    wt = torch.empty(plan["split_weights"], dtype=torch.float32, device=x.device)
     y1 = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
     y2 = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
+    wt = torch.empty(plan["split_weights"], dtype=torch.float32, device=x.device)
     lib = _build.load("bottleneck")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bottleneck_forward(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                     b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                                     wt.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-                                     out.data_ptr(), B, H, W, cin, cm, stream)
+                                     b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), wt.data_ptr(),
+                                     y1.data_ptr(), y2.data_ptr(), out.data_ptr(), B, H, W,
+                                     cin, cm, stream)
     _build.check(err, "bottleneck_forward")
     bottleneck_fused.launches += 1
     return out
 
 
+def bottleneck_fused_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                          w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                          b3: torch.Tensor, packed: Optional[PackedBF16] = None) -> torch.Tensor:
+    """The bf16 form of :func:`bottleneck_fused`: x bfloat16, weights f32 or
+    bf16 (cast to bf16 as the JAX kernel casts them; ``packed``, if given,
+    is :func:`pack_bf16` of these weights, made once by the caller), biases
+    f32. On the card it launches ``csrc/bottleneck_bf16.cu``; ``launches``
+    counts its launches.
+    """
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 bottleneck kernel takes a bfloat16 x, not {x.dtype}")
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+    params = (w1, b1, w2, b2, w3, b3)
+    B, H, W, cin, cm = _check_launch(x, params)
+    if any(t.dtype not in (torch.float32, torch.bfloat16) for t in (w1, w2, w3)) or \
+            any(t.dtype != torch.float32 for t in (b1, b2, b3)):
+        raise TypeError("the bf16 bottleneck kernel takes f32 or bf16 weights and f32 biases")
+    out = torch.empty_like(x)
+    if B == 0 or H == 0 or W == 0:
+        return out
+    pk = pack_bf16(w1, w2, w3) if packed is None else packed
+    want = {"w1t": (cm, cin), "w2t": (cm, 9 * cm), "w3t": (cin, cm)}
+    for name, t in zip(want, pk):
+        if (tuple(t.shape) != want[name] or t.dtype != torch.bfloat16
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"packed.{name} must be contiguous bf16 {want[name]} on {x.device}")
+    plan = _plan(B, H, W, cin, cm, torch.bfloat16)
+    y1 = torch.empty(plan["scratch"], dtype=torch.bfloat16, device=x.device)
+    y2 = torch.empty(plan["scratch"], dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("bottleneck_bf16")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.bottleneck_forward_bf16(
+            x.data_ptr(), pk.w1t.data_ptr(), b1.data_ptr(), pk.w2t.data_ptr(), b2.data_ptr(),
+            pk.w3t.data_ptr(), b3.data_ptr(), y1.data_ptr(), y2.data_ptr(), out.data_ptr(),
+            B, H, W, cin, cm, stream)
+    _build.check(err, "bottleneck_forward_bf16")
+    bottleneck_fused_bf16.launches += 1
+    return out
+
+
 bottleneck_fused.launches = 0
+bottleneck_fused_bf16.launches = 0

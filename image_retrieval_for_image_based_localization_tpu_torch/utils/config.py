@@ -5,8 +5,8 @@ graded configs), so a config written for one package means the same thing in
 the other. Every arch, pooling and ``regional`` of the JAX package is taken.
 A field that selects TPU-only machinery (``s2d_stem``) is kept for
 compatibility and rejected by :func:`check_supported` when set;
-``fuse_blocks`` is taken for f32 bottleneck resnets, ``dtype="bfloat16"``
-runs the resnet and vgg16 trunks in bf16 (graded configs 4 and 5), and
+``fuse_blocks`` is taken for bottleneck resnets in f32 and bf16,
+``dtype="bfloat16"`` runs every trunk in bf16 (graded configs 4 and 5), and
 ``native_preproc`` selects the native C++ decoder for path inputs as in the
 JAX package.
 What the training path refuses (bf16 training, ``remat``, data-parallel
@@ -144,7 +144,3 @@ def check_supported(cfg: ExtractConfig) -> None:
                          f"{_BOTTLENECK_ARCHS}, not {mc.arch!r}")
     if mc.dtype not in _SUPPORTED_DTYPES:
         raise ValueError(f"dtype {mc.dtype!r} is not supported (one of {_SUPPORTED_DTYPES})")
-    if cfg.fuse_blocks and mc.dtype != "float32":
-        raise ValueError(f"fuse_blocks with dtype {mc.dtype!r}: the fused bottleneck kernel "
-                         f"(csrc/bottleneck.cu, kernel B8) has no bf16 variant yet; "
-                         f"it runs float32 only")

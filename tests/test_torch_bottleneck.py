@@ -7,7 +7,11 @@ kernel's scratch and grid plan; ``fold_bn`` against the JAX fold, the
 port's ``trunk_apply_fused`` against the JAX one (resnet50, randomized BN
 statistics carried across by ``models/flax_port.py``) and against the
 port's own unfused trunk, and ``Extractor(fuse_blocks=True)`` against the
-unfused extractor (CPU)."""
+unfused extractor (CPU). In bf16: the plain version against the JAX kernel
+in interpret mode (2^-8 of max|out|), the bf16 kernel's weight packing and
+plan, the bf16 fused trunk against the JAX one, and the bf16
+``Extractor(fuse_blocks=True)`` against the JAX bf16 fused extractor and
+the port's unfused bf16 extractor."""
 
 import dataclasses
 
@@ -18,12 +22,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from irtpu.api import Extractor as JExtractor
 from irtpu.models.fused_trunk import fold_trunk_variables
 from irtpu.models.fused_trunk import trunk_apply_fused as j_trunk_apply_fused
+from irtpu.models.torch_port import port_retrieval_net
 from irtpu.models.resnet import ResNetTrunk as JTrunk
 from irtpu.ops.pallas.bottleneck_block import bottleneck_fused as j_bottleneck_fused
 from irtpu.ops.pallas.bottleneck_block import bottleneck_oracle as j_bottleneck_oracle
 from irtpu.ops.pallas.bottleneck_block import fold_bn as j_fold_bn
+from irtpu.utils import config as jcfg
 
 import image_retrieval_for_image_based_localization_tpu_torch as port
 from image_retrieval_for_image_based_localization_tpu_torch.models import ResNetTrunk
@@ -31,6 +38,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port imp
     trunk_state_dict,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.fused_trunk import (
+    _bf16_weights,
     fold_trunk,
     trunk_apply_fused,
 )
@@ -38,6 +46,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     bottleneck_fused,
     bottleneck_plain,
     fold_bn,
+    pack_bf16,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
     _plan,
@@ -314,3 +323,153 @@ def test_plan_matches_the_kernel_source():
     smem = const["STAGES"] * (a_bytes + 2 * const["BN"] * const["BK"] * 4) + 1024
     # 227 KB a block at most; 228 KB an SM, 1 KB of it reserved for each block
     assert 2 * (smem + 1024) <= 228 * 1024
+
+
+# bf16: the JAX kernel's rounding points. Bounds: one block within 2^-8 of
+# max|out| of the JAX kernel; bf16 feature maps within test_torch_bf16.py's
+# map bound (2e-2 of max|want|, vgg16's trunk) and cosine 0.999; unit-norm
+# descriptors within its descriptor bounds (1e-2, cosine 0.999). The two
+# packages sum in f32 in different orders, so a bf16 rounding can flip and
+# carry through the later blocks.
+BF16_MAP_TOL = 2e-2
+BF16_MAX_DIFF = 1e-2
+BF16_MIN_COS = 0.999
+
+
+def _cos(a, b):
+    a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+    return (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+
+
+def _bf16(a):
+    """numpy f32 -> (bf16 JAX array, bf16 torch tensor) holding the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 128, 32), (2, 32, 16, 128, 32),
+                                   (1, 24, 40, 128, 32)])
+def test_bottleneck_plain_bf16_matches_jax_kernel(shape):
+    """The plain version on a bf16 x (what the bf16 kernel is held to on the
+    card) against the JAX kernel in interpret mode: measured equal at the
+    first two shapes, 5 of 122,880 values apart at the third (3.96e-4 of
+    max|out|)."""
+    args = _block_args(*shape, np.random.RandomState(20))
+    jx, tx = _bf16(args[0])
+    want = j_bottleneck_fused(jx, *(jnp.asarray(a) for a in args[1:]), interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = bottleneck_fused(tx, *(torch.from_numpy(a) for a in args[1:]))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    got = got.float().numpy()
+    assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
+
+
+def test_bottleneck_plain_bf16_rounds_where_jax_rounds():
+    """bf16 weights give the same bits as the f32 weights they round from
+    (the plain version casts as the JAX kernel does), and the output is
+    the JAX oracle's exactly at a shape where both sum alike."""
+    args = _block_args(1, 16, 16, 128, 32, np.random.RandomState(23))
+    jx, tx = _bf16(args[0])
+    w = [torch.from_numpy(a) for a in args[1:]]
+    got = bottleneck_plain(tx, *w)
+    lowp = [t.to(torch.bfloat16) if i in (0, 2, 4) else t for i, t in enumerate(w)]
+    assert torch.equal(bottleneck_plain(tx, *lowp), got)
+    want = np.asarray(j_bottleneck_oracle(jx, *(jnp.asarray(a) for a in args[1:]))
+                      .astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_pack_bf16_is_the_kernels_nk_layout():
+    rng = np.random.RandomState(24)
+    cin, cm = 64, 32
+    w1, w2, w3 = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  for s in ((cin, cm), (3, 3, cm, cm), (cm, cin)))
+    pk = pack_bf16(w1, w2, w3)
+    assert [tuple(t.shape) for t in pk] == [(cm, cin), (cm, 9 * cm), (cin, cm)]
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in pk)
+    torch.testing.assert_close(pk.w1t, w1.t().to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(pk.w3t, w3.t().to(torch.bfloat16), rtol=0, atol=0)
+    for tap in (0, 4, 8):  # depth k = tap Cm + c of output n is w2[tap // 3, tap % 3, c, n]
+        torch.testing.assert_close(pk.w2t[:, tap * cm:(tap + 1) * cm],
+                                   w2[tap // 3, tap % 3].t().to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_plan_bf16_shares_the_grid_and_needs_no_split():
+    f32 = _plan(3, 11, 9, 256, 64)
+    bf = _plan(3, 11, 9, 256, 64, torch.bfloat16)
+    assert bf["phases"] == f32["phases"] and bf["scratch"] == f32["scratch"]
+    assert bf["split_weights"] == 0 and bf["scratch_dtype"] == torch.bfloat16
+
+
+def test_bottleneck_refuses_other_dtypes():
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.float16)
+    w = [torch.zeros(s) for s in ((64, 32), (32,), (3, 3, 32, 32), (32,), (32, 64), (64,))]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bottleneck_fused(x, *w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trunk_apply_fused({"_arch": "resnet50"}, torch.zeros((1, 8, 8, 3), dtype=torch.float16))
+
+
+def test_bf16_fused_trunk_matches_jax_fused_trunk(r50_pair):
+    """Measured: max|diff| 0.0469 on features up to 4.5 (1.04e-2 of it),
+    cosine 0.99998; the stem equal and the first block 1 ulp apart at 22 of
+    393,216 values, the rest carried from block to block."""
+    x, v, t = r50_pair
+    jx, tx = _bf16(x)
+    want = j_trunk_apply_fused(fold_trunk_variables(v, "resnet50"), jx, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    folded = fold_trunk(t)
+    with torch.no_grad():
+        got = trunk_apply_fused(folded, tx)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert _bf16_weights(folded) is folded["_bf16"]
+    got = got.float().numpy()
+    assert got.shape == want.shape == (1, 2, 3, 2048)
+    assert np.abs(got - want).max() <= BF16_MAP_TOL * np.abs(want).max()
+    assert _cos(got, want).min() >= BF16_MIN_COS
+
+
+@pytest.fixture(scope="module")
+def bf16_fused_run():
+    """resnet50 + GeM (kernel head) in bf16 with fuse_blocks: the port's
+    extractor, the JAX one on the same weights (through its ``torch_port``)
+    and the port's unfused bf16 extractor, on one masked bucket."""
+    cfg = port.ExtractConfig(model=port.ModelConfig(arch="resnet50", dtype="bfloat16",
+                                                    use_pallas=True), fuse_blocks=True)
+    fused = port.Extractor(cfg, seed=3, device="cpu")
+    sd = fused.model.state_dict()
+    jex = JExtractor(jcfg.ExtractConfig(model=jcfg.ModelConfig(
+        arch="resnet50", dtype="bfloat16", use_pallas=True), fuse_blocks=True),
+        variables=jax.tree.map(jnp.asarray, port_retrieval_net(sd, "resnet50")))
+    unfused = port.Extractor(dataclasses.replace(cfg, fuse_blocks=None), state_dict=sd,
+                             device="cpu")
+    assert fused._folded is not None and unfused._folded is None
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 64, 96, 3).astype(np.float32)
+    mask = np.zeros((2, 64, 96), bool)
+    mask[0] = True
+    mask[1, :40, :64] = True
+    x = x * mask[..., None]
+    return fused(x, mask), np.asarray(jex(x, mask)), unfused(x, mask)
+
+
+def _hold_descriptors(a, b):
+    assert a.shape == b.shape == (2, 2048) and np.isfinite(a).all()
+    assert np.abs(a - b).max() <= BF16_MAX_DIFF
+    assert _cos(a, b).min() >= BF16_MIN_COS
+    np.testing.assert_allclose(np.linalg.norm(a, axis=1), 1.0, atol=1e-5)
+
+
+def test_bf16_extractor_fuse_blocks_matches_jax(bf16_fused_run):
+    """Measured: max|diff| 5.0e-4, cosine 0.99999."""
+    got, want, _ = bf16_fused_run
+    _hold_descriptors(got, want)
+
+
+def test_bf16_extractor_fuse_blocks_matches_unfused(bf16_fused_run):
+    """Folding BN moves bf16's rounding points: measured max|diff| 9.5e-4,
+    cosine 0.99997 (the JAX package's own fused and unfused bf16
+    extractors differ by about as much)."""
+    got, _, unfused = bf16_fused_run
+    _hold_descriptors(got, unfused)

@@ -88,10 +88,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
 
 def test_unported_options_raise():
-    for mc in (port.ModelConfig(dtype="float16"), port.ModelConfig(s2d_stem=True),
-               port.ModelConfig(arch="densenet121", dtype="bfloat16")):
+    for mc in (port.ModelConfig(dtype="float16"), port.ModelConfig(s2d_stem=True)):
         with pytest.raises(ValueError):
             port.Extractor(port.ExtractConfig(model=mc), device="cpu")
+    # every trunk runs in bf16, densenet121 included
+    assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(
+        arch="densenet121", dtype="bfloat16")), device="cpu").model.compute_dtype == torch.bfloat16
     # the trainer takes the resnet and vgg16 trunks with GeM/MAC/SPoC/NetVLAD only
     for kw in (dict(arch="densenet121"), dict(arch="resnet18", pooling="gemmp"),
                dict(arch="resnet18", regional=True)):
@@ -102,10 +104,10 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match="fuse_blocks"):
             port.Extractor(port.ExtractConfig(model=port.ModelConfig(arch=arch),
                                               fuse_blocks=True), device="cpu")
-    # and f32 only: the fused bottleneck kernel has no bf16 variant yet
-    with pytest.raises(ValueError, match="fuse_blocks.*bf16 variant"):
-        port.Extractor(port.ExtractConfig(model=port.ModelConfig(dtype="bfloat16"),
-                                          fuse_blocks=True), device="cpu")
+    # in f32 and in bf16 (the bf16 form of the fused bottleneck kernel)
+    ex = port.Extractor(port.ExtractConfig(model=port.ModelConfig(dtype="bfloat16"),
+                                           fuse_blocks=True), device="cpu")
+    assert ex._folded and ex.model.compute_dtype == torch.bfloat16
     assert port.Extractor(port.ExtractConfig(fuse_blocks=True), device="cpu")._folded
     # bf16 compute (graded configs 4 and 5) is ported
     assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(

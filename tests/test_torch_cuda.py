@@ -15,6 +15,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     adc_scores_plain,
     blockmax_topk_search,
     bottleneck_fused,
+    bottleneck_fused_bf16,
     bottleneck_plain,
     fused_topk_plain,
     fused_topk_search,
@@ -24,6 +25,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     netvlad_fused,
     netvlad_fused_rect,
     netvlad_plain,
+    pack_bf16,
     scores_blockmax,
     scores_blockmax_plain,
 )
@@ -435,6 +437,60 @@ def test_bottleneck_refuses_grad_and_odd_channels(dev):
                                                (20, 64), (64,))]
     with pytest.raises(ValueError, match="multiples of 32"):
         bottleneck_fused(x.detach(), *w)
+
+
+BF16_NOT_EQUAL_SHARE = 0.05  # chip_smoke.py's gate; sound runs read at most 0.95 %
+
+
+def _bottleneck_bf16_args(dev, shape, seed=8):
+    B, H, W, cin, cm = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn((B, H, W, cin), generator=g)).to(torch.bfloat16)
+    w1 = torch.randn((cin, cm), generator=g) * (2 / cin) ** 0.5
+    w2 = torch.randn((3, 3, cm, cm), generator=g) * (2 / (9 * cm)) ** 0.5
+    w3 = torch.randn((cm, cin), generator=g) * (2 / cm) ** 0.5
+    b1, b2, b3 = (0.1 * torch.randn(c, generator=g) for c in (cm, cm, cin))
+    return [t.to(dev).contiguous() for t in (x, w1, b1, w2, b2, w3, b3)]
+
+
+# the bf16 form against the plain version at its rounding points (the JAX
+# kernel's), within 2^-8 of max|plain|, and at most BF16_NOT_EQUAL_SHARE of
+# the values not bit-equal (a rounding other than to nearest even flips tens
+# of percent); the second shape's 128-pixel tiles span 35-pixel images, the
+# third's column tiles do not divide N
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 32), (3, 5, 7, 256, 64),
+                                   (2, 6, 9, 160, 96)])
+def test_bottleneck_bf16_matches_plain(dev, shape):
+    args = _bottleneck_bf16_args(dev, shape)
+    got = bottleneck_fused(*args)
+    again = bottleneck_fused(*args, packed=pack_bf16(args[1], args[3], args[5]))
+    want = bottleneck_plain(*args)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, again)  # packed once or per call, the same bits
+    assert (got != want).float().mean().item() <= BF16_NOT_EQUAL_SHARE
+    got, want = got.float(), want.float()
+    assert (got - want).abs().max().item() <= 2.0 ** -8 * want.abs().max().item()
+
+
+def test_bottleneck_bf16_launches_its_kernel_and_never_the_plain_version(dev, monkeypatch):
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        bottleneck as mod,
+    )
+
+    def refuse(*a, **k):
+        raise AssertionError("a bf16 CUDA call reached the plain version")
+
+    args = _bottleneck_bf16_args(dev, (1, 4, 4, 64, 32))
+    monkeypatch.setattr(mod, "bottleneck_plain", refuse)
+    before, before_bf16 = bottleneck_fused.launches, bottleneck_fused_bf16.launches
+    out = bottleneck_fused(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert (bottleneck_fused.launches - before, bottleneck_fused_bf16.launches - before_bf16) \
+        == (0, 1)
+    bad = pack_bf16(args[1], args[3], args[5])._replace(w3t=args[5].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="packed.w3t"):
+        bottleneck_fused(*args, packed=bad)
 
 
 # Ragged and unaligned shapes of the two exact-search kernels, which share
