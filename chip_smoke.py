@@ -32,9 +32,10 @@ Phases (any failure exits non-zero):
        batch of 37 small images (5 x 7) whose 128-pixel tiles span images,
        with random biases; in f32 (1e-5 of max|plain|) and in bf16 at the
        same shapes (the bf16 kernel against the plain version at the JAX
-       kernel's rounding points, within one bf16 ulp at max|plain|, the
-       share of values not equal bit for bit logged, a second call bit for
-       bit);
+       kernel's rounding points, within one bf16 ulp at max|plain|, at most
+       5 % of the values not equal bit for bit, a second call bit for bit;
+       the launch plan the built library reports held against the
+       wrapper's);
   4. twelve paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
@@ -148,8 +149,11 @@ Phases (any failure exits non-zero):
      the bottleneck at each block shape and summed over resnet50's 12
      stride-1 blocks at the 1024 px bucket, beside three cuDNN convs; its
      bf16 form at the same shapes and summed over resnet101's 29 stride-1
-     blocks, beside its bound, its plain version and cuDNN's three bf16
-     convolutions;
+     blocks, beside its bound, its plain version, cuDNN's three bf16
+     convolutions and PR 14's times (quoted), with the launch plan each shape took
+     (stage depth, tile, stages, shared memory, tiles and blocks a phase),
+     the registers and spills nvcc gave those instantiations and phase 3's
+     share of values not bit-equal there;
 each config's extraction also runs once more under torch.profiler, which
 gives the card's busy and idle share of the wall time and the device time
 of the head kernels, the convolutions and cuDNN's layout transforms;
@@ -829,6 +833,11 @@ BOTTLENECK_SHAPES = (((16, 256, 256, 256), 64), ((16, 128, 128, 512), 128),
                      ((16, 180, 256, 256), 64))
 BOTTLENECK_MIX = (2, 3, 5, 2, 0)
 R101_MIX = (2, 3, 22, 2, 0)  # resnet101's 29 stride-1 blocks over the same shapes
+# the bf16 kernel's times before its redesign (PR 14's first kernel, this
+# script on an NVIDIA H100 80GB HBM3 at 700 W): layers 1-4, and the 29
+# blocks; quoted in phase 5's log beside this run's, never in the kernels line
+PR14_BF16_MS = (1.597, 1.157, 0.932, 0.836)
+PR14_BF16_29_BLOCKS_MS = 28.84
 # checked too: 128-pixel tiles that span small images, where a 3x3 tap that
 # leaked across an image border would show
 BOTTLENECK_SPANNING = ((37, 5, 7, 256), 64)
@@ -914,13 +923,70 @@ def _compare_bottleneck_bf16(tag, got, again, want):
     return e, e / top, share
 
 
+PHASE_NAMES = ("conv1", "conv3x3", "conv1_skip")
+
+
+def bottleneck_bf16_build_info():
+    """Registers and spills of each instantiation of the bf16 bottleneck
+    kernel, from nvcc's -Xptxas -v log beside the built library: {(phase,
+    BN, BK): {"registers", "spill_stores", "spill_loads"}}, and the log's
+    lines that warn (setmaxnreg ignored, wgmma serialised, ...)."""
+    import re
+
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+
+    with open(_build.library_path("bottleneck_bf16")[: -len(".so")] + ".log") as f:
+        log_text = f.read()
+    info, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"entry function '(\w*bottleneck_bf16_phase\w*)'", line)
+        if m:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            cur = (PHASE_NAMES[int(t.group(1))], int(t.group(2)), int(t.group(3)))
+            info[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            info[cur]["spill_stores"], info[cur]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[cur]["registers"] = int(m.group(1))
+            cur = None
+    warnings = [ln.strip() for ln in log_text.splitlines()
+                if re.search(r"warning|serializ|ignored", ln, re.I)]
+    return info, warnings
+
+
+def bf16_plan(shape, cm):
+    """The bf16 kernel's launch plan at a block shape on this card's SM
+    count, as the wrapper's _plan gives it (the C source's formula; the CPU
+    tests hold _plan against the source's constants)."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
+        _plan,
+    )
+
+    return _plan(*shape, cm, torch.bfloat16,
+                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def plan_summary(plan) -> str:
+    """'BK=64; conv1 128x128 5 stages 230,512 B, 1,024 tiles on 132 blocks; ...'"""
+    return f"BK={plan['bk']}; " + "; ".join(
+        f"{name} {p['bm']}x{p['bn']} {p['stages']} stages {p['smem']:,} B, {p['tiles']:,} tiles "
+        f"on {p['blocks']} blocks" for name, p in zip(PHASE_NAMES, plan["phases"]))
+
+
 def check_bottleneck_bf16(dev):
     """The bf16 form of the fused bottleneck against its plain version (f32
     cuDNN convolutions of the bf16 values, rounded where the JAX kernel
     rounds) at the same shapes as the f32 check, the weights packed once as
     the fused trunk packs them; gated by _compare_bottleneck_bf16. Returns
-    the max error, the max error relative to max|plain| and the largest
-    share of values not equal bit for bit."""
+    the max error, the max error relative to max|plain|, the largest share
+    of values not equal bit for bit and the share at each shape. Each
+    shape's launch plan is logged."""
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         bottleneck_fused,
@@ -929,19 +995,23 @@ def check_bottleneck_bf16(dev):
     )
 
     err = rel = neq_share = 0.0
+    shares = {}
     for i, (shape, cm) in enumerate(BOTTLENECK_SHAPES + (BOTTLENECK_SPANNING,)):
+        plan = bf16_plan(shape, cm)
         args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
         args[0] = args[0].to(torch.bfloat16)
         pk = pack_bf16(args[1], args[3], args[5])
         got = bottleneck_fused(*args, packed=pk)
         again = bottleneck_fused(*args, packed=pk)
         want = bottleneck_plain(*args)
-        e, r, share = _compare_bottleneck_bf16(f"bottleneck_fused bf16 {list(shape)} Cm={cm}",
-                                               got, again, want)
+        e, r, share = _compare_bottleneck_bf16(
+            f"bottleneck_fused bf16 {list(shape)} Cm={cm} ({plan_summary(plan)})", got, again,
+            want)
         err, rel, neq_share = max(err, e), max(rel, r), max(neq_share, share)
+        shares[(shape, cm)] = share
         del args, got, again, want
     torch.cuda.empty_cache()
-    return err, rel, neq_share
+    return err, rel, neq_share, shares
 
 
 def make_corpus(n_scenes=20, views=5, seed=0):
@@ -1830,8 +1900,9 @@ def _check_path_blocks(runs):
                 raise AssertionError("the bf16 fused trunk gave the kernel no packed weights")
             again = launch(x, w1, b1, w2, b2, w3, b3, packed=packed)
             want = bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+            plan = plan_summary(bf16_plan(key[:4], key[4]))
             seen[key] = _compare_bottleneck_bf16(
-                f"path I block {list(key[:4])} Cm={key[4]}", got, again, want)
+                f"path I block {list(key[:4])} Cm={key[4]} ({plan})", got, again, want)
         return got
 
     fused_trunk.bottleneck_fused = recording
@@ -3385,7 +3456,27 @@ def training_phase(dev, smi):
     return launches, out
 
 
-def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
+def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
+    """The bf16 bottleneck's library yardstick: a function running cuDNN's
+    three bf16 convolutions (channels_last) with bias and ReLU and the skip
+    added, on a bf16 NHWC x. They round before the bias, so they are a
+    time, not a reference."""
+    import torch
+
+    xc = x.permute(0, 3, 1, 2)
+    lw = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+          for w in (w1.t()[:, :, None, None], w2.permute(3, 2, 0, 1), w3.t()[:, :, None, None])]
+    lb = [b.to(torch.bfloat16) for b in (b1, b2, b3)]
+
+    def library():
+        y = torch.relu(torch.nn.functional.conv2d(xc, lw[0], lb[0]))
+        y = torch.relu(torch.nn.functional.conv2d(y, lw[1], lb[1], padding=1))
+        return torch.relu(torch.nn.functional.conv2d(y, lw[2], lb[2]) + xc)
+
+    return library
+
+
+def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         adc_scores,
@@ -3614,7 +3705,15 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
     # f32 cuDNN convolutions of the bf16 values, rounded where the kernel
     # rounds. Library: cuDNN's three bf16 convolutions with bias and ReLU and
     # the skip added (they round before the bias). Summed over resnet101's 29
-    # stride-1 blocks at the 1024 px bucket. The row is layer1's.
+    # stride-1 blocks at the 1024 px bucket. The row is layer1's. Each shape
+    # logs its launch plan, the registers and spills nvcc gave the
+    # instantiations it runs, and phase 3's share of values not bit-equal
+    # there; PR 14's times (its first kernel, on an H100 80GB HBM3 at 700 W)
+    # are quoted on those log lines, never in the kernels line.
+    build, build_warnings = bottleneck_bf16_build_info()
+    log(f"[timing] bottleneck_fused bf16 build: {json.dumps({'/'.join(map(str, k)): v for k, v in build.items()})}; "
+        f"entry registers are the launch bound's, setmaxnreg then gives the consumers "
+        f"232 and the producer 40; warnings {build_warnings}")
     mix16 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for i, ((shape, cm), n_blocks) in enumerate(zip(BOTTLENECK_SHAPES, R101_MIX)):
         args = _bottleneck_inputs(dev, shape, cm, seed=10 + i)
@@ -3625,39 +3724,40 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs):
         flops = 2 * B * H * W * (2 * cin * cm + 9 * cm * cm)
         byts = (2 * B * H * W * cin * BF16_BYTES + (2 * cin * cm + 9 * cm * cm) * BF16_BYTES
                 + (2 * cm + cin) * 4)
-        xc = x.permute(0, 3, 1, 2)
-        lw = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-              for w in (w1.t()[:, :, None, None], w2.permute(3, 2, 0, 1),
-                        w3.t()[:, :, None, None])]
-        lb = [b.to(torch.bfloat16) for b in (b1, b2, b3)]
-
-        def library():
-            y = torch.relu(torch.nn.functional.conv2d(xc, lw[0], lb[0]))
-            y = torch.relu(torch.nn.functional.conv2d(y, lw[1], lb[1], padding=1))
-            return torch.relu(torch.nn.functional.conv2d(y, lw[2], lb[2]) + xc)
-
+        library = cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3)
         ms = time_ms(lambda: bottleneck_fused(*args, packed=pk))
         plain_ms = time_ms(lambda: bottleneck_plain(*args))
         lib_ms = time_ms(library)
         t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, byts / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
-        log(f"[timing] bottleneck_fused bf16 {list(shape)} Cm={cm}: {ms:.3f} ms, plain (three "
-            f"f32 cuDNN convs of the bf16 values) {plain_ms:.3f} ms, library (three bf16 cuDNN "
-            f"convs) {lib_ms:.3f} ms, bound {bound:.3f} ms (operations {t_ops:.3f}, bytes "
-            f"{t_bytes:.3f}), {flops / ms / 1e9:.2f} TFLOP/s")
+        plan = bf16_plan(shape, cm)
+        regs = {name: build[(name, p["bn"], plan["bk"])]
+                for name, p in zip(PHASE_NAMES, plan["phases"])}
+        earlier = (f" (quoted from PR 14, not this run: {PR14_BF16_MS[i]} ms)"
+                   if i < len(PR14_BF16_MS) else "")
+        log(f"[timing] bottleneck_fused bf16 {list(shape)} Cm={cm}: {plan_summary(plan)}; "
+            f"registers/spills {json.dumps(regs)}; {ms:.3f} ms{earlier}, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.3f} of the bound {bound:.3f} ms "
+            f"(operations {t_ops:.3f}, bytes {t_bytes:.3f}); library (three bf16 cuDNN convs) "
+            f"{lib_ms:.3f} ms; plain (three f32 cuDNN convs of the bf16 values) "
+            f"{plain_ms:.3f} ms; not bit-equal at D = {plan['bk']} (one stage) "
+            f"{bn16_shares[(shape, cm)]:.3e} (phase 3)")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                        ("library_ms", lib_ms)):
             mix16[key] += n_blocks * v
         if i == 0:
             row("bottleneck_fused_bf16", CSRC + "bottleneck_bf16.cu",
                 PALLAS + "bottleneck_block.py:204", ms, plain_ms, byts, 0, lib_ms,
-                bf16_flops=flops, form="bfloat16", shape=f"{list(shape)} Cm={cm} bf16")
-        del args, x, pk, xc, lw, lb
+                bf16_flops=flops, form="bfloat16", shape=f"{list(shape)} Cm={cm} bf16",
+                plan=plan_summary(plan))
+        del args, x, pk, library
     torch.cuda.empty_cache()
     log(f"[timing] bottleneck_fused bf16 over resnet101's 29 stride-1 blocks at the 1024 px "
         f"bucket (layers 1-4: {', '.join(map(str, R101_MIX[:4]))} blocks): kernel "
-        f"{mix16['ms']:.3f} ms, plain {mix16['plain_ms']:.3f} ms, library (three bf16 cuDNN "
-        f"convs) {mix16['library_ms']:.3f} ms, bound {mix16['bound_ms']:.3f} ms")
+        f"{mix16['ms']:.3f} ms (quoted from PR 14, not this run: {PR14_BF16_29_BLOCKS_MS} "
+        f"ms), plain "
+        f"{mix16['plain_ms']:.3f} ms, library (three bf16 cuDNN convs) "
+        f"{mix16['library_ms']:.3f} ms, bound {mix16['bound_ms']:.3f} ms")
     rows[-1]["r101_29_blocks"] = mix16
     return rows
 
@@ -3683,7 +3783,7 @@ def main() -> int:
     shape_errs = check_search_shapes(dev)
     adc_in = check_adc(dev)
     bn_err, bn_rel = check_bottleneck(dev)
-    bn16_err, bn16_rel, bn16_neq = check_bottleneck_bf16(dev)
+    bn16_err, bn16_rel, bn16_neq, bn16_shares = check_bottleneck_bf16(dev)
     launches2, main2, db2 = main_path_phase(
         dev, 2, ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"))
     launches3, main3, _ = main_path_phase(
@@ -3726,7 +3826,7 @@ def main() -> int:
     bf16 = main_c5["bf16_kernels"]
     for kname, r in bf16.items():
         errs[kname] = max(errs[kname], r["max_abs_err"])
-    rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs)
+    rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares)
     for r in rows:  # rows 1-4 also carry their bf16 times at path C's shapes
         if r["name"] in bf16:
             r["bf16"] = bf16[r["name"]]

@@ -14,9 +14,10 @@ Replaces the JAX package's ``ops/pallas/bottleneck_block.py::bottleneck_fused``
   calls on a bf16 x): ``csrc/bottleneck_bf16.cu`` on ``csrc/bf16_gemm.cuh``, the same
   three GEMMs with bf16 operands and f32 sums, rounded where the JAX kernel
   rounds (``y1``, ``y2`` and the output, round to nearest even; the skip is
-  added in f32 before the last rounding). Its weights come cast to bf16 and
-  transposed to the kernel's [N, K] by :func:`pack_bf16`, once per folded
-  trunk.
+  added in f32 before the last rounding), on a warp-specialised ``wgmma``
+  mainloop fed by TMA, with its own tiles (:func:`_plan`). Its weights come
+  cast to bf16 and transposed to the kernel's [N, K] by :func:`pack_bf16`,
+  once per folded trunk.
 
 The intermediates ``y1`` and ``y2`` (in x's dtype) and the f32 form's
 split planes go through device memory, in scratch the wrapper allocates
@@ -52,6 +53,14 @@ def fold_bn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 _BM, _BN = 128, 64   # pixels x channels of a block's tile, csrc/tf32x3_gemm.cuh
+# the bf16 mainloop's constants, csrc/bf16_gemm.cuh: 128 x 128 tiles where
+# N > 64, else 256 x 64; stages 64 deep where Cin and Cm allow, else 32; a
+# ring of at most _BF16_MAX_STAGES stages in _BF16_PIPE_BYTES, beside two
+# epilogue buffers of a bf16 tile, 1,024 bytes of alignment slack and two
+# mbarriers a stage and a buffer
+_BF16_WIDE, _BF16_NARROW = (128, 128), (256, 64)   # (BM, BN)
+_BF16_DEEP_BK, _BF16_SHALLOW_BK = 64, 32
+_BF16_PIPE_BYTES, _BF16_MAX_STAGES, _BF16_EPI_BUFFERS, _BF16_SLACK = 163840, 8, 2, 1024
 
 
 def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,24 +81,52 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(t - hi)
 
 
+def _bf16_tile(n: int, bk: int) -> dict:
+    """The bf16 kernel's tile for a phase with ``n`` output channels at stage
+    depth ``bk``: rows, columns, ring stages and dynamic shared bytes."""
+    bm, bn = _BF16_WIDE if n > _BF16_NARROW[1] else _BF16_NARROW
+    stage_bytes = (bm + bn) * 2 * bk
+    stages = min(_BF16_MAX_STAGES, _BF16_PIPE_BYTES // stage_bytes)
+    smem = (_BF16_SLACK + stages * stage_bytes + _BF16_EPI_BUFFERS * bm * bn * 2
+            + 8 * 2 * (stages + _BF16_EPI_BUFFERS))
+    return {"bm": bm, "bn": bn, "stages": stages, "smem": smem}
+
+
 def _plan(B: int, H: int, W: int, cin: int, cm: int,
-          dtype: torch.dtype = torch.float32) -> dict:
+          dtype: torch.dtype = torch.float32, sms: int = 132) -> dict:
     """The kernel's scratch and grid, the same formula as ``csrc/bottleneck.cu``
     and ``csrc/bottleneck_bf16.cu``.
 
-    Three phases, each a GEMM over ``M = B H W`` pixels: ``(N, K, blocks)``
-    for conv1 (N = Cm, K = Cin), the 3x3 conv (N = Cm, K = 9 Cm) and conv1
-    with the skip (N = Cin, K = Cm), a block owning 128 pixels by 64
-    channels in both forms. Scratch: ``y1``, ``y2`` of shape ``scratch``
-    each, in ``dtype``; the f32 form also ``split_weights`` floats (each
-    weight's hi and lo planes), the bf16 form none (its weights come packed).
+    Three phases, each a GEMM over ``M = B H W`` pixels: conv1 (N = Cm, K =
+    Cin), the 3x3 conv (N = Cm, K = 9 Cm) and conv1 with the skip (N = Cin,
+    K = Cm). Scratch: ``y1``, ``y2`` of shape ``scratch`` each, in ``dtype``.
+
+    float32: ``phases`` holds ``(N, K, blocks)``, a block owning 128 pixels by
+    64 channels; ``split_weights`` floats hold each weight's hi and lo planes.
+
+    bfloat16 (``plan_phase`` and ``stage_depth`` in the C source):
+    ``bk`` is the stage depth, 64 where Cin and Cm are multiples of 64, else
+    32 (a stage never crosses a 3x3 tap); ``phases`` holds, per phase, a dict
+    of ``n``, ``k``, the tile (``bm`` x ``bn``: 128 x 128 where N > 64, else
+    256 x 64), ring ``stages``, dynamic shared bytes ``smem``, output
+    ``tiles`` and the persistent grid's ``blocks`` (one an SM of ``sms``, at
+    most one a tile). No weight split: its weights come packed.
     """
     M = B * H * W
-    phases = tuple((n, k, -(-M // _BM) * -(-n // _BN))
-                   for n, k in ((cm, cin), (cm, 9 * cm), (cin, cm)))
-    split = 2 * (2 * cin * cm + 9 * cm * cm) if dtype == torch.float32 else 0
-    return {"phases": phases, "split_weights": split, "scratch": (B, H, W, cm),
-            "scratch_dtype": dtype}
+    dims = ((cm, cin), (cm, 9 * cm), (cin, cm))
+    if dtype == torch.float32:
+        return {"phases": tuple((n, k, -(-M // _BM) * -(-n // _BN)) for n, k in dims),
+                "split_weights": 2 * (2 * cin * cm + 9 * cm * cm),
+                "scratch": (B, H, W, cm), "scratch_dtype": dtype}
+    deep = cin % _BF16_DEEP_BK == 0 and cm % _BF16_DEEP_BK == 0
+    bk = _BF16_DEEP_BK if deep else _BF16_SHALLOW_BK
+    phases = []
+    for n, k in dims:
+        t = _bf16_tile(n, bk)
+        tiles = -(-M // t["bm"]) * -(-n // t["bn"])
+        phases.append(dict(n=n, k=k, **t, tiles=tiles, blocks=min(tiles, sms)))
+    return {"phases": tuple(phases), "bk": bk, "split_weights": 0,
+            "scratch": (B, H, W, cm), "scratch_dtype": dtype}
 
 
 class PackedBF16(NamedTuple):
@@ -117,12 +154,13 @@ def _check(x, w1, b1, w2, b2, w3, b3) -> None:
         raise ValueError(f"x must be [B, H, W, Cin], got {tuple(x.shape)}")
     cin = x.shape[3]
     cm = w1.shape[1] if w1.dim() == 2 else -1
-    want = {"w1": (cin, cm), "b1": (cm,), "w2": (3, 3, cm, cm), "b2": (cm,), "w3": (cm, cin),
-            "b3": (cin,)}
-    for name, t in zip(want, (w1, b1, w2, b2, w3, b3)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} must be {want[name]} for x {tuple(x.shape)}, "
-                             f"got {tuple(t.shape)}")
+    want = ((cin, cm), (cm,), (3, 3, cm, cm), (cm,), (cm, cin), (cin,))
+    params = (w1, b1, w2, b2, w3, b3)
+    if all(t.shape == s for t, s in zip(params, want)):  # the common case, cheaply
+        return
+    for name, t, s in zip(("w1", "b1", "w2", "b2", "w3", "b3"), params, want):
+        if tuple(t.shape) != s:
+            raise ValueError(f"{name} must be {s} for x {tuple(x.shape)}, got {tuple(t.shape)}")
 
 
 def bottleneck_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -239,17 +277,19 @@ def bottleneck_fused_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     want = {"w1t": (cm, cin), "w2t": (cm, 9 * cm), "w3t": (cin, cm)}
     for name, t in zip(want, pk):
         if (tuple(t.shape) != want[name] or t.dtype != torch.bfloat16
-                or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"packed.{name} must be contiguous bf16 {want[name]} on {x.device}")
-    plan = _plan(B, H, W, cin, cm, torch.bfloat16)
-    y1 = torch.empty(plan["scratch"], dtype=torch.bfloat16, device=x.device)
-    y2 = torch.empty(plan["scratch"], dtype=torch.bfloat16, device=x.device)
+                or t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"packed.{name} must be contiguous bf16 {want[name]} on {x.device}, "
+                             f"16-byte aligned (the kernel's TMA reads it)")
+    # y1 and y2 (_plan's scratch) in one allocation: the wrapper's host time
+    # is part of each call's time
+    y = torch.empty((2, B, H, W, cm), dtype=torch.bfloat16, device=x.device)
+    y1 = y.data_ptr()
     lib = _build.load("bottleneck_bf16")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bottleneck_forward_bf16(
             x.data_ptr(), pk.w1t.data_ptr(), b1.data_ptr(), pk.w2t.data_ptr(), b2.data_ptr(),
-            pk.w3t.data_ptr(), b3.data_ptr(), y1.data_ptr(), y2.data_ptr(), out.data_ptr(),
+            pk.w3t.data_ptr(), b3.data_ptr(), y1, y1 + B * H * W * cm * 2, out.data_ptr(),
             B, H, W, cin, cm, stream)
     _build.check(err, "bottleneck_forward_bf16")
     bottleneck_fused_bf16.launches += 1

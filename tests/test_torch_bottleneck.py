@@ -49,6 +49,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     pack_bf16,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (
+    _bf16_tile,
     _plan,
     split_tf32,
 )
@@ -285,11 +286,12 @@ def test_tf32x3_rule_is_closer_than_one_tf32_product():
 # chip_smoke.py's five block shapes (resnet50 at a 16-image 1024 px bucket,
 # layers 1-4, and layer1 at 720 x 1024), its image-spanning check shape, and
 # ragged ones
-@pytest.mark.parametrize("shape", [(16, 256, 256, 256, 64), (16, 128, 128, 512, 128),
-                                   (16, 64, 64, 1024, 256), (16, 32, 32, 2048, 512),
-                                   (16, 180, 256, 256, 64), (37, 5, 7, 256, 64),
-                                   (1, 1, 1, 32, 32), (3, 11, 9, 256, 64), (2, 6, 9, 160, 96),
-                                   (1, 23, 13, 2048, 512)])
+PLAN_SHAPES = [(16, 256, 256, 256, 64), (16, 128, 128, 512, 128), (16, 64, 64, 1024, 256),
+               (16, 32, 32, 2048, 512), (16, 180, 256, 256, 64), (37, 5, 7, 256, 64),
+               (1, 1, 1, 32, 32), (3, 11, 9, 256, 64), (2, 6, 9, 160, 96), (1, 23, 13, 2048, 512)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_covers_every_output_once(shape):
     B, H, W, cin, cm = shape
     plan = _plan(B, H, W, cin, cm)
@@ -396,10 +398,98 @@ def test_pack_bf16_is_the_kernels_nk_layout():
 
 
 def test_plan_bf16_shares_the_grid_and_needs_no_split():
+    """The bf16 form shares the f32 form's scratch grid (y1, y2: [B, H, W,
+    Cm], in bf16) and needs no weight split (its weights come packed), but
+    tiles its phases its own way: 256 x 64 where N = 64, 128 x 128 where N >
+    64, where the f32 form takes 128 x 64 everywhere."""
     f32 = _plan(3, 11, 9, 256, 64)
     bf = _plan(3, 11, 9, 256, 64, torch.bfloat16)
-    assert bf["phases"] == f32["phases"] and bf["scratch"] == f32["scratch"]
-    assert bf["split_weights"] == 0 and bf["scratch_dtype"] == torch.bfloat16
+    assert bf["scratch"] == f32["scratch"] and bf["split_weights"] == 0
+    assert bf["scratch_dtype"] == torch.bfloat16 and bf["bk"] == 64
+    assert [(p["bm"], p["bn"]) for p in bf["phases"]] == [(256, 64), (256, 64), (128, 128)]
+    assert [p["tiles"] for p in bf["phases"]] == [2, 2, 6]   # M = 297
+    assert [p["blocks"] for p in bf["phases"]] == [2, 2, 6]
+    assert [blocks for _, _, blocks in f32["phases"]] == [3, 3, 12]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_bf16_tiles_cover_every_output_once(shape):
+    """Each phase's tiles cover [M, N] once, the persistent grid holds one
+    block an SM (at most one a tile), a stage never crosses a 3x3 tap, and
+    both stage depths' tiles fit a block's shared memory."""
+    B, H, W, cin, cm = shape
+    M = B * H * W
+    for sms in (132, 7):
+        plan = _plan(B, H, W, cin, cm, torch.bfloat16, sms=sms)
+        bk = plan["bk"]
+        assert bk == (64 if cin % 64 == 0 and cm % 64 == 0 else 32)
+        assert cin % bk == 0 and cm % bk == 0   # whole stages, never across a tap
+        assert plan["scratch"] == (B, H, W, cm) and plan["split_weights"] == 0
+        dims = [(cm, cin), (cm, 9 * cm), (cin, cm)]
+        for p, (n, k) in zip(plan["phases"], dims):
+            assert (p["n"], p["k"]) == (n, k) and k % bk == 0
+            assert (p["bm"], p["bn"]) == ((128, 128) if n > 64 else (256, 64))
+            m_tiles, n_tiles = -(-M // p["bm"]), -(-n // p["bn"])
+            assert p["tiles"] == m_tiles * n_tiles
+            assert (m_tiles - 1) * p["bm"] < M <= m_tiles * p["bm"]
+            assert (n_tiles - 1) * p["bn"] < n <= n_tiles * p["bn"]
+            assert p["blocks"] == min(p["tiles"], sms) and p["tiles"] < 2 ** 31
+            assert {k: p[k] for k in ("bm", "bn", "stages", "smem")} == _bf16_tile(n, bk)
+        for depth in (64, 32):   # both instantiations of each phase's tile
+            for n, _ in dims:
+                t = _bf16_tile(n, depth)
+                assert t["stages"] >= 3 and t["smem"] <= 227 * 1024
+
+
+def test_plan_bf16_matches_the_kernel_source():
+    """_plan's bf16 tiles are the mainloop's (csrc/bf16_gemm.cuh): its
+    constants, each instantiation's shared memory within 227 KB a block with
+    one block an SM, the registers setmaxnreg hands out within the SM's, and
+    a stage depth that divides Cin and Cm at every block shape of resnet50,
+    101 and 152 and of the tests."""
+    import re
+
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        bottleneck as mod,
+    )
+
+    src = open(f"{_build.CSRC_DIR}/bf16_gemm.cuh").read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["WIDE_BM"], const["WIDE_BN"]) == mod._BF16_WIDE == (128, 128)
+    assert (const["NARROW_BM"], const["NARROW_BN"]) == mod._BF16_NARROW == (256, 64)
+    assert (const["DEEP_BK"], const["SHALLOW_BK"]) == (mod._BF16_DEEP_BK, mod._BF16_SHALLOW_BK)
+    assert (const["PIPE_BYTES"], const["MAX_STAGES"], const["EPI_BUFFERS"],
+            const["SMEM_SLACK"]) == (mod._BF16_PIPE_BYTES, mod._BF16_MAX_STAGES,
+                                     mod._BF16_EPI_BUFFERS, mod._BF16_SLACK)
+    ncw = const["NCW"]
+    # the consumers' m64 products: BM rows over NCW warpgroups, 64 rows each
+    for bm, bn in (mod._BF16_WIDE, mod._BF16_NARROW):
+        assert bm % (64 * ncw) == 0 and bn % const["PANEL"] == 0
+    # registers: NCW consumer warpgroups and one producer warpgroup, 128 threads each
+    assert 128 * (ncw * const["CONSUMER_REGS"] + const["PRODUCER_REGS"]) <= 65536
+    for n in (64, 128):
+        for bk in (const["DEEP_BK"], const["SHALLOW_BK"]):
+            t = _bf16_tile(n, bk)
+            stage = (t["bm"] + t["bn"]) * 2 * bk
+            assert t["stages"] == min(const["MAX_STAGES"], const["PIPE_BYTES"] // stage)
+            assert t["smem"] == (const["SMEM_SLACK"] + t["stages"] * stage
+                                 + const["EPI_BUFFERS"] * t["bm"] * t["bn"] * 2
+                                 + 8 * 2 * (t["stages"] + const["EPI_BUFFERS"]))
+            # 227 KB a block; 228 KB an SM, 1 KB of it reserved for each block
+            assert t["smem"] <= 232448 and t["smem"] + 1024 <= 228 * 1024
+            assert 2 * (t["smem"] + 1024) > 228 * 1024   # one block an SM, as planned
+    # the C entry's routing, which _plan repeats: 64 deep where Cin and Cm
+    # allow it, 128-wide tiles where N > 64, one block a tile up to one an SM
+    cu = " ".join(open(f"{_build.CSRC_DIR}/bottleneck_bf16.cu").read().split())
+    assert "Cin % bf16mm::DEEP_BK == 0 && Cm % bf16mm::DEEP_BK == 0 ? bf16mm::DEEP_BK" in cu
+    assert cu.count("N > NARROW_BN ? tile_plan<WIDE_BN, ") == 2
+    assert "tiles < sms ? t : sms" in cu
+    resnet = [(cin, cin // 4) for cin in (256, 512, 1024, 2048)]
+    for cin, cm in resnet + [(s[3], s[4]) for s in PLAN_SHAPES]:
+        bk = _plan(1, 2, 2, cin, cm, torch.bfloat16)["bk"]
+        assert cm % bk == 0 and cin % bk == 0
+        assert bk == 64 or (cin, cm) not in resnet   # every ResNet block runs 64 deep
 
 
 def test_bottleneck_refuses_other_dtypes():

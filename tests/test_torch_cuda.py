@@ -7,6 +7,8 @@ a machine with an H100 and nvcc (``--noconftest`` because the suite's
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -453,14 +455,10 @@ def _bottleneck_bf16_args(dev, shape, seed=8):
     return [t.to(dev).contiguous() for t in (x, w1, b1, w2, b2, w3, b3)]
 
 
-# the bf16 form against the plain version at its rounding points (the JAX
-# kernel's), within 2^-8 of max|plain|, and at most BF16_NOT_EQUAL_SHARE of
-# the values not bit-equal (a rounding other than to nearest even flips tens
-# of percent); the second shape's 128-pixel tiles span 35-pixel images, the
-# third's column tiles do not divide N
-@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 32), (3, 5, 7, 256, 64),
-                                   (2, 6, 9, 160, 96)])
-def test_bottleneck_bf16_matches_plain(dev, shape):
+def _bottleneck_bf16_route(dev, shape):
+    """The bf16 kernel and the plain version on one block: (got, want), the
+    kernel called twice (weights packed per call, then once) with the same
+    bits."""
     args = _bottleneck_bf16_args(dev, shape)
     got = bottleneck_fused(*args)
     again = bottleneck_fused(*args, packed=pack_bf16(args[1], args[3], args[5]))
@@ -468,8 +466,45 @@ def test_bottleneck_bf16_matches_plain(dev, shape):
     assert got.dtype == want.dtype == torch.bfloat16 and got.is_contiguous()
     assert torch.equal(got, again)  # packed once or per call, the same bits
     assert (got != want).float().mean().item() <= BF16_NOT_EQUAL_SHARE
-    got, want = got.float(), want.float()
+    return got.float(), want.float()
+
+
+# the bf16 form against the plain version at its rounding points (the JAX
+# kernel's), within 2^-8 of max|plain|, and at most BF16_NOT_EQUAL_SHARE of
+# the values not bit-equal (a rounding other than to nearest even flips tens
+# of percent); the second shape's 128-pixel tiles span 35-pixel images, the
+# third's column tiles do not divide N (Cm = 96: 32-deep stages)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 32), (3, 5, 7, 256, 64),
+                                   (2, 6, 9, 160, 96)])
+def test_bottleneck_bf16_matches_plain(dev, shape):
+    got, want = _bottleneck_bf16_route(dev, shape)
     assert (got - want).abs().max().item() <= 2.0 ** -8 * want.abs().max().item()
+
+
+# the kernel's other routes, under chip_smoke.py's gate (one bf16 ulp at
+# max|plain|, at most BF16_NOT_EQUAL_SHARE not bit-equal, a second call bit
+# for bit): at these sizes a rounding flipped by f32 sums in another order
+# can fall in max|plain|'s binade, one ulp there being 2^-8 to 2^-7 of it.
+# Cm = 64 (256 x 64 tiles, 64 deep), Cm = 128 at Cin = 512 (128 x 128
+# tiles), Cin = 160 (32 deep, a ragged 128-wide column tile), M below one tile
+@pytest.mark.parametrize("shape", [(2, 12, 10, 256, 64), (2, 33, 40, 512, 128),
+                                   (2, 9, 7, 160, 64), (1, 5, 7, 256, 64)])
+def test_bottleneck_bf16_routes_match_plain(dev, shape):
+    got, want = _bottleneck_bf16_route(dev, shape)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+# the kernel's shared-memory attribute belongs to each device's context: a
+# process that runs the bf16 form on one card and then on another launches
+# on both, with the same bits
+def test_bottleneck_bf16_runs_on_a_second_device():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    shape = (2, 12, 10, 256, 64)
+    got0, want0 = _bottleneck_bf16_route(resolve_device("cuda:0"), shape)
+    got1, want1 = _bottleneck_bf16_route(resolve_device("cuda:1"), shape)
+    assert torch.equal(got0.cpu(), got1.cpu()) and torch.equal(want0.cpu(), want1.cpu())
 
 
 def test_bottleneck_bf16_launches_its_kernel_and_never_the_plain_version(dev, monkeypatch):
@@ -488,6 +523,8 @@ def test_bottleneck_bf16_launches_its_kernel_and_never_the_plain_version(dev, mo
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert (bottleneck_fused.launches - before, bottleneck_fused_bf16.launches - before_bf16) \
         == (0, 1)
+    assert torch.equal(bottleneck_fused(*args), out)  # a second call, the same bits
+    assert bottleneck_fused_bf16.launches - before_bf16 == 2
     bad = pack_bf16(args[1], args[3], args[5])._replace(w3t=args[5].to(torch.bfloat16))
     with pytest.raises(ValueError, match="packed.w3t"):
         bottleneck_fused(*args, packed=bad)
