@@ -36,7 +36,7 @@ Phases (any failure exits non-zero):
        5 % of the values not equal bit for bit, a second call bit for bit;
        the launch plan the built library reports held against the
        wrapper's);
-  4. twelve paths at full width, each with the launch counts set to 0 just
+  4. thirteen paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -139,6 +139,22 @@ Phases (any failure exits non-zero):
        2048, k=200) under the trained weights: scores_blockmax and
        knn_search against their plain versions, and the epoch's tuples
        mined on the card against those mined on the CPU;
+     - path J, data parallelism over the mesh's data axis (after path D):
+       config 2 through Extractor(mesh=create_mesh([2, 1], devices=[cuda:0,
+       cuda:0])) against config 2's one-device descriptors, top-10 and mAP,
+       and config 2's Index sharded on a 2 x 2 mesh bit for bit; then path
+       D's recipe for 3 steps on 4 masked u8 tuples (2 a process) run first
+       here by one process with its BatchNorm on the data-parallel path
+       (float64 sums, a group of one) and again with the tuples reversed
+       (the step's own f32 spread), and this script started twice
+       more as --dp-worker processes (NCCL, one card each, on two or more
+       cards; gloo, both on cuda:0, on one), each extracting config 2 over
+       the data axis and running the 3 steps data-parallel, held step by
+       step against the one-process run (loss, gradients, BN statistics,
+       parameters, and each strongly driven weight's update against the
+       reference's), with kernel B1 launched in each; a worker that fails or
+       outlives 300 s fails the run; ``--path-j`` runs the build and this
+       path alone;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
@@ -1044,7 +1060,8 @@ def make_corpus(n_scenes=20, views=5, seed=0):
 def main_path_phase(dev, graded_id, expect, fuse_blocks=None):
     """One graded config end to end; ``expect`` names the kernels its run
     must launch. Counts are set to 0 just before the run and read after.
-    Returns the launch counts, the measurements and the db descriptors."""
+    Returns the launch counts, the measurements and the db and query
+    descriptors."""
     import dataclasses
 
     import numpy as np
@@ -1146,7 +1163,7 @@ def main_path_phase(dev, graded_id, expect, fuse_blocks=None):
                       "extract_warm_img_per_s": len(images) / t_warm,
                       "query_q_per_s": len(qd) / t_query, "map": mAP, "d_err": d_err,
                       "topk_main_err": e_main, "descriptor_dim": int(db.shape[1]),
-                      "index_dim": int(index.gallery.shape[1]), "profile": prof}, db
+                      "index_dim": int(index.gallery.shape[1]), "profile": prof}, (db, qd)
 
 
 def long_search_phase(dev):
@@ -1366,7 +1383,7 @@ def fused_trunk_phase(dev, db_unfused, unfused):
     run on the same weights (``unfused`` is its measurements)."""
     import numpy as np
 
-    launches, main, db = main_path_phase(
+    launches, main, (db, _) = main_path_phase(
         dev, 2, ("bottleneck_fused", "gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"),
         fuse_blocks=True)
     # 12 stride-1 blocks in resnet50, once per batch and scale; the gem head
@@ -1841,6 +1858,17 @@ def config5_fused_phase(dev, c5_desc, c5_main):
     log(f"[config 5 fused trunk] mAP {gnd_map:.4f} against path C's {map_c:.4f} on the same "
         f"100-row PCA index; self top-1 {self_top1:.3f}; {len(moved)} positives at another "
         f"place: {json.dumps(moved[:20])}")
+    # the kernel's share of that move, apart from each path learning its own
+    # PCA on its 100 rows (ROADMAP C10): path I's descriptors on path C's
+    # learned PCA, and both paths before whitening (a log line, not a gate)
+    on_c = port.build_index(db, graded.index, whitening_mP=(index_c.m, index_c.P), device=dev)
+    map_on_c = compute_map(on_c.ranks(qd), gnd)[0]
+    raw = dataclasses.replace(graded.index, whitening=None)
+    map_raw = compute_map(port.build_index(db, raw, device=dev).ranks(qd), gnd)[0]
+    map_raw_c = compute_map(port.build_index(db_c, raw, device=dev).ranks(qd_c), gnd)[0]
+    log(f"[config 5 fused trunk] mAP on path C's learned PCA {map_on_c:.4f} (path C "
+        f"{map_c:.4f}); before whitening {map_raw:.4f} (path C {map_raw_c:.4f})")
+    del on_c
 
     t0 = time.perf_counter()
     db_warm = ex.extract(images)
@@ -1863,7 +1891,9 @@ def config5_fused_phase(dev, c5_desc, c5_main):
     torch.cuda.empty_cache()
     out = {"extract_img_per_s": len(images) / t_extract,
            "extract_warm_img_per_s": len(images) / t_warm, "map": gnd_map,
-           "map_path_c": map_c, "moved_positives": len(moved), "self_top1": self_top1,
+           "map_path_c": map_c, "map_on_path_c_pca": map_on_c, "map_unwhitened": map_raw,
+           "map_unwhitened_path_c": map_raw_c, "moved_positives": len(moved),
+           "self_top1": self_top1,
            "vs_path_c_max_abs_diff": max(d_db, d_q), "vs_path_c_min_cos": min(cos_db, cos_q),
            "block_shapes_checked": len(blocks),
            "block_max_abs_err": max(e for e, _, _ in blocks.values()),
@@ -3456,6 +3486,474 @@ def training_phase(dev, smi):
     return launches, out
 
 
+# Path J: data parallelism over the mesh's data axis. Path D's recipe at full
+# width on a global batch of 4 tuples (path D takes 5: the data axis of 2
+# must divide the batch), 3 steps
+DP_TUPLES, DP_STEPS = 4, 3
+DP_WORKER_TIMEOUT = 300  # seconds each worker may take, start-up included
+DP_DESC_TOL = 1e-5       # descriptors: the same rows run in batches of 8, not 16
+DP_STATS_REL, DP_PARAM_REL = 1e-5, 1e-6  # of each tensor's max|ref|
+# gradients and parameters: the bounds above (GRAD_REL, DP_PARAM_REL), or
+# this many times the one-process step's own spread when its tuples are
+# summed in another order, where that is wider: the same sum in another f32
+# order moves resnet101's weight gradients ~1e-4 of max|g| (a 1x1 conv's
+# weight gradient sums ~230k products a weight), and Adam's first step
+# turns a gradient change of ~eps into a parameter change of ~lr
+DP_SPREAD = 2.0
+# the update check, which a skipped or doubled optimizer step fails: on the
+# weights whose reference gradient is at least DP_DRIVEN x its tensor's
+# gradient bound (so its sign and size hold under the spread above), the
+# data-parallel update p_after - p_before must lie within DP_UPDATE_REL of
+# the reference's update (plus 2 ulps of p); at most DP_UPDATE_SHARE of those
+# weights may miss (a skipped or doubled update misses with nearly all)
+DP_DRIVEN, DP_UPDATE_REL, DP_UPDATE_SHARE, DP_UPDATE_MIN = 100.0, 0.1, 1e-3, 10000
+
+
+def dp_tuples(seed=0):
+    """Path D's masked u8 tuples at its 362-px bucket, made in memory: q, p
+    from one scene, 5 negatives from others, each image max side 362 in a
+    288 x 384 bucket (portrait and landscape extents), zeroed padding."""
+    import numpy as np
+
+    r = TRAIN_RECIPE
+    T = 2 + r["n_neg"]
+    rng = np.random.RandomState(seed)
+    H, W = 288, 384
+    protos = [np.kron(rng.rand(H // 16, W // 16, 3), np.ones((16, 16, 1)))
+              for _ in range(DP_TUPLES * T)]
+    px = np.zeros((DP_TUPLES, T, H, W, 3), np.uint8)
+    sizes = np.zeros((DP_TUPLES, T, 2), np.int32)
+    for b in range(DP_TUPLES):
+        for t in range(T):
+            proto = protos[b * T + (0 if t == 1 else t)]  # the positive views the query's scene
+            h, w = ((268, 362), (362 - 74, 362), (240, 320))[(b + t) % 3]
+            img = np.roll(proto, rng.randint(-8, 9), axis=1)[:h, :w]
+            img = img * (1 + 0.1 * rng.randn()) + 0.05 * rng.randn(h, w, 3)
+            px[b, t, :h, :w] = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            sizes[b, t] = (h, w)
+    labels = np.zeros((DP_TUPLES, T), np.int32)
+    labels[:, 1], labels[:, 2:] = 1, -1
+    return px, sizes, labels
+
+
+def _dp_train_cfg():
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        TrainConfig,
+    )
+
+    r = TRAIN_RECIPE
+    return TrainConfig(loss=r["loss"], margin=r["margin"], lr=r["lr"], n_neg=r["n_neg"],
+                       batch_tuples=DP_TUPLES)
+
+
+def _config2_dp_cfg():
+    import dataclasses
+
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        GRADED_CONFIGS,
+    )
+
+    graded = GRADED_CONFIGS[2]
+    mc = dataclasses.replace(graded.extract.model, use_pallas=True)
+    return graded, dataclasses.replace(graded.extract, model=mc, batch_size=16)
+
+
+def data_parallel_phase(dev, smi, c2=None, main_d=None):
+    """Path J. J1, one process on one card: config 2 through
+    ``Extractor(mesh=create_mesh([2, 1], devices=[cuda:0, cuda:0]))`` against
+    config 2's one-device run (``c2``: its db and query descriptors, else
+    made here), and ``Index`` sharded on a 2 x 2 mesh against one device's
+    ``Index.query(k=10)``. J2, two processes started from this script: the
+    same extraction over the data axis, then path D's recipe for 3 steps on
+    4 masked u8 tuples, 2 a process, each step against the same step run
+    here first by one process with its BatchNorm on the same path (loss,
+    gradients, BN running statistics, parameters after the update, and the
+    driven weights' updates). NCCL, one card a
+    process, on two or more cards; gloo with both processes on cuda:0 on
+    one card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        compute_map,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
+        global_batch_stats,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel import (
+        ShardedIndex,
+        create_mesh,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+
+    t_path = time.perf_counter()
+    cuda0 = torch.device("cuda", 0)
+    graded, cfg = _config2_dp_cfg()
+    images, labels, q_u8 = make_corpus()
+    q_pixels = ((q_u8.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(
+        np.float32)
+    gnd = [{"ok": np.flatnonzero(labels == s)} for s in range(len(q_u8))]
+    if c2 is None:  # config 2's one-device run, when path J runs alone
+        one = port.Extractor(cfg, seed=0, device=dev)
+        c2 = one.extract(images), one(q_pixels)
+        del one
+    db1, qd1 = c2
+    out = {}
+
+    # J1: the data axis in one process, both shards on cuda:0
+    mesh21 = create_mesh([2, 1], devices=[cuda0, cuda0])
+    ex = port.Extractor(cfg, seed=0, mesh=mesh21)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    db = ex.extract(images)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    qd = ex(q_pixels)
+    index1 = port.build_index(db1, graded.index, device=dev)
+    s1, i1 = index1.query(qd1, k=10)
+    sq, iq = index1.query(qd, k=10)
+    index = port.build_index(db, graded.index, device=dev)
+    map1, map_dp = compute_map(index1.ranks(qd1), gnd)[0], compute_map(index.ranks(qd), gnd)[0]
+    mesh22 = create_mesh([2, 2], devices=[cuda0] * 4)
+    sindex = ShardedIndex.from_index(index1, mesh=mesh22)
+    ss, si = sindex.query(qd1, k=10)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    d_db, d_q = float(np.abs(db - db1).max()), float(np.abs(qd - qd1).max())
+    top_ok = _agree_where_separated(sq, iq, s1, i1, tol=DP_DESC_TOL, score_tol=2 * DP_DESC_TOL)
+    shard_ok = bool(np.array_equal(si, i1))
+    log(f"[data parallel] J1: config 2 on a {mesh21.shape} mesh, both shards on cuda:0 (batch "
+        f"{ex.cfg.batch_size}, 8 rows a shard): {len(images) / t_extract:.2f} img/s "
+        f"({t_extract:.2f} s); descriptors vs config 2's one-device run max|diff| db "
+        f"{d_db:.3e} queries {d_q:.3e} (gate {DP_DESC_TOL}); query top-10 on config 2's "
+        f"index equal outside ties within {DP_DESC_TOL}: {top_ok}; mAP {map_dp:.4f} (one "
+        f"device {map1:.4f}); Index on a {mesh22.shape} mesh (4 shards on cuda:0, 2 gallery "
+        f"shards searched) top-10 ids bit for bit one device's: {shard_ok}, scores max|diff| "
+        f"{float(np.abs(ss - s1).max()):.3e}; launches {launches} | {smi}")
+    if max(d_db, d_q) > DP_DESC_TOL or not top_ok or map_dp != map1 or not shard_ok:
+        raise AssertionError("[data parallel] J1 disagrees with one device")
+    for name in ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search", "scores_blockmax"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on path J1")
+    out["j1"] = {"extract_img_per_s": len(images) / t_extract, "db_max_abs_diff": d_db,
+                 "queries_max_abs_diff": d_q, "map": map_dp, "map_one_device": map1,
+                 "sharded_ids_equal": shard_ok}
+    del ex, index, index1, sindex
+    torch.cuda.empty_cache()
+
+    # J2: the reference steps in this process, then two worker processes
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        np.save(os.path.join(ref_dir, "j1_db.npy"), db)
+        px, sizes, tl = dp_tuples()
+        np.savez(os.path.join(ref_dir, "tuples.npz"), px=px, sizes=sizes, labels=tl)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        r = TRAIN_RECIPE
+        cfg_t = _dp_train_cfg()
+        # one process on the whole batch, its BatchNorm on the workers' path
+        # (split-invariant float64 sums) over a group of one: no collective
+        state = create_train_state(RetrievalNet(arch=r["arch"], use_kernel=True), cfg_t, seed=0,
+                                   device=dev)
+        step = make_train_step(state.model, cfg_t, from_u8=True)
+        torch.save(state.model.state_dict(), os.path.join(ref_dir, "start1.pt"))
+        ref_ms = []
+        for i in range(1, DP_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with global_batch_stats(None):
+                _, loss = step(state, px, sizes, tl)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.save({"loss": float(loss),
+                        "grads": {n: p.grad for n, p in state.model.named_parameters()
+                                  if p.grad is not None},
+                        "after": state.model.state_dict()},
+                       os.path.join(ref_dir, f"step{i}.pt"))
+        del state, step
+        torch.cuda.empty_cache()
+        # the one-process step's own spread: the same steps with the tuples
+        # in reverse order, each from the reference's weights
+        start = torch.load(os.path.join(ref_dir, "start1.pt"))
+        ctrl = create_train_state(RetrievalNet(arch=r["arch"], use_kernel=True), cfg_t,
+                                  state_dict=start, device=dev)
+        step = make_train_step(ctrl.model, cfg_t, from_u8=True)
+        rev = np.arange(DP_TUPLES)[::-1]
+        spread = []
+        for i in range(1, DP_STEPS + 1):
+            if i > 1:
+                start = ref["after"]
+                ctrl.model.load_state_dict(start)
+            with global_batch_stats(None):
+                _, loss = step(ctrl, px[rev], sizes[rev], tl[rev])
+            ref = torch.load(os.path.join(ref_dir, f"step{i}.pt"), map_location=dev)
+            spread.append(_step_errors(ctrl.model, loss, ref, start))
+        worst = {k: max(x[k] for x in spread) for k in ("loss_rel", "grad_worst", "stats_worst",
+                                                         "param_worst", "update_miss_share")}
+        with open(os.path.join(ref_dir, "spread.json"), "w") as f:
+            json.dump(worst, f)
+        del ctrl, step, ref
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[data parallel] J2 the one-process step against itself with its tuples in "
+            f"reverse order, worst over {DP_STEPS} steps: loss rel {worst['loss_rel']:.2e}, "
+            f"err/bound gradients {worst['grad_worst']:.3f} (by step "
+            f"{[round(x['grad_worst'], 3) for x in spread]}, "
+            f"{spread[-1]['grad_worst_name']}), BN statistics {worst['stats_worst']:.3f}, "
+            f"parameters {worst['param_worst']:.3f} (by step "
+            f"{[round(x['param_worst'], 3) for x in spread]}), updates missing the "
+            f"reference's by more than {DP_UPDATE_REL} {worst['update_miss_share']:.2e} of "
+            f"{min(x['update_driven'] for x in spread)}+ driven weights | {smi}")
+        log(f"[data parallel] J2 reference: {r['arch']} + GeM kernel head, {DP_TUPLES} tuples "
+            f"x {2 + r['n_neg']} images at {px.shape[2]}x{px.shape[3]} (max side "
+            f"{r['image_size']}), one process, BN on the data-parallel path over a group of "
+            f"one, step ms {[round(t, 2) for t in ref_ms]}; "
+            f"spawning 2 workers: backend {backend}, {n_cards} card(s) | {smi}")
+        port_no = _free_port()
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(rank), str(port_no), ref_dir, backend],
+                                  cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for rank in (0, 1)]
+        deadline = time.perf_counter() + DP_WORKER_TIMEOUT
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"[data parallel] a worker outlived {DP_WORKER_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for rank, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.splitlines():
+                log(f"[dp worker {rank}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"[data parallel] worker {rank} exited {p.returncode}")
+            results.append(next(json.loads(line)["dp_worker"] for line in text.splitlines()
+                                if line.startswith('{"dp_worker"')))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    p50 = [w["step_ms_p50"] for w in results]
+    d_p50 = None if main_d is None else main_d["bench"]["lat_p50_ms"]
+    d_tps = None if main_d is None else main_d["bench"]["tuples_per_sec"]
+    log(f"[data parallel] J2 ({backend}, {n_cards} card(s), 2 processes"
+        f"{' sharing cuda:0' if backend == 'gloo' else ', one card each'}): DP step p50 "
+        f"{p50} ms ({[round(DP_TUPLES / t * 1e3, 2) for t in p50]} tuples/s, {DP_TUPLES} "
+        f"tuples a step); one process on the same tuples "
+        f"{round(statistics.median(ref_ms), 2)} ms; path D (5 tuples, one process) p50 {d_p50} ms, {d_tps} tuples/s; worst "
+        f"err/bound over steps: loss {max(w['loss_rel'] for w in results) / LOSS_REL:.3f}, "
+        f"gradients {max(w['grad_worst'] for w in results):.3f}, BN statistics "
+        f"{max(w['stats_worst'] for w in results):.3f}, parameters "
+        f"{max(w['param_worst'] for w in results):.3f} (gates "
+        f"{results[0]['grad_gate']:.3f} and {results[0]['param_gate']:.3f}: the bounds, or "
+        f"{DP_SPREAD} x the one-process spread), updates missing the reference's "
+        f"{max(w['update_miss_share'] for w in results):.2e} of the driven weights (gate "
+        f"{DP_UPDATE_SHARE}); extraction vs J1 "
+        f"{max(w['extract_max_abs_diff'] for w in results):.3e} | {smi}")
+    out["j2"] = {"backend": backend, "cards": n_cards, "workers": results,
+                 "one_process_spread": worst,
+                 "reference_step_ms": ref_ms, "path_d_step_p50_ms": d_p50,
+                 "path_d_tuples_per_sec": d_tps}
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"[data parallel] path J wall {out['wall_s']:.1f} s | {smi}")
+    log(json.dumps({"data_parallel": out}))
+    return kernels.launch_counts(), out
+
+
+def _worst_over(got: dict, want: dict, rel: float, atol: float = 0.0):
+    """(max over tensors of max|got - want| / max(rel * max|want|, atol), its name)."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        bound = max(rel * w.abs().max().item(), atol)
+        err = (got[k].to(w.device) - w).abs().max().item()
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio > worst:
+            worst, name = ratio, k
+    return worst, name
+
+
+def _update_misses(named: dict, ref: dict, start: dict):
+    """(share of the driven weights whose update misses the reference's,
+    their count): driven weights have a reference gradient of at least
+    DP_DRIVEN x their tensor's gradient bound; an update p_after - p_before
+    misses where it is further than DP_UPDATE_REL x the reference's update
+    plus 2 ulps of p from it. ``start``: the weights before the step."""
+    import torch
+
+    missed = driven = 0
+    for n, g in ref["grads"].items():
+        bound = max(GRAD_REL * g.abs().max().item(), GRAD_ATOL)
+        sel = g.abs() >= DP_DRIVEN * bound
+        if not bool(sel.any()):
+            continue
+        before = start[n].to(g.device)[sel]
+        want = ref["after"][n][sel] - before
+        got = named[n].detach()[sel] - before
+        ulp = torch.abs(torch.nextafter(ref["after"][n][sel], torch.full_like(want, float("inf")))
+                        - ref["after"][n][sel])
+        missed += int(((got - want).abs() > DP_UPDATE_REL * want.abs() + 2 * ulp).sum())
+        driven += int(sel.sum())
+    return missed / max(driven, 1), driven
+
+
+def _step_errors(model, loss, ref, start) -> dict:
+    """One train step against the reference's (``ref``: its loss, gradients
+    and state after the step; ``start``: the weights both began it from):
+    the loss's relative error and the worst err/bound of the gradients, the
+    BN running statistics and the parameters after the update, each tensor
+    against its own max, and the updates' check (:func:`_update_misses`)."""
+    named = dict(model.named_parameters())
+    g, g_name = _worst_over({n: named[n].grad for n in ref["grads"]}, ref["grads"], GRAD_REL,
+                            GRAD_ATOL)
+    miss, driven = _update_misses(named, ref, start)
+    sd = model.state_dict()
+    stats = {k: v for k, v in ref["after"].items() if k.endswith(("running_mean",
+                                                                  "running_var"))}
+    st, _ = _worst_over({k: sd[k] for k in stats}, stats, DP_STATS_REL)
+    p, p_name = _worst_over({n: named[n].detach() for n in named},
+                            {n: ref["after"][n] for n in named}, DP_PARAM_REL)
+    return {"loss": float(loss), "loss_ref": ref["loss"],
+            "loss_rel": abs(float(loss) - ref["loss"]) / max(abs(ref["loss"]), 1e-30),
+            "grad_worst": g, "grad_worst_name": g_name, "stats_worst": st, "param_worst": p,
+            "param_worst_name": p_name, "update_miss_share": miss, "update_driven": driven}
+
+
+def dp_worker(rank: int, port_no: int, ref_dir: str, backend: str) -> int:
+    """One process of path J2: joins the group, extracts config 2's corpus
+    over the data axis, then runs the 3 reference steps data-parallel,
+    holding each against the reference (each step starts from the
+    reference's weights: after an update the two sides' weights differ in
+    their last bits, which ReLU and max-pool near-ties amplify on the next
+    gradient). Prints one ``{"dp_worker": ...}`` line; raises on a failed
+    gate."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel import create_mesh
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    if not initialize_distributed(f"127.0.0.1:{port_no}", num_processes=2, process_id=rank,
+                                  device="cuda", backend=backend):
+        raise RuntimeError("the process group did not form")
+    dev = resolve_device("cuda")
+    card = torch.device("cuda", torch.cuda.current_device())
+    log(f"rank {rank} of {dist.get_world_size()}, backend {dist.get_backend()}, on {card} "
+        f"({torch.cuda.get_device_name(card)}), {torch.cuda.device_count()} card(s)")
+    mesh = create_mesh([2, 1], devices=[card])
+    kernels.reset_launch_counts()
+
+    graded, cfg = _config2_dp_cfg()
+    images = make_corpus()[0]
+    ex = port.Extractor(cfg, seed=0, mesh=mesh)
+    t0 = time.perf_counter()
+    db = ex.extract(images)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    d_ext = float(np.abs(db - np.load(os.path.join(ref_dir, "j1_db.npy"))).max())
+    log(f"extraction over the data axis: {len(images)} images in {t_extract:.2f} s, "
+        f"max|diff| to J1 {d_ext:.3e} (gate {DP_DESC_TOL})")
+    if d_ext > DP_DESC_TOL:
+        raise AssertionError("data-parallel extraction disagrees with J1")
+    del ex
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    z = np.load(os.path.join(ref_dir, "tuples.npz"))
+    px, sizes, labels = z["px"], z["sizes"], z["labels"]
+    cfg_t = _dp_train_cfg()
+    r = TRAIN_RECIPE
+    start = torch.load(os.path.join(ref_dir, "start1.pt"), map_location=card)
+    state = create_train_state(RetrievalNet(arch=r["arch"], use_kernel=True), cfg_t,
+                               state_dict=start, device=dev, mesh=mesh)
+    step = make_train_step(state.model, cfg_t, mesh=mesh, from_u8=True)
+    ms, rows = [], []
+    for i in range(1, DP_STEPS + 1):
+        if i > 1:  # each step from the reference's weights
+            state.model.load_state_dict(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = step(state, px, sizes, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ref = torch.load(os.path.join(ref_dir, f"step{i}.pt"), map_location=card)
+        rows.append(dict(_step_errors(state.model, loss, ref, start), step=i, ms=ms[-1]))
+        x = rows[-1]
+        log(f"step {i}: loss {x['loss']:.8f} (one process {x['loss_ref']:.8f}, rel "
+            f"{x['loss_rel']:.2e}); err/bound gradients {x['grad_worst']:.3f} "
+            f"({x['grad_worst_name']}), BN statistics {x['stats_worst']:.3f}, parameters "
+            f"{x['param_worst']:.3f} ({x['param_worst_name']}), updates missing the "
+            f"reference's {x['update_miss_share']:.2e} of {x['update_driven']} driven weights; "
+            f"{ms[-1]:.1f} ms")
+        start = ref["after"]
+        del ref
+    launches = kernels.launch_counts()
+    res = {"rank": rank, "backend": dist.get_backend(), "cards": torch.cuda.device_count(),
+           "device": str(card), "extract_s": t_extract, "extract_max_abs_diff": d_ext,
+           "steps": rows, "step_ms_p50": statistics.median(ms),
+           "loss_rel": max(x["loss_rel"] for x in rows),
+           "grad_worst": max(x["grad_worst"] for x in rows),
+           "stats_worst": max(x["stats_worst"] for x in rows),
+           "param_worst": max(x["param_worst"] for x in rows),
+           "update_miss_share": max(x["update_miss_share"] for x in rows),
+           "update_driven": min(x["update_driven"] for x in rows), "launches": launches}
+    with open(os.path.join(ref_dir, "spread.json")) as f:
+        spread = json.load(f)
+    res["grad_gate"] = max(1.0, DP_SPREAD * spread["grad_worst"])
+    res["param_gate"] = max(1.0, DP_SPREAD * spread["param_worst"])
+    print(json.dumps({"dp_worker": res}), flush=True)
+    dist.destroy_process_group()
+    if launches["gem_l2n_fused_rect"] <= 0:
+        raise AssertionError("kernel B1 (gem_l2n_fused_rect) was not launched in this worker")
+    if (res["loss_rel"] > LOSS_REL or res["grad_worst"] > res["grad_gate"]
+            or res["stats_worst"] > 1.0 or res["param_worst"] > res["param_gate"]
+            or res["update_miss_share"] > DP_UPDATE_SHARE
+            or res["update_driven"] < DP_UPDATE_MIN):
+        raise AssertionError(f"the data-parallel step disagrees with the one-process step "
+                             f"(gates: gradients {res['grad_gate']:.3f}, parameters "
+                             f"{res['param_gate']:.3f} of their bounds; updates missing "
+                             f"{res['update_miss_share']:.2e} of {res['update_driven']} "
+                             f"driven weights, gate {DP_UPDATE_SHARE})")
+    return 0
+
+
 def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """The bf16 bottleneck's library yardstick: a function running cuDNN's
     three bf16 convolutions (channels_last) with bias and ReLU and the skip
@@ -3784,13 +4282,13 @@ def main() -> int:
     adc_in = check_adc(dev)
     bn_err, bn_rel = check_bottleneck(dev)
     bn16_err, bn16_rel, bn16_neq, bn16_shares = check_bottleneck_bf16(dev)
-    launches2, main2, db2 = main_path_phase(
+    launches2, main2, c2 = main_path_phase(
         dev, 2, ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"))
     launches3, main3, _ = main_path_phase(
         dev, 3, ("netvlad_fused_rect", "netvlad_fused", "fused_topk_search"))
     launches_long, long_main = long_search_phase(dev)
     launches_ann, ann_main, ann_keep = ann_phase(dev)
-    launches_b, main_b = fused_trunk_phase(dev, db2, main2)
+    launches_b, main_b = fused_trunk_phase(dev, c2[0], main2)
     launches_c5, main_c5, c5_desc, q_u8 = config5_phase(dev)
     launches_i, main_i = config5_fused_phase(dev, c5_desc, main_c5)
     launches_e, main_e, e_keep = config4_phase(dev, *c5_desc, ann_keep)
@@ -3799,11 +4297,15 @@ def main() -> int:
     del e_keep, ann_keep, q_u8
     launches_h, main_h = other_trunks_phase(dev)
     launches_d, main_d = training_phase(dev, smi)
+    torch.cuda.empty_cache()  # path D's memory, before path J's workers start
+    launches_j, main_j = data_parallel_phase(dev, smi, c2, main_d)
+    del c2
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config5_fused_trunk": launches_i,
                "config4": launches_e, "rerank": launches_f,
-               "serving": launches_g, "other_trunks": launches_h, "training": launches_d}
+               "serving": launches_g, "other_trunks": launches_h, "training": launches_d,
+               "data_parallel": launches_j}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -3839,7 +4341,7 @@ def main() -> int:
                                   "config5_fused_trunk": main_i,
                                   "config4": main_e, "rerank": main_f,
                                   "serving": main_g, "other_trunks": main_h,
-                                  "training": main_d,
+                                  "training": main_d, "data_parallel": main_j,
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,
                                   "bottleneck_bf16_not_bit_equal_share": bn16_neq,
@@ -3852,8 +4354,34 @@ def main() -> int:
     return 0
 
 
+def main_path_j() -> int:
+    """``--path-j``: the device and build phases, then path J alone (it makes
+    config 2's one-device descriptors itself); for a run on several cards."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    name, smi = device_phase()
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    dev = resolve_device("cuda")
+    build_phase()
+    launches, out = data_parallel_phase(dev, smi)
+    log(json.dumps({"launches": launches}))
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dp-worker"]:
+            sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+        if sys.argv[1:2] == ["--path-j"]:
+            sys.exit(main_path_j())
         sys.exit(main())
     except Exception:  # any failed phase: report and exit non-zero, no result line
         traceback.print_exc()

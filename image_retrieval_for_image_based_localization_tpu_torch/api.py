@@ -110,6 +110,15 @@ class Extractor:
         ``models.flax_port`` for flax variables). None: random weights from
         ``torch.Generator().manual_seed(seed)``, with random BN statistics.
       device: "cuda" (default) or "cpu".
+      mesh: optional ``parallel.mesh.Mesh`` for data-parallel extraction, in
+        place of ``device``: ``batch_size`` is rounded up to a multiple of
+        its ``data`` axis D, and each data shard of this process forwards
+        its contiguous ``batch_size / D`` rows of every batch (a process's
+        shards in turn, all on one device: one process per card, ROADMAP
+        C14); the slices are all-gathered over the data group in order, so
+        every process returns the whole ``[N, D]``, as the JAX package's
+        global array is. The structured forms (``extract_regional``,
+        ``extract_local``) stay unsharded, as there.
 
     ``cfg.fuse_blocks=True`` (bottleneck resnets, f32 or bf16) folds the
     trunk's BN once here and runs it through ``models.fused_trunk``, the
@@ -123,13 +132,26 @@ class Extractor:
     """
 
     def __init__(self, cfg: ExtractConfig, state_dict: Optional[Dict] = None,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda", mesh=None):
         check_supported(cfg)
         mc = cfg.model
+        # the data rows of this process's shards, run in turn on its device
+        self._rows = None
+        if mesh is not None:
+            D = mesh.shape.get("data", 1)
+            cfg = dataclasses.replace(cfg, batch_size=-(-cfg.batch_size // D) * D)
+            if D > 1:
+                if len({mesh.local_devices[j] for j in mesh.data_rows}) > 1:
+                    raise NotImplementedError(
+                        "data-parallel extraction over shards on several devices of one "
+                        "process: it runs one process per card (ROADMAP C14); launch a "
+                        "process per card under torch.distributed")
+                self._rows = [mesh.data_index(j) for j in mesh.data_rows]
         if mc.regional and not cfg.exact:
             cfg = dataclasses.replace(cfg, exact=True)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.local_devices[0])
         model = RetrievalNet(arch=mc.arch, pooling=mc.pooling, whiten_dim=mc.whiten_dim,
                              regional=mc.regional, gem_p=mc.gem_p, use_kernel=mc.use_pallas,
                              netvlad_clusters=mc.netvlad_clusters, dtype=mc.dtype)
@@ -148,7 +170,6 @@ class Extractor:
         mean = np.asarray(IMAGENET_MEAN, np.float64)
         self._nrm_a = torch.tensor(1.0 / (255.0 * std), dtype=torch.float64).to(dt).to(self.device)
         self._nrm_b = torch.tensor(-mean / std, dtype=torch.float64).to(dt).to(self.device)
-
     @property
     def out_dim(self) -> int:
         return self.model.out_dim
@@ -195,9 +216,39 @@ class Extractor:
         norm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True))
         return acc / (norm + 1e-6)
 
+    def _over_data(self, fn, x: torch.Tensor, aux: Optional[torch.Tensor]) -> torch.Tensor:
+        """``fn(self, x, aux)`` over the mesh's data axis: the rows (padded
+        with zero rows to a multiple of D) cut into D contiguous slices, this
+        process's slices run in turn, the outputs all-gathered over the data
+        group in order; without a data axis, ``fn(self, x, aux)``."""
+        if self._rows is None:
+            return fn(self, x, aux)
+        from image_retrieval_for_image_based_localization_tpu_torch.parallel.distributed import (
+            all_gather_rows,
+        )
+
+        B = x.shape[0]
+        D = self.mesh.shape["data"]
+        pad = (-B) % D
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            if aux is not None:
+                aux = torch.cat([aux, aux.new_zeros((pad,) + tuple(aux.shape[1:]))])
+        n = (B + pad) // D
+        outs = []
+        for d in self._rows:
+            rows = slice(d * n, (d + 1) * n)
+            outs.append(fn(self, x[rows], None if aux is None else aux[rows]))
+        return all_gather_rows(torch.cat(outs), self.mesh.data_group)[:B]
+
     @torch.no_grad()
     def forward_u8(self, pixels_u8: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
-        """Raw uint8 [B, H, W, 3] + valid (h, w) [B, 2] -> descriptors [B, D]."""
+        """Raw uint8 [B, H, W, 3] + valid (h, w) [B, 2] -> descriptors [B, D]
+        (over the mesh's data axis where the extractor has one)."""
+        return self._over_data(Extractor._forward_u8, pixels_u8, sizes)
+
+    @torch.no_grad()
+    def _forward_u8(self, pixels_u8: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = pixels_u8.shape
         row = torch.arange(H, device=self.device)[None, :, None]
         col = torch.arange(W, device=self.device)[None, None, :]
@@ -211,7 +262,7 @@ class Extractor:
         mask every pixel is valid, so the head takes its unmasked form."""
         x = torch.as_tensor(np.asarray(pixels, np.float32)).to(self.device)
         m = None if mask is None else torch.as_tensor(np.asarray(mask, bool)).to(self.device)
-        return self.forward(x, m).cpu().numpy()
+        return self._over_data(Extractor.forward, x, m).cpu().numpy()
 
     def make_input_batches(self, images: Sequence, bbxs=None,
                            batch_size: Optional[int] = None):
@@ -335,22 +386,25 @@ class Extractor:
 
 def extract_features(images: Sequence, cfg: ExtractConfig = ExtractConfig(),
                      state_dict: Optional[Dict] = None, bbxs: Optional[Sequence] = None,
-                     device: DeviceLike = "cuda") -> np.ndarray:
-    """Extract [N, D] descriptors for images (paths or HWC arrays)."""
-    return Extractor(cfg, state_dict=state_dict, device=device).extract(images, bbxs=bbxs)
+                     device: DeviceLike = "cuda", mesh=None) -> np.ndarray:
+    """Extract [N, D] descriptors for images (paths or HWC arrays); with a
+    ``mesh``, data-parallel over its ``data`` axis (see :class:`Extractor`)."""
+    return Extractor(cfg, state_dict=state_dict, device=device,
+                     mesh=mesh).extract(images, bbxs=bbxs)
 
 
 def extract_vectors(net_or_state_dict, images: Sequence, image_size: int = 1024,
                     ms: Sequence[float] = (1.0,), bbxs: Optional[Sequence] = None,
                     cfg: Optional[ExtractConfig] = None,
-                    device: DeviceLike = "cuda") -> np.ndarray:
-    """Reference-style alias: an Extractor, or a state_dict + cfg. Returns [N, D]."""
+                    device: DeviceLike = "cuda", mesh=None) -> np.ndarray:
+    """Reference-style alias: an Extractor, or a state_dict + cfg (and an
+    optional ``mesh``). Returns [N, D]."""
     if isinstance(net_or_state_dict, Extractor):
         ex = net_or_state_dict
     else:
         base = dataclasses.replace(cfg or ExtractConfig(), image_size=image_size,
                                    scales=tuple(ms))
-        ex = Extractor(base, state_dict=net_or_state_dict, device=device)
+        ex = Extractor(base, state_dict=net_or_state_dict, device=device, mesh=mesh)
     return ex.extract(images, bbxs=bbxs)
 
 

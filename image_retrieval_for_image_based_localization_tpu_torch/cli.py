@@ -130,14 +130,14 @@ def _load_state_dict(args):
     return tree["model"]
 
 
-def _extractor(args):
+def _extractor(args, mesh=None):
     if args.network is not None:
         raise NotPorted("--network (the pretrained zoo) is not yet ported: it needs the "
                         "download (ROADMAP A9)")
     from image_retrieval_for_image_based_localization_tpu_torch.api import Extractor
 
     return Extractor(_build_extract_cfg(args), state_dict=_load_state_dict(args),
-                     device=args.device)
+                     device=args.device, mesh=mesh)
 
 
 def cmd_extract(argv):
@@ -190,8 +190,10 @@ def cmd_evaluate(argv):
                    help="recall target for --ann approx")
     p.add_argument("--sharded", action="store_true", help="use the sharded gallery")
     p.add_argument("--mesh", default=None, metavar="DxG",
-                   help="mesh shape data x gallery, e.g. 1x4: G row shards on the "
-                        "device (default: one shard per local device)")
+                   help="mesh shape data x gallery, e.g. 2x2: data-parallel extraction "
+                        "over D and G row shards, the D x G shards split over the "
+                        "processes, each process's on its device (default: one shard "
+                        "per local device)")
     p.add_argument("--metrics-out", default=None)
     args = p.parse_args(argv)
 
@@ -206,15 +208,29 @@ def cmd_evaluate(argv):
         MetricsLogger,
     )
 
-    ex = _extractor(args)
     mesh = None
     if args.mesh:
+        from image_retrieval_for_image_based_localization_tpu_torch.parallel.distributed import (
+            group_size,
+            initialize_distributed,
+        )
         from image_retrieval_for_image_based_localization_tpu_torch.parallel.mesh import (
             create_mesh,
         )
+        from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
+            resolve_device,
+        )
 
+        # several processes join from JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES
+        # and JAX_PROCESS_ID, as the JAX package's launcher sets them
+        initialize_distributed(device=args.device)
         d, g = (int(v) for v in args.mesh.lower().split("x"))
-        mesh = create_mesh([d, g], devices=[ex.device] * g)
+        world = group_size()
+        if (d * g) % world:
+            raise SystemExit(f"--mesh {args.mesh}: {d * g} shards over {world} processes")
+        # this process's share of the D x G shards, all on its device
+        mesh = create_mesh([d, g], devices=[resolve_device(args.device)] * (d * g // world))
+    ex = _extractor(args, mesh=mesh)
     whitening_mP = None
     if args.whitening_file:
         z = np.load(args.whitening_file)

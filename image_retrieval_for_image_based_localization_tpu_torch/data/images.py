@@ -70,6 +70,11 @@ def max_side_resize(
     return np.asarray(pil, dtype=np.float32) / 255.0
 
 
+def normalize_images(x: np.ndarray) -> np.ndarray:
+    """ImageNet mean/std normalize; NHWC float32 in [0,1]."""
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
 def bucket_shape(h: int, w: int, multiple: int = 32) -> Tuple[int, int]:
     """Round (h, w) up to the bucket grid (multiples of the trunk stride)."""
     r = lambda v: ((v + multiple - 1) // multiple) * multiple  # noqa: E731

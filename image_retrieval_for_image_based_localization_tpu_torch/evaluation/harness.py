@@ -170,7 +170,7 @@ def evaluate_dataset(
     if ann not in (None, "ivf", "pq", "approx"):
         raise ValueError(f"unknown ann mode {ann!r} (ivf|pq|approx)")
     logger = logger or MetricsLogger()
-    ex = extractor or Extractor(extract_cfg, state_dict=state_dict, device=device)
+    ex = extractor or Extractor(extract_cfg, state_dict=state_dict, device=device, mesh=mesh)
     with phase_timer("extract_db", logger, items=dataset.n):
         db = ex.extract(dataset.image_paths)
     with phase_timer("extract_queries", logger, items=dataset.nq):

@@ -20,11 +20,15 @@ In train mode (``module.train()``, f32 only) BatchNorm has flax's
 semantics, not ``nn.BatchNorm2d``'s (:func:`bn_train`): it normalizes with
 the biased batch variance and moves the running statistics by
 ``ra <- 0.9 ra + 0.1 batch`` with the biased variance too, where torch's own
-train mode stores the unbiased one. bf16 training raises.
+train mode stores the unbiased one. Under :func:`global_batch_stats` (a
+train step whose data group holds several processes) the statistics are the data group's global batch's,
+summed in float64 so that they do not depend on how the batch is split.
+bf16 training raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -77,6 +81,109 @@ def bn_lowp(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
 
 
 BN_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
+_STATS_GROUP = []  # the data group of the data-parallel step being run, if any
+
+
+@contextlib.contextmanager
+def global_batch_stats(group):
+    """Within the block (a train step whose data group holds several
+    processes, or its one-process reference), train-mode BatchNorm
+    takes its statistics over the global batch of ``group``'s processes
+    (``parallel.mesh.Mesh.data_group``; None is the default group), through
+    :class:`_BatchNormTrain`: its sums are all-reduced over the group in the
+    forward and the backward, a no-op for a group of one process. Every
+    process of the group must run the same layers in the same order."""
+    _STATS_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.pop()
+
+
+def _channel_rows(t: torch.Tensor) -> torch.Tensor:
+    """[N, C, H, W] as [N*H*W, C]: a view of a channels_last tensor."""
+    return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    # here, not at the top: parallel/ imports the models through retrieval/
+    from image_retrieval_for_image_based_localization_tpu_torch.parallel.distributed import (
+        all_reduce_sum,
+    )
+
+    return all_reduce_sum(t, group)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm over a data group's global batch, whose
+    statistics do not depend on how the batch is split: the per-channel sums
+    of ``y`` and of ``y^2`` (each square rounded to f32 alone) accumulate in
+    float64 and are all-reduced over the group, so each process's slice
+    gives the mean and variance that one process gets from the whole batch
+    on the same path, to the last bit but for a rare double rounding.
+    ``F.batch_norm``'s own f32 reduction order cannot be split so, and a
+    last-bit change of the statistics flips max-pool and ReLU near-ties: on
+    the padded, blocky batches of the parity tests that moves resnet18's
+    gradients by up to ~8e-2 of max|g| (from the float64 sums to
+    ``F.batch_norm``'s). The float64 sums cost: every sum casts its input.
+
+    Forward: ``mean = sum(y) / n``, ``var = max(sum(y^2) / n - mean^2, 0)``
+    (biased; flax's fast variance, in float64), ``out = (y - mean) *
+    (rsqrt(var + eps) * scale) + bias``; also returns the mean and the
+    variance for the running statistics. Backward: BatchNorm's gradient with
+    the global sums of ``dout`` and ``dout * (y - mean)``; ``scale`` and
+    ``bias`` get this process's share (the train step sums the shares).
+    Autograd through the sums instead would cancel ``2 y dvar`` against
+    ``2 mean dvar`` in f32, which on the masked parity batches of
+    tests/test_torch_data_parallel.py put resnet18's gradients 8.1e-3 of
+    max|g| from the float64 truth (2.9e-5 here)."""
+
+    @staticmethod
+    def forward(ctx, y, weight, bias, eps, group):
+        C = y.shape[1]
+        shape = (1, C, 1, 1)
+        rows = _channel_rows(y)
+        s = _sum_over(torch.cat([rows.sum(dim=0, dtype=torch.float64),
+                                 torch.square(rows).sum(dim=0, dtype=torch.float64),
+                                 rows.new_full((1,), rows.shape[0], dtype=torch.float64)]),
+                      group)
+        n = s[2 * C]
+        s = s[:2 * C] / n
+        mean64 = s[:C]
+        var = torch.addcmul(s[C:], mean64, mean64, value=-1.0).clamp_(min=0.0).to(y.dtype)
+        mean = mean64.to(y.dtype)
+        invstd = torch.rsqrt(var + eps)
+        xmu = y - mean.reshape(shape)
+        ctx.save_for_backward(xmu, weight, invstd)
+        ctx.n, ctx.group = n, group
+        ctx.mark_non_differentiable(mean, var)
+        # out= keeps y's memory format (channels_last): with the (1, C, 1, 1)
+        # bias first, addcmul would return an NCHW tensor
+        out = torch.addcmul(bias.reshape(shape), xmu, (invstd * weight).reshape(shape),
+                            out=torch.empty_like(xmu))
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        xmu, weight, invstd = ctx.saved_tensors
+        C = xmu.shape[1]
+        shape = (1, C, 1, 1)
+        local = torch.cat([_channel_rows(dout).sum(dim=0, dtype=torch.float64),
+                           _channel_rows(dout * xmu).sum(dim=0, dtype=torch.float64)])
+        sums = (_sum_over(local, ctx.group) / ctx.n).to(xmu.dtype)
+        k = invstd * weight
+        # dx = (dout - mean(dout) - xmu * invstd^2 * mean(dout * xmu)) * invstd * scale
+        dx = torch.addcmul((-sums[:C] * k).reshape(shape), dout, k.reshape(shape),
+                           out=torch.empty_like(xmu))
+        dx.addcmul_(xmu, (-invstd * invstd * sums[C:] * k).reshape(shape))
+        dw = (local[C:] * invstd.double()).to(xmu.dtype)
+        return dx, dw, local[:C].to(xmu.dtype), None, None
+
+
+def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
 
 
 def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
@@ -84,13 +191,19 @@ def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     the output is normalized with the batch mean and the biased batch
     variance, and the running statistics move by ``ra <- 0.9 ra + 0.1 batch``
     with flax's fast variance ``mean(y^2) - mean(y)^2`` (biased, floored at
-    0), outside the graph."""
+    0), outside the graph. Under :func:`global_batch_stats` (a data-parallel
+    train step) the statistics are the data group's global batch's, as
+    flax's are under ``jit`` over a batch sharded on ``data``
+    (:class:`_BatchNormTrain`)."""
+    if _STATS_GROUP:
+        out, mean, var = _BatchNormTrain.apply(y, bn.weight, bn.bias, bn.eps, _STATS_GROUP[-1])
+        _move_running(bn, mean, var)
+        return out
     out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
     with torch.no_grad():
         mean = y.mean(dim=(0, 2, 3))
         var = torch.clamp(torch.square(y).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
-        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    _move_running(bn, mean, var)
     return out
 
 

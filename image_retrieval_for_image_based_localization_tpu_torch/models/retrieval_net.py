@@ -285,3 +285,26 @@ class RetrievalNet(nn.Module):
         if is_rect(fmask, sizes):
             return netvlad_fused_rect(feats, c, w, b, sizes=sizes)
         return netvlad_aggregate(feats, c, w, b, mask=fmask)
+
+
+def create_model(
+    arch: str = "resnet50",
+    pooling: str = "gem",
+    whiten_dim: Optional[int] = None,
+    **kw,
+) -> RetrievalNet:
+    """Factory mirroring the reference's ``init_network(params)``, with the
+    JAX package's keywords: ``use_pallas`` is ``use_kernel`` here; ``dtype``
+    may be a name ("float32", "bfloat16"), a torch dtype or a numpy-style
+    scalar type such as the JAX package passes; ``s2d_stem=True`` is not
+    ported (``utils.config`` refuses it too)."""
+    if "use_pallas" in kw:
+        kw["use_kernel"] = kw.pop("use_pallas")
+    if kw.pop("s2d_stem", False):
+        raise ValueError("s2d_stem is not supported by the port")
+    dtype = kw.get("dtype")
+    if isinstance(dtype, torch.dtype):
+        kw["dtype"] = next((n for n, d in DTYPES.items() if d == dtype), str(dtype))
+    elif dtype is not None and not isinstance(dtype, str):
+        kw["dtype"] = getattr(dtype, "name", None) or getattr(dtype, "__name__", str(dtype))
+    return RetrievalNet(arch=arch, pooling=pooling, whiten_dim=whiten_dim, **kw)

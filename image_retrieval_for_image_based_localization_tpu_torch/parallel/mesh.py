@@ -1,27 +1,34 @@
-"""Device mesh for the sharded gallery: the JAX package's ``parallel/mesh.py``.
+"""Device mesh for data parallelism and the sharded gallery: the JAX
+package's ``parallel/mesh.py``.
 
 The JAX package scales through a ``jax.sharding.Mesh`` with two axes:
 ``data`` (batch parallelism for extraction and training) and ``gallery``
 (the descriptor gallery sharded by rows). Here :class:`Mesh` keeps the same
-axis names over ``torch.distributed`` processes:
+axis names over ``torch.distributed`` processes, one process per card:
 
-- the ``gallery`` axis is the global list of row shards, in order. Each
-  process owns a contiguous run of ``len(local_devices)`` shards, and each
-  of them lives on one of its local devices, so global shard id =
-  ``rank * local_shards + local_id``. Several shards may share a device:
-  four row shards on ``cuda:0``, or eight on the CPU as the JAX tests' eight
-  virtual devices;
-- a ``data`` axis above 1 (data-parallel extraction and training) raises
-  ``NotImplementedError`` until ROADMAP A10 brings it.
+- the mesh's shards are a global list: each process owns a contiguous run
+  of ``len(local_devices)`` of them, each on one of its local devices, so
+  global shard id = ``rank * local_shards + local_id``. Several shards may
+  share a device: four row shards on ``cuda:0``, or eight on the CPU as the
+  JAX tests' eight virtual devices;
+- shard ``s`` sits at ``(data, gallery) = (s // G, s % G)`` on a ``D x G``
+  mesh, the row-major reshape of the JAX package's device array. A
+  process's shards must cover whole data rows, or a data row whole
+  processes, so every process takes part in the same collectives;
+- the ``gallery`` collectives (the sharded search's merges) run within one
+  data row (:attr:`Mesh.gallery_group`), the ``data`` collectives (the
+  extraction's all-gather, train-mode BatchNorm's statistics and the
+  gradients' mean) within one gallery column (:attr:`Mesh.data_group`).
 
 The process group (``parallel.distributed``) carries the collectives. With
-none initialized the mesh is one process (rank 0 of 1).
+none initialized the mesh is one process (rank 0 of 1) and every group is
+that process alone.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,11 +47,12 @@ def _group() -> Tuple[int, int]:
 
 
 class Mesh:
-    """A ``(data, gallery)`` mesh of row shards over the process group.
+    """A ``(data, gallery)`` mesh of shards over the process group.
 
     ``shape`` maps each axis name to its global size, as
     ``jax.sharding.Mesh.shape`` does; ``local_devices`` holds one device per
-    local shard, in shard order.
+    local shard, in shard order. A mesh made by :func:`create_mesh` carries
+    the process subgroups of its data rows and gallery columns.
     """
 
     def __init__(self, shape: Dict[str, int], local_devices: Sequence[torch.device],
@@ -53,6 +61,7 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self.local_devices = [torch.device(d) for d in local_devices]
         self.rank, self.world_size = int(rank), int(world_size)
+        self.data_group = self.gallery_group = None
 
     @property
     def local_shards(self) -> int:
@@ -62,9 +71,49 @@ class Mesh:
         """Global shard id of this process's ``local_id``-th shard."""
         return self.rank * self.local_shards + local_id
 
+    def data_index(self, local_id: int) -> int:
+        """The ``data`` coordinate of this process's ``local_id``-th shard."""
+        return self.shard_id(local_id) // self.shape.get("gallery", 1)
+
+    def gallery_index(self, local_id: int) -> int:
+        """The ``gallery`` coordinate of this process's ``local_id``-th shard."""
+        return self.shard_id(local_id) % self.shape.get("gallery", 1)
+
+    @property
+    def data_rows(self) -> List[int]:
+        """Local id of the first shard of each data row this process holds,
+        in order: the shards that compute a data-parallel slice (a row's
+        other shards are its replicas over ``gallery``)."""
+        firsts: Dict[int, int] = {}
+        for j in range(self.local_shards):
+            firsts.setdefault(self.data_index(j), j)
+        return list(firsts.values())
+
+    @property
+    def gallery_shards(self) -> List[int]:
+        """Local ids of this process's shards in its first data row: the
+        ones its sharded searches use (the other rows hold replicas of the
+        same gallery shards)."""
+        d0 = self.data_index(0)
+        return [j for j in range(self.local_shards) if self.data_index(j) == d0]
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} of {self.world_size}, "
                 f"local {[str(d) for d in self.local_devices]})")
+
+
+def _subgroups(members: Sequence[Sequence[int]], rank: int, world: int):
+    """The process group of ``rank`` among the partition ``members`` of the
+    world: None for the whole world (the default group), else a
+    ``dist.new_group`` made by every rank for every part, in one order."""
+    if len(members) == 1:
+        return None
+    mine = None
+    for ranks in members:
+        g = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 def create_mesh(
@@ -88,13 +137,21 @@ def create_mesh(
     if -1 in sizes:
         sizes[sizes.index(-1)] = n // math.prod(s for s in sizes if s != -1)
     shape = dict(zip(axis_names, sizes))
-    if shape.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"a data axis of {shape['data']}: data-parallel extraction and training over "
-            f"the mesh are not ported yet (ROADMAP A10)")
     if math.prod(sizes) != n:
         raise ValueError(f"mesh {sizes} != {n} shards ({len(devs)} local x {world} processes)")
-    return Mesh(shape, devs, rank=rank, world_size=world)
+    mesh = Mesh(shape, devs, rank=rank, world_size=world)
+    G, L = shape.get("gallery", 1), len(devs)
+    if G % L and L % G:
+        raise ValueError(
+            f"a gallery axis of {G} over {L} shards a process: a process's shards must "
+            f"cover whole data rows, or a data row whole processes")
+    if world > 1:
+        q = max(G // L, 1)  # processes a data row spans
+        mesh.gallery_group = _subgroups(
+            [range(r, r + q) for r in range(0, world, q)], rank, world)
+        mesh.data_group = _subgroups(
+            [range(c, world, q) for c in range(q)], rank, world)
+    return mesh
 
 
 def local_devices(device: DeviceLike = "cuda"):

@@ -2,8 +2,10 @@
 ``parallel/sharded_index.py`` on ``torch.distributed``.
 
 The gallery is padded to whole shards and split by rows over the mesh's
-``gallery`` axis (``parallel.mesh``); each process uploads only the shards
-it owns. A query runs in three steps:
+``gallery`` axis (``parallel.mesh``): on a ``D x G`` mesh, G row shards,
+replicated over ``data``. Each process uploads only the shards of its first
+data row (the others would hold the same rows) and the queries are
+replicated. A query runs in three steps:
 
 1. each local shard runs the streaming top-k (``retrieval.knn.knn_search``,
    kernel B3 on the card) with ``n_valid`` masking its pad rows and
@@ -11,7 +13,8 @@ it owns. A query runs in three steps:
    ``min(k, local_rows)`` columns, so the collective's tensors have equal
    shapes, and a shard with no valid row returns only NEG_INF fill;
 2. the local partials are concatenated in shard order and all-gathered in
-   rank order (skipped when no process group is initialized);
+   rank order within the data row's gallery group (skipped when that group
+   is this process alone);
 3. a stable ``merge_topk`` picks the result. The partials arrive in
    ascending global-row order and each is sorted by (score desc, row asc),
    so on equal scores the lower row wins, as on one device.
@@ -31,6 +34,7 @@ and may order a near tie (scores within a few 1e-6) the other way.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
@@ -55,12 +59,13 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.device import 
 
 
 def _shard_layout(shards: Sequence[torch.Tensor], mesh: Mesh, n_valid: int):
-    """(global row offset, valid rows) of each local shard; all shards hold
-    ``local_rows`` rows, pads at the global end."""
+    """(global row offset, valid rows) of each of this process's gallery
+    shards (``mesh.gallery_shards``, in order): the shard's ``gallery``
+    coordinate times ``local_rows``, pads at the global end."""
     local_rows = shards[0].shape[0]
     out = []
-    for j in range(len(shards)):
-        offset = mesh.shard_id(j) * local_rows
+    for j in mesh.gallery_shards:
+        offset = mesh.gallery_index(j) * local_rows
         out.append((offset, int(np.clip(n_valid - offset, 0, local_rows))))
     return out
 
@@ -76,8 +81,8 @@ def sharded_knn(
     """Distributed exact top-k over a row-sharded gallery.
 
     Args:
-      shards: this process's shards, ``[local_rows, D]`` each, in local shard
-        order (pad rows at the global end).
+      shards: this process's gallery shards (``mesh.gallery_shards``),
+        ``[local_rows, D]`` each, in order (pad rows at the global end).
       queries: ``[Nq, D]`` f32, the same on every process.
       k: at most ``n_valid``.
       n_valid: number of real gallery rows.
@@ -91,8 +96,8 @@ def sharded_knn(
                           index_offset=offset)
         parts_s.append(s.to(out))
         parts_i.append(i.to(out))
-    s_all = all_gather_cols(torch.cat(parts_s, dim=1))
-    i_all = all_gather_cols(torch.cat(parts_i, dim=1))
+    s_all = all_gather_cols(torch.cat(parts_s, dim=1), mesh.gallery_group)
+    i_all = all_gather_cols(torch.cat(parts_i, dim=1), mesh.gallery_group)
     s, i = merge_topk(s_all, i_all, k)
     return s, i.to(torch.int32)
 
@@ -107,11 +112,12 @@ def sharded_rank_candidates(
 ) -> torch.Tensor:
     """Global rank of each candidate row (``[Nq, C]`` int32) over a
     row-sharded gallery: ``rank_candidates_core`` over the local shards,
-    the sums all-reduced over the process group."""
+    the sums all-reduced over the data row's gallery group."""
     layout = _shard_layout(shards, mesh, n_valid)
     return rank_candidates_core(list(shards), queries, cand, chunk=chunk,
                                 n_valid=[v for _, v in layout],
-                                index_offset=[o for o, _ in layout], reduce=all_reduce_sum,
+                                index_offset=[o for o, _ in layout],
+                                reduce=functools.partial(all_reduce_sum, group=mesh.gallery_group),
                                 stable=True)
 
 
@@ -133,8 +139,8 @@ class ShardedIndex:
 
     ``gallery`` [N, D] is f32 (a numpy array or a tensor), or bf16 (a
     tensor, or the ``uint16`` bit-view ``Index.load`` gives). Every process
-    passes the same gallery and uploads only its own shards. Without a
-    ``mesh`` it takes ``default_mesh(device)``.
+    passes the same gallery and uploads only its own gallery shards. Without
+    a ``mesh`` it takes ``default_mesh(device)``.
     """
 
     def __init__(self, gallery, mesh: Optional[Mesh] = None, axis: str = "gallery",
@@ -148,8 +154,9 @@ class ShardedIndex:
         self.local_rows = -(-self.n_valid // n_shards)
         D = gallery.shape[1]
         self.shards: List[torch.Tensor] = []
-        for j, dev in enumerate(self.mesh.local_devices):
-            start = self.mesh.shard_id(j) * self.local_rows
+        for j in self.mesh.gallery_shards:
+            dev = self.mesh.local_devices[j]
+            start = self.mesh.gallery_index(j) * self.local_rows
             rows = _host_rows(gallery, min(start, self.n_valid),
                               min(start + self.local_rows, self.n_valid))
             pad = self.local_rows - rows.shape[0]
@@ -189,10 +196,11 @@ class ShardedIndex:
         return self.transform_queries(qdescriptors)
 
     def gallery_host(self) -> torch.Tensor:
-        """The whole gallery [n_valid, D] on the CPU, every process's shards
-        gathered in rank order."""
+        """The whole gallery [n_valid, D] on the CPU, the shards of the data
+        row gathered in order."""
         local = torch.cat([s.cpu() for s in self.shards])
-        return all_gather_cols(local.T.contiguous()).T[: self.n_valid].contiguous()
+        return all_gather_cols(local.T.contiguous(),
+                               self.mesh.gallery_group).T[: self.n_valid].contiguous()
 
     def save(self, path: str) -> None:
         """Persist as a plain ``Index`` artifact (the shards gathered)."""

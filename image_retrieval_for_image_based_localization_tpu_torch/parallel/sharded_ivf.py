@@ -2,8 +2,9 @@
 ``parallel/sharded_ivf.py`` on ``torch.distributed``.
 
 The padded partitions ``[C, L, D]`` are split by whole clusters over the
-mesh's ``gallery`` axis (pad clusters have length 0). Search has global-
-nprobe semantics:
+mesh's ``gallery`` axis (pad clusters have length 0), replicated over
+``data``; each process holds its first data row's shards and merges within
+that row's gallery group. Search has global-nprobe semantics:
 
 1. each shard scores the queries against its own centroids; the coarse
    scores ``[nq, C]`` are all-gathered, so every shard knows the global
@@ -93,7 +94,8 @@ def sharded_ivf_search(
     for cent, _, lengths, _ in shards:   # 1. coarse scores, gathered
         cs = queries.to(cent.device) @ cent.T
         cs_local.append(torch.where(lengths[None, :] > 0, cs, torch.full_like(cs, NEG_INF)))
-    cs = all_gather_cols(torch.cat([c.to(out) for c in cs_local], dim=1))   # [nq, C]
+    cs = all_gather_cols(torch.cat([c.to(out) for c in cs_local], dim=1),
+                         mesh.gallery_group)                                  # [nq, C]
     thresh = stable_topk(cs, min(nprobe, C))[0][:, -1]
     parts_s, parts_r = [], []
     for shard, cs_l in zip(shards, cs_local):   # 2. each shard's qualifying clusters
@@ -101,8 +103,8 @@ def sharded_ivf_search(
         s, r = _probe_shard(shard, queries.to(dev), cs_l, thresh.to(dev), P_l, k_loc)
         parts_s.append(s.to(out))
         parts_r.append(r.to(out))
-    s_all = all_gather_cols(torch.cat(parts_s, dim=1))   # 3. merge
-    r_all = all_gather_cols(torch.cat(parts_r, dim=1))
+    s_all = all_gather_cols(torch.cat(parts_s, dim=1), mesh.gallery_group)   # 3. merge
+    r_all = all_gather_cols(torch.cat(parts_r, dim=1), mesh.gallery_group)
     s_top, pos = stable_topk(s_all, k)
     return order_by_score_then_row(s_top, torch.gather(r_all, 1, pos))
 
@@ -131,9 +133,10 @@ class ShardedIVF:
         self.n_clusters = C + pad
         C_l = self.n_clusters // n_shards
         self.shards = []
-        for j, dev in enumerate(self.mesh.local_devices):
-            sl = slice(self.mesh.shard_id(j) * C_l, (self.mesh.shard_id(j) + 1) * C_l)
-            self.shards.append(tuple(t[sl].to(dev).contiguous()
+        for j in self.mesh.gallery_shards:
+            g = self.mesh.gallery_index(j)
+            self.shards.append(tuple(t[g * C_l:(g + 1) * C_l].to(self.mesh.local_devices[j])
+                                     .contiguous()
                                      for t in (cent, parts, lengths, row_ids)))
 
     def search(self, queries, k: int = 10, nprobe: int = 8) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,14 +2,16 @@
 ``parallel/sharded_pq.py`` on ``torch.distributed``.
 
 The ``[N, M]`` uint8 codes are padded to whole shards and split by rows over
-the mesh's ``gallery`` axis, as ``parallel.sharded_index`` splits f32 rows;
-the codebooks are on every shard's device. A query batch:
+the mesh's ``gallery`` axis and replicated over ``data``, as
+``parallel.sharded_index`` splits f32 rows; the codebooks are on every
+shard's device. A query batch:
 
 1. every shard builds the same ``[nq, M, 256]`` lookup tables;
 2. each shard streams its codes through ``retrieval.pq.adc_topk_core``
    (the ADC kernel, B7, on the card) with ``n_valid`` and
    ``index_offset``;
-3. the (k score, k global row) partials are all-gathered and a stable
+3. the (k score, k global row) partials are all-gathered within the data
+   row's gallery group and a stable
    ``merge_topk`` picks the global top-k, bit for bit single-device
    ``PQIndex.search``'s.
 
@@ -67,8 +69,8 @@ def sharded_adc_topk(
         s, i = adc_topk_core(lut, c, k=k, chunk=chunk, n_valid=valid, index_offset=offset)
         parts_s.append(s.to(out))
         parts_i.append(i.to(out))
-    s_all = all_gather_cols(torch.cat(parts_s, dim=1))
-    i_all = all_gather_cols(torch.cat(parts_i, dim=1))
+    s_all = all_gather_cols(torch.cat(parts_s, dim=1), mesh.gallery_group)
+    i_all = all_gather_cols(torch.cat(parts_i, dim=1), mesh.gallery_group)
     s, i = merge_topk(s_all, i_all, k)
     return s, i.to(torch.int32)
 
@@ -89,8 +91,9 @@ class ShardedPQ:
             (local_rows * n_shards - pq.codes.shape[0], pq.codes.shape[1]), np.uint8)])
         books = torch.from_numpy(pq.codebooks)
         self.codes, self.codebooks = [], []
-        for j, dev in enumerate(self.mesh.local_devices):
-            start = self.mesh.shard_id(j) * local_rows
+        for j in self.mesh.gallery_shards:
+            dev = self.mesh.local_devices[j]
+            start = self.mesh.gallery_index(j) * local_rows
             self.codes.append(torch.from_numpy(codes[start : start + local_rows]).to(dev))
             self.codebooks.append(books.to(dev))
 

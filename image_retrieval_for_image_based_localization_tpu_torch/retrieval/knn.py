@@ -184,6 +184,24 @@ def knn_search(
     return best_s.contiguous(), best_i.to(torch.int32).contiguous()
 
 
+def approx_topk(
+    gallery: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    recall_target: float = 0.95,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``approx_topk``: ``lax.approx_max_k``, the TPU's
+    partial-reduction selection at ``recall_target``. On CPU and GPU XLA
+    lowers it to an exact top-k, and so does the port: this is
+    :func:`knn_search` (recall 1.0, which meets any target), so its order on
+    ties is the exact search's, lower row first. Returns ``(scores [Nq, k]
+    f32, indices [Nq, k] int32)``."""
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
+    return knn_search(torch.as_tensor(gallery), torch.as_tensor(queries), k, chunk=chunk)
+
+
 def full_ranks(gallery: torch.Tensor, queries: torch.Tensor, batch: int = 256) -> np.ndarray:
     """Full ranking ``[Ng, Nq]`` for mAP: dense scores, then a descending
     stable sort per query (the JAX package's host argsort, same order)."""

@@ -15,13 +15,24 @@ steps_per_epoch)`` through ``LambdaLR``, stepped once per applied step. With
 ``update_every = k > 1`` the gradients of k micro-batches are averaged before
 one update, as ``optax.MultiSteps`` does.
 
-Not here (each raises): a ``mesh`` (data-parallel training under DDP, ROADMAP
-A10: ``parallel/`` shards the search gallery, not the batch), bf16 training
-and ``remat`` (ROADMAP C3).
+With a ``mesh`` (``parallel.mesh``) the step is data-parallel over its
+``data`` axis, one process per card, as the JAX step's batch is sharded over
+``data`` under ``jit``: each process takes its contiguous slice of the global
+batch, train-mode BatchNorm takes the global batch's statistics
+(``models.resnet.global_batch_stats``: float64 sums all-reduced over the
+data group, split-invariant), the gradients are averaged over the data group
+by one flattened all-reduce once per applied update, and the loss returned
+is the global mean; the numbers are those of one process on the global batch
+with its BatchNorm on that path. ``create_train_state(mesh=...)`` broadcasts
+the data group's first process's weights.
+
+Not here (each raises): several devices in one process (ROADMAP C14: one
+process per card), bf16 training and ``remat`` (ROADMAP C3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Iterable, Optional, Tuple
@@ -34,12 +45,20 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
     IMAGENET_STD,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.init import init_random_
+from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
+    global_batch_stats,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
     RetrievalNet,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.losses import (
     contrastive_loss,
     triplet_loss,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    broadcast_,
+    group_size,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
     DeviceLike,
@@ -80,10 +99,11 @@ class TrainState:
 
 def check_trainable(model: RetrievalNet, cfg: TrainConfig, mesh=None) -> None:
     """Raise on what this package does not train."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over a mesh (DDP on its data axis) "
-                                  "is not ported yet: parallel/ shards the search gallery "
-                                  "only (ROADMAP A10)")
+    if mesh is not None and len(set(mesh.local_devices)) > 1:
+        raise NotImplementedError(
+            f"a train mesh whose shards lie on {len(set(mesh.local_devices))} devices in one "
+            f"process: data-parallel training runs one process per card (ROADMAP C14); "
+            f"launch a process per card under torch.distributed")
     if model.compute_dtype != torch.float32:
         raise NotImplementedError("bf16 training is not supported: it needs train-mode "
                                   "BatchNorm with flax's bf16 rounding points and its "
@@ -128,17 +148,21 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig
 
 def create_train_state(model: RetrievalNet, cfg: TrainConfig = TrainConfig(),
                        state_dict: Optional[dict] = None, seed: int = 0,
-                       device: DeviceLike = "cuda") -> TrainState:
+                       device: DeviceLike = "cuda", mesh=None) -> TrainState:
     """The model on ``device`` in train mode, holding ``state_dict`` or random
     weights from ``torch.Generator().manual_seed(seed)``, with a fresh
-    optimizer over all its parameters."""
-    check_trainable(model, cfg)
+    optimizer over all its parameters. With a ``mesh`` (the train step's)
+    every process of its data group takes the group's first process's
+    parameters and buffers, as DDP does."""
+    check_trainable(model, cfg, mesh)
     dev = resolve_device(device)
     if state_dict is None:
         init_random_(model, torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state_dict)
     model.to(dev).train()
+    if mesh is not None:
+        broadcast_(list(model.parameters()) + list(model.buffers()), mesh.data_group)
     opt, sched = make_optimizer(model.parameters(), cfg)
     return TrainState(model=model, optimizer=opt, scheduler=sched)
 
@@ -181,22 +205,45 @@ def u8_to_input(pixels_u8: torch.Tensor, sizes: torch.Tensor
     return x * mask[..., None], mask
 
 
-def apply_micro_step(state: TrainState, update_every: int) -> None:
+def apply_micro_step(state: TrainState, update_every: int, group=None,
+                     n_proc: int = 1) -> None:
     """Count one micro-batch whose gradients ``backward`` has added into the
     parameters' ``.grad``; on every ``update_every``-th, average the summed
     gradients, step the optimizer and the lr schedule. The caller zeroes the
-    gradients before the first micro-batch of an update (``micro == 0``)."""
+    gradients before the first micro-batch of an update (``micro == 0``).
+
+    ``n_proc > 1``: the data group (``group``) of a data-parallel step, of
+    that many processes; their summed gradients are all-reduced as one flat
+    tensor and averaged over the group too, once per applied update."""
     state.step += 1
     state.micro += 1
     if state.micro < update_every:
         return
-    if update_every > 1:
-        for p in state.model.parameters():
-            if p.grad is not None:
-                p.grad.div_(update_every)
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    if n_proc > 1 and grads:
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+        flat.div_(n_proc * update_every)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+    elif update_every > 1:
+        for g in grads:
+            g.div_(update_every)
     state.optimizer.step()
     state.scheduler.step()
     state.micro = 0
+
+
+def data_slice(mesh, batch: int) -> slice:
+    """The rows of a global batch of ``batch`` tuples this process trains on:
+    ``batch / D`` for each of its data rows, contiguous. Refuses a batch the
+    data axis does not divide, as the JAX step's sharding does."""
+    D = mesh.shape.get("data", 1)
+    if batch % D:
+        raise ValueError(f"a global batch of {batch} tuples over a data axis of {D}: "
+                         f"the batch must be a multiple of the data axis")
+    rows = [mesh.data_index(j) for j in mesh.data_rows]
+    n = batch // D
+    return slice(rows[0] * n, (rows[-1] + 1) * n)
 
 
 def make_train_step(model: RetrievalNet, cfg: TrainConfig = TrainConfig(), mesh=None,
@@ -208,27 +255,49 @@ def make_train_step(model: RetrievalNet, cfg: TrainConfig = TrainConfig(), mesh=
     mask-aware head (the rect kernels with ``use_kernel``). Inputs may be
     numpy arrays or tensors; they go to the model's device. The loss comes
     back as a detached 0-d tensor. After an applied update the parameters'
-    ``.grad`` hold the (averaged) gradients it used."""
+    ``.grad`` hold the (averaged) gradients it used.
+
+    With a ``mesh`` every process passes the same global batch and trains on
+    its slice (:func:`data_slice`); BatchNorm, the gradients and the loss are
+    the global batch's (``models.resnet.global_batch_stats``, split-invariant
+    float64 sums, where the data group holds several processes;
+    ``F.batch_norm`` in a group of one), so the numbers are those of one
+    process on the global batch with its BatchNorm on that path. All of a
+    process's shards must share its device (one process per card)."""
     check_trainable(model, cfg, mesh)
     k = max(int(cfg.update_every), 1)
+    group = None if mesh is None else mesh.data_group
+    n_proc = 1 if mesh is None else group_size(group)
 
     def run(state: TrainState, x: torch.Tensor, labels, mask) -> Tuple[TrainState, torch.Tensor]:
         if state.micro == 0:
             state.optimizer.zero_grad(set_to_none=True)
-        loss = _tuple_loss(state.model, cfg, x, _as_tensor(labels, x.device), mask)
-        loss.backward()
-        apply_micro_step(state, k)
-        return state, loss.detach()
+        with global_batch_stats(group) if n_proc > 1 else contextlib.nullcontext():
+            loss = _tuple_loss(state.model, cfg, x, _as_tensor(labels, x.device), mask)
+            loss.backward()
+        apply_micro_step(state, k, group, n_proc)
+        loss = loss.detach()
+        if n_proc > 1:
+            loss = all_reduce_sum(loss, group) / n_proc
+        return state, loss
+
+    def local(*arrays):
+        if mesh is None:
+            return arrays
+        rows = data_slice(mesh, arrays[0].shape[0])
+        return tuple(a[rows] for a in arrays)
 
     if from_u8:
         def step_u8(state: TrainState, pixels_u8, sizes, labels):
             dev = _device(state.model)
+            pixels_u8, sizes, labels = local(pixels_u8, sizes, labels)
             x, mask = u8_to_input(_as_tensor(pixels_u8, dev), _as_tensor(sizes, dev))
             return run(state, x, labels, mask)
 
         return step_u8
 
     def step(state: TrainState, pixels, labels):
+        pixels, labels = local(pixels, labels)
         return run(state, _as_tensor(pixels, _device(state.model)).float(), labels, None)
 
     return step

@@ -9,10 +9,9 @@ compatibility and rejected by :func:`check_supported` when set;
 ``dtype="bfloat16"`` runs every trunk in bf16 (graded configs 4 and 5), and
 ``native_preproc`` selects the native C++ decoder for path inputs as in the
 JAX package.
-What the training path refuses (bf16 training, ``remat``, data-parallel
-training over a mesh) is checked by ``training.trainer.check_trainable``;
-``parallel/`` shards the search gallery only, and a mesh with a ``data``
-axis above 1 raises in ``parallel.mesh.create_mesh`` (ROADMAP A10).
+What the training path refuses (bf16 training, ``remat``, a train mesh
+with several devices in one process) is checked by
+``training.trainer.check_trainable``.
 """
 
 from __future__ import annotations

@@ -507,6 +507,63 @@ def test_bottleneck_bf16_runs_on_a_second_device():
     assert torch.equal(got0.cpu(), got1.cpu()) and torch.equal(want0.cpu(), want1.cpu())
 
 
+# the f32 kernels that data-parallel extraction and training launch (B1, B2,
+# B5, B6, B8), each on cuda:0 and then on cuda:1 in one process: a launch on
+# each card, within its bound of the plain version there, the same bits on
+# both cards
+SECOND_DEVICE_KERNELS = ["gem_l2n_fused_rect", "gem_l2n_fused", "netvlad_fused_rect",
+                         "netvlad_fused", "bottleneck_fused"]
+
+
+def _second_device_case(name, dev):
+    """(kernel output, plain output, max|err| bound) of one seeded call."""
+    if name.startswith("gem"):
+        x = _rand((7, 5, 7, 2048), 0, dev)
+        p = torch.tensor([3.0], device=dev)
+        if name == "gem_l2n_fused":
+            return gem_l2n_fused(x, p), gem_l2n_plain(x, p), 1e-5
+        sizes = torch.tensor([[5, 7], [0, 0], [3, 2], [1, 7], [5, 1], [2, 6], [1, 1]],
+                             dtype=torch.int32, device=dev)
+        return gem_l2n_fused_rect(x, p, sizes), gem_l2n_plain(x, p, sizes), 1e-5
+    if name.startswith("netvlad"):
+        x, c, w, b = _netvlad_inputs(dev, 5, 9, 13, 96, 64, 3)
+        if name == "netvlad_fused":
+            return netvlad_fused(x, c, w, b), netvlad_plain(x, c, w, b, None), 1e-5
+        sizes = torch.tensor([[9, 13], [0, 0], [4, 13], [9, 5], [1, 1]], dtype=torch.int32,
+                             device=dev)
+        return netvlad_fused_rect(x, c, w, b, sizes=sizes), netvlad_plain(x, c, w, b, sizes), \
+            1e-5
+    g = torch.Generator().manual_seed(7)
+    B, H, W, cin, cm = 2, 16, 16, 256, 64
+    x = torch.relu(torch.randn((B, H, W, cin), generator=g))
+    w1 = torch.randn((cin, cm), generator=g) * (2 / cin) ** 0.5
+    w2 = torch.randn((3, 3, cm, cm), generator=g) * (2 / (9 * cm)) ** 0.5
+    w3 = torch.randn((cm, cin), generator=g) * (2 / cm) ** 0.5
+    b1, b2, b3 = (0.1 * torch.randn(c, generator=g) for c in (cm, cm, cin))
+    args = [t.to(dev).contiguous() for t in (x, w1, b1, w2, b2, w3, b3)]
+    want = bottleneck_plain(*args)
+    return bottleneck_fused(*args), want, 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name", SECOND_DEVICE_KERNELS)
+def test_f32_kernels_run_on_a_second_device(name):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+
+    fn = getattr(kernels, name)
+    outs = []
+    for i in (0, 1):
+        dev = resolve_device(f"cuda:{i}")
+        before = fn.launches
+        got, want, bound = _second_device_case(name, dev)
+        torch.cuda.synchronize(dev)
+        assert fn.launches == before + 1 and got.device == dev
+        assert (got - want).abs().max().item() <= bound
+        outs.append(got.cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_bottleneck_bf16_launches_its_kernel_and_never_the_plain_version(dev, monkeypatch):
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         bottleneck as mod,

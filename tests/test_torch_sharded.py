@@ -179,8 +179,12 @@ def test_mesh_layout_and_refusals():
     assert [m.shard_id(j) for j in range(4)] == [0, 1, 2, 3]
     assert create_mesh([4], axis_names=("gallery",), devices=["cpu"] * 4).shape == {"gallery": 4}
     assert default_mesh("cpu").shape == {"data": 1, "gallery": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        create_mesh([2, 2], devices=["cpu"] * 4)
+    # a data axis (ported): shard s at (s // 2, s % 2); the search uses the
+    # first data row's two gallery shards, the other row holds replicas
+    m = create_mesh([2, 2], devices=["cpu"] * 4)
+    assert [(m.data_index(j), m.gallery_index(j)) for j in range(4)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert m.gallery_shards == [0, 1] and m.data_rows == [0, 2]
     with pytest.raises(ValueError, match="mesh"):
         create_mesh([1, 3], devices=["cpu"] * 4)
 

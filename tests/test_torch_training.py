@@ -49,6 +49,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.losses import (
     contrastive_loss,
     triplet_loss,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.parallel.mesh import Mesh
 from image_retrieval_for_image_based_localization_tpu_torch.training import trainer
 from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
     TrainConfig,
@@ -374,8 +375,11 @@ def test_train_epoch_validate_and_eval_step_run():
 
 def test_what_the_port_does_not_train_raises():
     cfg = TrainConfig()
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step(RetrievalNet(arch="resnet18"), cfg, mesh=object())
+    # a data-parallel train mesh holds one card a process: shards of one
+    # process on two devices are refused before anything reaches them
+    two_cards = Mesh({"data": 2, "gallery": 1}, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="one process per card"):
+        make_train_step(RetrievalNet(arch="resnet18"), cfg, mesh=two_cards)
     with pytest.raises(NotImplementedError, match="bf16 training"):
         create_train_state(RetrievalNet(arch="resnet18", dtype="bfloat16"), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
