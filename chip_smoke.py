@@ -36,7 +36,7 @@ Phases (any failure exits non-zero):
        5 % of the values not equal bit for bit, a second call bit for bit;
        the launch plan the built library reports held against the
        wrapper's);
-  4. thirteen paths at full width, each with the launch counts set to 0 just
+  4. fourteen paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -155,6 +155,18 @@ Phases (any failure exits non-zero):
        reference's), with kernel B1 launched in each; a worker that fails or
        outlives 300 s fails the run; ``--path-j`` runs the build and this
        path alone;
+     - path K, the tooling (after path J): benchmarks.run_full_system_bench
+       at config 2's model (resnet50 + GeM, 1024 px, batch 16, bf16, kernel
+       B1) on 64 JPEGs of 1200 x 1600 inside utils.metrics.profile_trace
+       (decode img/s per thread count, device and end-to-end img/s,
+       overlap_efficiency; the GeM launches the trace names against the
+       wrappers' counts), on one batch's worth of the JPEGs the extractor's
+       host pipeline alone and one end-to-end extraction under profile_trace
+       and under profile_window, B1 on that batch against the plain head;
+       measure_bucketing_delta (resnet50, 1024 px, f32, kernel head) beside
+       its CPU run, stress cos_min >= 0.99; the CLI on the card (fullsystem,
+       parity, download and extract --network from a localhost HTTP server);
+       debug_checks and assert_deterministic on the card;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
@@ -258,9 +270,19 @@ def profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof.events(), wall_ms)
+
+
+def device_summary(events, wall_ms):
+    """The card's busy ms (the union of its kernel intervals), idle share of
+    ``wall_ms`` and device ms by group, from a profiler's events (a named
+    range's mirror on the card's timeline is no kernel)."""
+    import torch
+
     spans, groups = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
             continue
         start, end = e.time_range.start, e.time_range.end  # us
         spans.append((start, end))
@@ -3954,6 +3976,351 @@ def dp_worker(rank: int, port_no: int, ref_dir: str, backend: str) -> int:
     return 0
 
 
+# path K: the tooling (fullsystem, parity, the CLI's download and --network,
+# debug checks); K1 and K2 at config 2's model
+# K1-K3's model (config 2's: resnet50 + GeM at 1024 px, batch 16); K1's
+# corpus: JPEGs of 1200 x 1600, quality 90; K3's `fullsystem --n-images`
+TOOLING = dict(arch="resnet50", image_size=1024, batch_size=16, jpegs=64, cli_jpegs=16)
+BF16_TOL = 1e-2           # bf16 descriptors against their reference, and cosine
+BF16_COS = 0.999
+STRESS_COS_MIN = 0.99     # K2: bucketed against exact on the stress set
+
+
+def _named_launches(events):
+    """The GeM launches a profiler recorded: the ranges the wrapper names
+    after its entry point (host side), and ``gem_l2n_kernel`` on the card."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in events if e.device_type != cuda]
+    return {"gem_l2n_fused_rect": names.count("gem_l2n_fused_rect"),
+            "gem_l2n_fused": names.count("gem_l2n_fused"),
+            "gem_l2n_kernel_on_card": sum(
+                1 for e in events if e.device_type == cuda and "gem_l2n_kernel" in e.name
+                and not getattr(e, "is_user_annotation", False))}
+
+
+def _local_corpus_server(root):
+    """``tests/test_download.py``'s layout on a localhost HTTP server: a jpg
+    tarball and a gnd pickle (a four-image dataset, ``minik``); returns the
+    server and its base URL."""
+    import http.server
+    import pickle
+    import tarfile
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    jpgdir = os.path.join(root, "stage", "jpg")
+    os.makedirs(jpgdir)
+    rng = np.random.RandomState(0)
+    names = [f"img_{i}" for i in range(4)]
+    for n in names:
+        Image.fromarray((rng.rand(32, 48, 3) * 255).astype(np.uint8)).save(
+            os.path.join(jpgdir, f"{n}.jpg"))
+    with tarfile.open(os.path.join(root, "images.tgz"), "w:gz") as tf:
+        tf.add(jpgdir, arcname="jpg")
+    gnd = {"imlist": names[:3], "qimlist": names[3:],
+           "gnd": [{"easy": np.array([0]), "hard": np.array([1]), "junk": np.array([2]),
+                    "bbx": np.array([0, 0, 20, 20])}]}
+    with open(os.path.join(root, "gnd_minik.pkl"), "wb") as f:
+        pickle.dump(gnd, f)
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                          lambda *a, **kw: Quiet(*a, directory=root, **kw))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def tooling_phase(dev, smi):
+    """Path K: the tooling on the card, in its own launch-count window.
+
+    K1. benchmarks.run_full_system_bench at config 2's model (resnet50 +
+        GeM, 1024 px, batch 16; bf16 with the kernel head, as on every
+        card) on 64 JPEGs of 1200 x 1600 inside utils.metrics.profile_trace:
+        decode img/s per thread count, device img/s, end-to-end img/s,
+        overlap_efficiency; the GeM launches the trace names against the
+        wrapper's counts; then, on the first 16 JPEGs, the extractor's host
+        pipeline alone (img/s), one end-to-end extraction under
+        profile_trace and under profile_window (idle shares side by side),
+        and the batch through the kernel head against the plain head
+        (1e-2, cosine 0.999);
+    K2. benchmarks.measure_bucketing_delta with resnet50 at 1024 px, f32,
+        kernel head, under profile_trace (B1 and B2 launches from its
+        events), beside the same function on the CPU on the same seeded
+        weights; gate: stress cos_min >= 0.99;
+    K3. cli.main on the card: fullsystem --n-images 16 and parity; download
+        of a dataset and extract --network of a cirtorch-layout resnet50 +
+        GeM, both from a localhost HTTP server, the descriptors against
+        --checkpoint on the same weights (1e-5); each returns 0;
+    K4. utils.debug: x / x on zeros raises FloatingPointError on the card;
+        one extraction batch through the kernel head passes
+        assert_deterministic inside debug_checks.
+    Every failed check is collected and the phase raises after K4."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import image_retrieval_for_image_based_localization_tpu_torch as port
+    import image_retrieval_for_image_based_localization_tpu_torch.data.download as dl
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        measure_bucketing_delta,
+        run_full_system_bench,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.cli import main as cli_main
+    from image_retrieval_for_image_based_localization_tpu_torch.models import (
+        RetrievalNet,
+        init_random_,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+        _CIRTORCH_SEQ_NAMES,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.debug import (
+        assert_deterministic,
+        debug_checks,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import (
+        MetricsLogger,
+        profile_trace,
+    )
+
+    K = TOOLING
+    t_path = time.perf_counter()
+    out, fails = {}, []
+    tmp = tempfile.mkdtemp(prefix="tooling_")
+    quiet = MetricsLogger()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        # K1: decode, device and end to end at config 2's model
+        root = os.path.join(tmp, "fullsys")
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        with profile_trace(os.path.join(tmp, "trace")) as prof:
+            fs = run_full_system_bench(n_images=K["jpegs"], image_size=K["image_size"],
+                                       arch=K["arch"], batch_size=K["batch_size"], root=root,
+                                       device=dev, logger=quiet)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                   if k.startswith("gem_l2n")}
+        traced = _named_launches(prof.events())
+        bench_trace = device_summary(prof.events(), wall_ms)
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+        log(f"[tooling K1] run_full_system_bench {K['arch']} + GeM, {K['image_size']} px, batch "
+            f"{K['batch_size']}, bf16, kernel head, {K['jpegs']} JPEGs 1200 x 1600 "
+            f"({fs['jpeg_mb']} MB), native "
+            f"decode {fs['native']}: decode img/s by threads {json.dumps(fs['decode_img_per_sec'])}"
+            f", device {fs['device_img_per_sec']} img/s, end to end {fs['e2e_img_per_sec']} "
+            f"img/s, overlap_efficiency {fs['overlap_efficiency']} | {smi}")
+        log(f"[tooling K1] profile_trace over the bench ({wall_ms / 1e3:.1f} s, trace "
+            f"{trace_mb:.1f} MB): launches named in the trace {json.dumps(traced)}, counted by "
+            f"the wrappers {json.dumps(counted)}; card busy {bench_trace['busy_ms']:.1f} ms, idle "
+            f"share {bench_trace['idle_share']} | {smi}")
+        if (traced["gem_l2n_fused_rect"], traced["gem_l2n_fused"]) != \
+                (counted["gem_l2n_fused_rect"], counted["gem_l2n_fused"]) or \
+                traced["gem_l2n_kernel_on_card"] != sum(counted.values()) or \
+                counted["gem_l2n_fused_rect"] == 0:
+            fails.append(f"K1: GeM launches in the trace {traced} against the wrappers' "
+                         f"{counted}")
+        if not fs["e2e_img_per_sec"] > 0 or not fs["device_img_per_sec"] > 0:
+            fails.append(f"K1: rates {fs}")
+        out["fullsystem"] = dict(fs, trace_launches=traced, wrapper_launches=counted,
+                                 trace_idle_share=bench_trace["idle_share"])
+
+        # one batch's worth of the corpus: the host pipeline alone, then one
+        # end-to-end extraction under each profiler
+        cfg = port.ExtractConfig(model=port.ModelConfig(arch=K["arch"], dtype="bfloat16",
+                                                        use_pallas=True),
+                                 image_size=K["image_size"], batch_size=K["batch_size"])
+        ex = port.Extractor(cfg, device=dev)
+        paths = sorted(os.path.join(root, f) for f in os.listdir(root))[:K["batch_size"]]
+        t0 = time.perf_counter()
+        for _ in ex.make_input_batches(paths):
+            pass
+        host_rate = len(paths) / (time.perf_counter() - t0)
+        ex.extract(paths)  # warm
+        t0 = time.perf_counter()
+        with profile_trace(os.path.join(tmp, "trace")) as prof:
+            ex.extract(paths)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_trace = device_summary(prof.events(), wall_ms)
+        by_window = profile_window(lambda: ex.extract(paths))
+        log(f"[tooling K1] {len(paths)} of the JPEGs: the extractor's host pipeline alone "
+            f"({'native' if fs['native'] else 'PIL'} decode and resize, the prefetch thread's "
+            f"work) {host_rate:.2f} img/s; one end-to-end extraction: profile_trace idle share "
+            f"{by_trace['idle_share']} (busy {by_trace['busy_ms']:.1f} of "
+            f"{by_trace['wall_ms']:.1f} ms), profile_window idle share "
+            f"{by_window['idle_share']} (busy {by_window['busy_ms']:.1f} of "
+            f"{by_window['wall_ms']:.1f} ms); device ms by group (trace) "
+            f"{json.dumps(by_trace['device_ms_by_group'])} | {smi}")
+        if by_trace["idle_share"] is None or by_window["idle_share"] is None:
+            fails.append("K1: a profiler recorded no kernel on the card")
+        out["e2e_profiles"] = {"profile_trace": by_trace, "profile_window": by_window,
+                               "host_pipeline_img_per_s": host_rate}
+
+        # one batch: the kernel head against the plain head
+        batch = next(iter(ex.make_input_batches(paths)))
+        px = torch.from_numpy(batch.pixels_u8).to(dev)
+        sz = torch.from_numpy(batch.sizes).to(dev)
+        with _uncounted():
+            got = ex.forward_u8(px, sz).cpu().numpy()
+        ex.model.use_kernel = False
+        want = ex.forward_u8(px, sz).cpu().numpy()
+        ex.model.use_kernel = True
+        err = float(np.abs(got - want).max())
+        cos = float(np.min(np.sum(got * want, axis=1)))
+        log(f"[tooling K1] B1 on a {list(px.shape)} batch against the plain "
+            f"head: max|err| {err:.3e}, min cosine {cos:.7f} (gates {BF16_TOL}, {BF16_COS}) "
+            f"| {smi}")
+        if not (err <= BF16_TOL and cos >= BF16_COS):
+            fails.append(f"K1: kernel head vs plain head {err}, cosine {cos}")
+        out["b1_err"] = err
+
+        # K4 first half, on K1's extractor: determinism of the kernel head
+        # under the debug checks (the second run is the first one's reference)
+        t0 = time.perf_counter()
+        with debug_checks():
+            assert_deterministic(ex.forward_u8, px, sz)
+        log(f"[tooling K4] assert_deterministic(forward_u8) inside debug_checks on one "
+            f"bf16 kernel-head batch: passed in {time.perf_counter() - t0:.2f} s | {smi}")
+        del ex
+
+        # K2: bucketed against exact, f32, the kernel head on the card
+        syn = os.path.join(tmp, "synth")
+        before = kernels.launch_counts()
+        with profile_trace(os.path.join(tmp, "trace")) as prof:
+            bd = measure_bucketing_delta(arch=K["arch"], image_size=K["image_size"],
+                                         synth_root=syn, logger=quiet, device=dev)
+            torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                   if k.startswith("gem_l2n")}
+        traced = _named_launches(prof.events())
+        bd_cpu = measure_bucketing_delta(arch=K["arch"], image_size=K["image_size"],
+                                         synth_root=syn, logger=quiet, device="cpu")
+        log(f"[tooling K2] measure_bucketing_delta {K['arch']}, {K['image_size']} px, f32, "
+            f"kernel head: card "
+            f"{json.dumps(bd)}; the CPU (plain head, same seeded weights) {json.dumps(bd_cpu)}; "
+            f"launches named in the trace {json.dumps(traced)}, counted {json.dumps(counted)} "
+            f"| {smi}")
+        if not bd["stress_cos_min"] >= STRESS_COS_MIN:
+            fails.append(f"K2: stress cos_min {bd['stress_cos_min']} < {STRESS_COS_MIN}")
+        if traced["gem_l2n_fused_rect"] != counted["gem_l2n_fused_rect"] or \
+                counted["gem_l2n_fused_rect"] == 0:
+            fails.append(f"K2: GeM launches in the trace {traced} against {counted}")
+        out["bucketing_delta"] = dict(bd, cpu=bd_cpu, trace_launches=traced)
+
+        # K3: the CLI on the card
+        rcs = {}
+        model = ["--arch", K["arch"], "--image-size", str(K["image_size"]), "--device",
+                 str(dev)]
+        for name, argv in (
+                ("fullsystem", ["fullsystem", "--n-images", str(K["cli_jpegs"]), "--root", root,
+                                "--batch-size", str(K["batch_size"])]),
+                ("parity", ["parity", "--synth-root", syn])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rcs[name] = cli_main(argv + model)
+            last = buf.getvalue().strip().splitlines()[-1]
+            log(f"[tooling K3] cli {' '.join(argv[:3])} {' '.join(model)}: rc {rcs[name]} in "
+                f"{time.perf_counter() - t0:.1f} s, {last} | {smi}")
+        served = os.path.join(tmp, "served")
+        os.makedirs(served)
+        srv, url = _local_corpus_server(served)
+        net = RetrievalNet(K["arch"], "gem")
+        init_random_(net, torch.Generator().manual_seed(5))
+        seq = _CIRTORCH_SEQ_NAMES["resnet"]
+        cirtorch = {}
+        for k, v in net.state_dict().items():
+            parts = k.split(".")
+            if parts[0] == "features":
+                parts[1] = str(seq.index(parts[1]))
+            cirtorch[".".join(parts)] = v
+        torch.save({"state_dict": cirtorch, "meta": {"architecture": K["arch"],
+                                                     "pooling": "gem"}},
+                   os.path.join(served, "fake-net.pth"))
+        plain_pth = os.path.join(tmp, "plain.pth")
+        torch.save(net.state_dict(), plain_pth)
+        data = os.path.join(tmp, "data")
+        saved = (dict(dl.TEST_MANIFESTS), dict(dl.ZOO_MANIFESTS), os.environ.get("IRTPU_OFFLINE"))
+        os.environ.pop("IRTPU_OFFLINE", None)
+        dl.TEST_MANIFESTS["minik"] = dl.DatasetManifest("minik", artifacts=(
+            dl.Artifact(f"{url}/images.tgz", "minik/jpg", extract=True, members_strip=1),
+            dl.Artifact(f"{url}/gnd_minik.pkl", "minik/gnd_minik.pkl")),
+            required=("minik/gnd_minik.pkl", "minik/jpg"))
+        dl.ZOO_MANIFESTS["fake-net"] = dl.Artifact(f"{url}/fake-net.pth",
+                                                   "networks/fake-net.pth")
+        try:
+            # the fetch's progress lines go to a buffer
+            with contextlib.redirect_stdout(io.StringIO()):
+                rcs["download"] = cli_main(["download", "minik", "--data-root", data])
+                jpgs = sorted(os.path.join(data, "minik", "jpg", f)
+                              for f in os.listdir(os.path.join(data, "minik", "jpg")))
+                descs = {}
+                for tag, flags in (("network", ["--network", "fake-net", "--arch", "vgg16"]),
+                                   ("checkpoint", ["--checkpoint", plain_pth, "--arch",
+                                                   K["arch"]])):
+                    path = os.path.join(tmp, f"{tag}.npy")
+                    rcs[f"extract --{tag}"] = cli_main(
+                        ["extract", "--images", *jpgs, "--out", path, "--data-root", data,
+                         "--pallas", "--device", str(dev), *flags])
+                    descs[tag] = np.load(path)
+        finally:
+            dl.TEST_MANIFESTS.clear()
+            dl.TEST_MANIFESTS.update(saved[0])
+            dl.ZOO_MANIFESTS.clear()
+            dl.ZOO_MANIFESTS.update(saved[1])
+            if saved[2] is not None:
+                os.environ["IRTPU_OFFLINE"] = saved[2]
+            srv.shutdown()
+            srv.server_close()
+        d_net = descs["network"]
+        net_err = float(np.abs(d_net - descs["checkpoint"]).max())
+        log(f"[tooling K3] cli download minik (localhost HTTP): rc {rcs['download']}, "
+            f"{len(jpgs)} images; extract --network fake-net (a cirtorch-layout {K['arch']} + "
+            f"GeM fetched into --data-root; --arch vgg16 overridden by its meta) --pallas "
+            f"--device {dev}: rc {rcs['extract --network']}, descriptors {d_net.shape}, "
+            f"max|diff| to --checkpoint on the same weights {net_err:.3e}; return codes "
+            f"{json.dumps(rcs)} | {smi}")
+        if any(rc != 0 for rc in rcs.values()):
+            fails.append(f"K3: return codes {rcs}")
+        if d_net.shape != (len(jpgs), net.out_dim) or not np.isfinite(d_net).all() or \
+                net_err > GEM_TOL:
+            fails.append(f"K3: --network descriptors {d_net.shape}, {net_err} from --checkpoint")
+        out["cli"] = {"return_codes": rcs, "network_vs_checkpoint": net_err}
+
+        # K4, second half: a NaN on the card stops at its operator
+        z = torch.zeros(4, device=dev)
+        try:
+            with debug_checks():
+                z / z
+            fails.append("K4: x / x on zeros inside debug_checks did not raise")
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        log(f"[tooling K4] debug_checks: x / x on zeros on the card raised FloatingPointError "
+            f"({raised}) | {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernels.launch_counts()
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"[tooling] path K launches {json.dumps(launches)}, wall {out['wall_s']:.1f} s | {smi}")
+    if fails:
+        raise AssertionError("path K: " + "; ".join(fails))
+    return launches, out
+
+
 def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """The bf16 bottleneck's library yardstick: a function running cuDNN's
     three bf16 convolutions (channels_last) with bias and ReLU and the skip
@@ -4300,12 +4667,13 @@ def main() -> int:
     torch.cuda.empty_cache()  # path D's memory, before path J's workers start
     launches_j, main_j = data_parallel_phase(dev, smi, c2, main_d)
     del c2
+    launches_k, main_k = tooling_phase(dev, smi)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config5_fused_trunk": launches_i,
                "config4": launches_e, "rerank": launches_f,
                "serving": launches_g, "other_trunks": launches_h, "training": launches_d,
-               "data_parallel": launches_j}
+               "data_parallel": launches_j, "tooling": launches_k}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -4321,7 +4689,7 @@ def main() -> int:
                 adc_scores=max(adc_in["err"], main_g["adc_err"]), bottleneck_fused=bn_err,
                 bottleneck_fused_bf16=max(bn16_err, main_i["block_max_abs_err"]))
     errs["gem_l2n_fused_rect"] = max(errs["gem_l2n_fused_rect"], main_g["gem_err"],
-                                     main_h["densenet121"]["d_err"],
+                                     main_k["b1_err"], main_h["densenet121"]["d_err"],
                                      main_h["alexnet-gem"]["d_err"],
                                      main_h["squeezenet1_1-gem"]["d_err"])
     errs["gem_l2n_fused"] = max(errs["gem_l2n_fused"], main_h["densenet121"]["d_err"])
@@ -4342,6 +4710,7 @@ def main() -> int:
                                   "config4": main_e, "rerank": main_f,
                                   "serving": main_g, "other_trunks": main_h,
                                   "training": main_d, "data_parallel": main_j,
+                                  "tooling": main_k,
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,
                                   "bottleneck_bf16_not_bit_equal_share": bn16_neq,

@@ -1,8 +1,11 @@
 """Runners for the graded benchmark configs, the JAX package's
 ``benchmarks.py::run_graded_config`` for configs 1 to 5, and its
-benches: train-step throughput (:func:`run_training_bench`), the
-recall-vs-q/s sweep of the search family (:func:`run_ann_bench`) and the
-closed-loop load test of the HTTP server (:func:`run_serving_bench`).
+benches: the bucketed-vs-exact extraction delta
+(:func:`measure_bucketing_delta`), disk-to-descriptor throughput split into
+decode, device and end to end (:func:`run_full_system_bench`), train-step
+throughput (:func:`run_training_bench`), the recall-vs-q/s sweep of the
+search family (:func:`run_ann_bench`) and the closed-loop load test of the
+HTTP server (:func:`run_serving_bench`).
 
 Each config runs on its dataset when it is on disk, else on the synthetic
 corpus; gallery scale is reached with random, L2-normalized distractor
@@ -322,6 +325,210 @@ def _sharded_gallery_run(n, cfg, gallery, q, n_core, logger, dev, mesh, whitenin
     return {"config": cfg.name, "top1_in_core": hit_core, "gallery": gallery, "queries": q,
             "indices": idx, "latency_s": lat, "recall": None, "whitening": whitening,
             "artifact": None, "sharded": sindex, "exact_match": exact_match}
+
+
+def measure_bucketing_delta(
+    arch: str = "resnet50",
+    image_size: int = 1024,
+    synth_root: str = os.path.join(tempfile.gettempdir(), "irtpu_synth"),
+    batch_size: int = 8,
+    state_dict: Optional[Dict] = None,
+    logger: Optional[MetricsLogger] = None,
+    device: DeviceLike = "cuda",
+) -> Dict:
+    """The bucketed-padding vs exact-shape extraction delta, the JAX
+    package's ``measure_bucketing_delta``.
+
+    Bucketed batches pad images inside their (stride-rounded) bucket; conv
+    features near the boundary see zeros though pooling is masked, so
+    descriptors differ slightly from the reference's one-image exact-shape
+    run. Two measures, one model's weights (``state_dict``, else the
+    extractor's seeded random init) in both extractors:
+
+      1. medium-protocol mAP on the synthetic corpus (6 scenes x 4 views, 8
+         distractors, 120 x 160, seed 13), bucketed against
+         ``ExtractConfig(exact=True)``, and their difference ``map_delta``;
+      2. per-image cosine between the two on an aspect-varied stress set of
+         five shapes from ``RandomState(0)`` (worst-case bucket padding):
+         ``stress_cos_mean`` and ``stress_cos_min``.
+
+    On the card both extractors take the kernel head (``use_pallas``), on
+    the CPU its plain version.
+    """
+    import dataclasses
+
+    from image_retrieval_for_image_based_localization_tpu_torch.evaluation.map import (
+        compute_map_revisited,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import full_ranks
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        ExtractConfig,
+        ModelConfig,
+    )
+
+    dev = resolve_device(device)
+    logger = logger or MetricsLogger(echo=True)
+    ds = make_synthetic_dataset(synth_root, name="synth-delta", n_scenes=6, views_per_scene=4,
+                                n_distractors=8, image_hw=(120, 160), seed=13)
+    cfg_b = ExtractConfig(model=ModelConfig(arch=arch, use_pallas=dev.type == "cuda"),
+                          image_size=image_size, batch_size=batch_size)
+    cfg_e = dataclasses.replace(cfg_b, exact=True)
+    ex_b = Extractor(cfg_b, state_dict=state_dict, device=dev)
+    ex_e = Extractor(cfg_e, state_dict=ex_b.model.state_dict(), device=dev)
+
+    results = {}
+    for name, ex in (("bucketed", ex_b), ("exact", ex_e)):
+        db = ex.extract(ds.image_paths)
+        qd = ex.extract(ds.query_paths, bbxs=ds.query_bbxs)
+        ranks = full_ranks(torch.from_numpy(db).to(dev), torch.from_numpy(qd).to(dev))
+        results[name] = float(compute_map_revisited(ranks, ds.gnd)["medium"]["map"])
+        logger.log(event="bucketing_delta", mode=name, map_medium=results[name])
+    results["map_delta"] = results["bucketed"] - results["exact"]
+
+    # aspect-varied stress set: worst-case padding inside 32-multiples
+    rng = np.random.RandomState(0)
+    stress = [rng.rand(h, w, 3).astype(np.float32)
+              for h, w in [(97, 257), (161, 99), (33, 129), (127, 65), (255, 161)]]
+    cos = np.sum(ex_b.extract(stress) * ex_e.extract(stress), axis=1)
+    results["stress_cos_mean"] = float(cos.mean())
+    results["stress_cos_min"] = float(cos.min())
+    logger.log(event="bucketing_delta", map_delta=results["map_delta"],
+               stress_cos_mean=results["stress_cos_mean"],
+               stress_cos_min=results["stress_cos_min"])
+    return results
+
+
+def run_full_system_bench(
+    n_images: int = 64,
+    image_size: int = 1024,
+    src_hw=(1200, 1600),
+    arch: str = "resnet50",
+    batch_size: int = 16,
+    nthreads_list=(1, 2, 4, 0),
+    reps: int = 3,
+    root: str = os.path.join(tempfile.gettempdir(), "irtpu_fullsys"),
+    use_pallas: Optional[bool] = None,
+    logger: Optional[MetricsLogger] = None,
+    device: DeviceLike = "cuda",
+) -> Dict:
+    """Full-system throughput, the JAX package's ``run_full_system_bench``:
+    JPEG on disk -> native decode and resize -> device -> descriptor, with
+    the decode-alone rate recorded per thread count.
+
+    The Extractor's prefetch thread overlaps host decode with the card, so
+    ``e2e_img_per_sec`` should approach ``min(decode_img_per_sec,
+    device_img_per_sec)``; ``overlap_efficiency`` is the end-to-end rate
+    over that bound, and the three rates say which resource binds.
+
+    The corpus is ``n_images`` textured JPEGs of ``src_hw`` (quality 90,
+    from ``RandomState(0)``), written under ``root`` once. On the card the
+    model computes in bf16 with the kernel head (``use_pallas`` None: on
+    where the device is CUDA), on the CPU in f32 with the plain head. The
+    device-only rate runs ``[batch_size, image_size, image_size, 3]``
+    pixels made on the device from a seeded ``torch.Generator``: the timed
+    loop moves no pixel bytes over the bus and ends in a synchronize.
+
+    Returns ``decode_img_per_sec`` per thread count (empty where the native
+    library does not build), ``device_img_per_sec``, ``e2e_img_per_sec``,
+    ``overlap_efficiency`` and the corpus's size.
+    """
+    from PIL import Image
+
+    from image_retrieval_for_image_based_localization_tpu_torch.data.native import (
+        native_available,
+        preprocess_batch_native,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
+        ExtractConfig,
+        ModelConfig,
+    )
+
+    dev = resolve_device(device)
+    logger = logger or MetricsLogger(echo=True)
+    on_card = dev.type == "cuda"
+    if use_pallas is None:
+        use_pallas = on_card
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    # corpus: textured JPEGs at camera resolution
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(0)
+    paths = []
+    H, W = src_hw
+    for i in range(n_images):
+        p = os.path.join(root, f"img_{H}x{W}_{i:04d}.jpg")
+        paths.append(p)
+        if not os.path.exists(p):
+            base = rng.rand(H // 16, W // 16, 3)
+            img = np.kron(base, np.ones((16, 16, 1)))
+            img = np.clip(img + rng.randn(H, W, 3) * 0.03, 0, 1)
+            Image.fromarray((img * 255).astype(np.uint8)).save(p, quality=90)
+    jpeg_bytes = sum(os.path.getsize(p) for p in paths)
+
+    results: Dict = {
+        "n_images": n_images,
+        "image_size": image_size,
+        "jpeg_mb": round(jpeg_bytes / 1e6, 1),
+        "native": native_available(),
+        "decode_img_per_sec": {},
+    }
+
+    # decode-alone rate at each thread count (native C++ path)
+    if native_available():
+        seen_nt = set()
+        for nt in nthreads_list:
+            label = nt if nt > 0 else (os.cpu_count() or 4)
+            if label in seen_nt:  # nt=0 resolved to an explicit entry's count
+                continue
+            seen_nt.add(label)
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                preprocess_batch_native(paths, image_size, image_size, image_size, nthreads=nt,
+                                        upscale=False, resize_filter="lanczos")
+                ts.append(time.perf_counter() - t0)
+            rate = n_images / float(np.median(ts))
+            results["decode_img_per_sec"][str(label)] = round(rate, 2)
+            logger.log(event="fullsys_decode", nthreads=label, img_per_sec=rate)
+
+    cfg = ExtractConfig(
+        model=ModelConfig(arch=arch, dtype="bfloat16" if on_card else "float32",
+                          use_pallas=use_pallas),
+        image_size=image_size,
+        batch_size=batch_size,
+    )
+    ex = Extractor(cfg, device=dev)
+
+    # device-only rate: pixels made on the device, no host pipeline
+    px = torch.rand((batch_size, image_size, image_size, 3),
+                    generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    ex.forward(px)  # warm-up: cuDNN's algorithm choice, the bf16 weight copy
+    sync()
+    dev_iters = 4
+    t0 = time.perf_counter()
+    for _ in range(dev_iters):
+        ex.forward(px)
+    sync()
+    results["device_img_per_sec"] = round(batch_size * dev_iters / (time.perf_counter() - t0),
+                                          2)
+
+    # end to end: disk -> decode -> upload -> descriptors (prefetch overlaps)
+    ex.extract(paths[:batch_size])  # warm-up for the bucketed shape
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ex.extract(paths)
+        ts.append(time.perf_counter() - t0)
+    results["e2e_img_per_sec"] = round(n_images / float(np.median(ts)), 2)
+
+    decodes = list(results["decode_img_per_sec"].values())
+    bound = min(max(decodes) if decodes else float("inf"), results["device_img_per_sec"])
+    results["overlap_efficiency"] = round(results["e2e_img_per_sec"] / bound, 3)
+    logger.log(event="fullsys", **{k: v for k, v in results.items() if not isinstance(v, dict)})
+    return results
 
 
 def run_training_bench(

@@ -8,13 +8,14 @@ Usage:
         --images img1.jpg img2.jpg --arch resnet50 --out descs.npy
     python -m image_retrieval_for_image_based_localization_tpu_torch.cli serve \\
         --index index.npz --no-model
+    python -m image_retrieval_for_image_based_localization_tpu_torch.cli fullsystem \\
+        --n-images 64  # decode, device and end-to-end img/s
 
 Every command that computes runs on the card (``--device cuda``, the
 default, raises without one); ``--device cpu`` runs the plain PyTorch
-versions (``synth`` only writes files and takes no device). The
-commands and flags the port does not have yet (``download``,
-``fullsystem``, ``parity``, ``--network``, an Orbax ``--checkpoint``
-directory) say so and return 2, as a usage error does.
+versions (``synth`` and ``download`` only write files and take no
+device). An Orbax ``--checkpoint`` directory of the JAX package is not
+read yet: it says so and returns 2, as a usage error does.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import numpy as np
 
 
 class NotPorted(Exception):
-    """A command or flag of the JAX CLI that the port does not have yet;
-    ``main`` prints it and returns 2."""
+    """A flag value of the JAX CLI that the port does not take; ``main``
+    prints it and returns 2."""
 
 
 def _read_names(path):
@@ -73,7 +74,10 @@ def _model_args(p: argparse.ArgumentParser):
                    help="this package's checkpoint directory (its 'best') or a torch "
                         "state_dict .pth/.pt")
     p.add_argument("--network", default=None,
-                   help="pretrained zoo network (not yet ported: needs the download, ROADMAP A9)")
+                   help="pretrained zoo network name: verify or fetch its .pth under "
+                        "--data-root, rebuild the model from its meta (arch, pooling, "
+                        "whitening, clusters), load its weights and use its pre-learned Lw "
+                        "whitening if it has one")
 
 
 def _build_extract_cfg(args):
@@ -130,13 +134,37 @@ def _load_state_dict(args):
     return tree["model"]
 
 
-def _extractor(args, mesh=None):
-    if args.network is not None:
-        raise NotPorted("--network (the pretrained zoo) is not yet ported: it needs the "
-                        "download (ROADMAP A9)")
+def _resolve_network(args):
+    """``--network NAME``: verify or fetch a pretrained zoo ``.pth`` (under
+    ``--data-root``) and load it. Sets ``args.arch``, ``pooling``,
+    ``regional``, ``whiten_dim`` and ``netvlad_clusters`` to the checkpoint
+    meta's values, so :func:`_build_extract_cfg` builds the matching model,
+    and returns ``(state_dict, whitening_mP_or_None)``; ``(None, None)``
+    without the flag."""
+    if args.network is None:
+        return None, None
+    from image_retrieval_for_image_based_localization_tpu_torch.models.zoo import (
+        load_pretrained,
+    )
+
+    # the weights go to the Extractor, which puts them on --device
+    model, mP = load_pretrained(args.network, data_root=args.data_root or "data",
+                                whitening_scale="ms" if args.multiscale else "ss", device="cpu")
+    args.arch = model.arch
+    args.pooling = model.pooling
+    args.regional = model.regional
+    args.whiten_dim = model.whiten_dim
+    args.netvlad_clusters = model.netvlad_clusters
+    return model.state_dict(), mP
+
+
+def _extractor(args, mesh=None, state_dict=None):
+    """The Extractor of the model arguments, with ``--checkpoint``'s weights,
+    else ``state_dict`` (``--network``'s), else seeded random ones."""
     from image_retrieval_for_image_based_localization_tpu_torch.api import Extractor
 
-    return Extractor(_build_extract_cfg(args), state_dict=_load_state_dict(args),
+    sd = _load_state_dict(args)
+    return Extractor(_build_extract_cfg(args), state_dict=state_dict if sd is None else sd,
                      device=args.device, mesh=mesh)
 
 
@@ -145,9 +173,11 @@ def cmd_extract(argv):
     _model_args(p)
     p.add_argument("--images", nargs="+", required=True)
     p.add_argument("--out", required=True)
+    p.add_argument("--data-root", default="data", help="cache root for --network's checkpoint")
     args = p.parse_args(argv)
 
-    descs = _extractor(args).extract(args.images)
+    net_sd, _ = _resolve_network(args)
+    descs = _extractor(args, state_dict=net_sd).extract(args.images)
     np.save(args.out, descs)
     print(f"wrote {descs.shape} descriptors to {args.out}")
 
@@ -197,6 +227,10 @@ def cmd_evaluate(argv):
     p.add_argument("--metrics-out", default=None)
     args = p.parse_args(argv)
 
+    from image_retrieval_for_image_based_localization_tpu_torch.data.download import (
+        TEST_MANIFESTS,
+        download_test,
+    )
     from image_retrieval_for_image_based_localization_tpu_torch.data.test_datasets import (
         configdataset,
     )
@@ -230,11 +264,15 @@ def cmd_evaluate(argv):
             raise SystemExit(f"--mesh {args.mesh}: {d * g} shards over {world} processes")
         # this process's share of the D x G shards, all on its device
         mesh = create_mesh([d, g], devices=[resolve_device(args.device)] * (d * g // world))
-    ex = _extractor(args, mesh=mesh)
-    whitening_mP = None
+    net_sd, whitening_mP = _resolve_network(args)
     if args.whitening_file:
         z = np.load(args.whitening_file)
-        whitening_mP = (z["m"], z["P"])
+        whitening_mP = (z["m"], z["P"])  # in place of the network's Lw
+    if args.dataset in TEST_MANIFESTS:
+        # the reference's test.py: fetch the dataset if it is absent (offline:
+        # an error that lists the paths to place)
+        download_test(args.data_root, args.dataset)
+    ex = _extractor(args, mesh=mesh, state_dict=net_sd)
     ann_kwargs = {"ivf": {"nprobe": args.ann_nprobe, "n_clusters": args.ann_clusters},
                   "pq": {"m": args.ann_m, "refine": args.ann_refine,
                          "opq_iters": args.ann_opq},
@@ -294,8 +332,10 @@ def cmd_train(argv):
     p.add_argument("--data-root", default=os.path.join(tempfile.gettempdir(), "irtpu_data"))
     args = p.parse_args(argv)
     if args.network is not None:
-        raise NotPorted("--network (the pretrained zoo) is not yet ported: it needs the "
-                        "download (ROADMAP A9)")
+        # the JAX trainer takes the flag and ignores it (it trains from its
+        # own init); the port refuses it rather than copy a silent no-op
+        raise NotPorted("--network: training does not start from a zoo network; pass its "
+                        ".pth as --checkpoint to evaluate it, or train from scratch")
 
     from image_retrieval_for_image_based_localization_tpu_torch.training.loop import (
         run_training,
@@ -343,6 +383,29 @@ def cmd_config(argv):
     run_graded_config(args.n, data_root=args.data_root, synth_root=args.synth_root,
                       logger=MetricsLogger(path=args.log, echo=True) if args.log else None,
                       out_dir=args.out_dir, device=args.device)
+
+
+def cmd_parity(argv):
+    """The bucketed-vs-exact extraction delta (``benchmarks.measure_bucketing_delta``):
+    mAP both ways on the synthetic corpus, and the stress set's cosines."""
+    p = argparse.ArgumentParser(prog="parity")
+    _device_arg(p)
+    p.add_argument("--arch", default="resnet50")
+    p.add_argument("--image-size", type=int, default=1024)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--synth-root", default=os.path.join(tempfile.gettempdir(), "irtpu_synth"))
+    p.add_argument("--checkpoint", default=None,
+                   help="this package's checkpoint directory or a torch state_dict .pth/.pt "
+                        "(random weights without it: noisy deltas)")
+    args = p.parse_args(argv)
+
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        measure_bucketing_delta,
+    )
+
+    print(measure_bucketing_delta(arch=args.arch, image_size=args.image_size,
+                                  batch_size=args.batch_size, synth_root=args.synth_root,
+                                  state_dict=_load_state_dict(args), device=args.device))
 
 
 def cmd_build_index(argv):
@@ -534,6 +597,7 @@ def cmd_shortlist(argv):
     p.add_argument("--db-names", default=None,
                    help="optional text file, one db image name per line")
     p.add_argument("--out", required=True, help="pairs file to write")
+    p.add_argument("--data-root", default="data", help="cache root for --network's checkpoint")
     p.add_argument("--qe", type=int, default=0, metavar="NQE",
                    help="alphaQE expansion before the shortlist cut")
     p.add_argument("--qe-alpha", type=float, default=3.0)
@@ -547,7 +611,8 @@ def cmd_shortlist(argv):
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
 
     index = Index.load(args.index, device=args.device)
-    qd = _extractor(args).extract(args.images)
+    net_sd, _ = _resolve_network(args)
+    qd = _extractor(args, state_dict=net_sd).extract(args.images)
     qnames = [os.path.basename(q) for q in args.images]
     pairs, _ = localize_shortlist(index, qd, qnames, db_names=_read_names(args.db_names),
                                   k=args.k, out_path=args.out, qe_nqe=args.qe,
@@ -567,6 +632,7 @@ def cmd_serve(argv):
     p.add_argument("--port", type=int, default=7878)
     p.add_argument("--no-model", action="store_true",
                    help="serve /query only (no extractor)")
+    p.add_argument("--data-root", default="data", help="cache root for --network's checkpoint")
     p.add_argument("--ivf", default=None, metavar="IVF_NPZ",
                    help="IVF quantizer from build-index --ivf: probe search by default "
                         "(exact=1 per request still forces exact)")
@@ -594,7 +660,10 @@ def cmd_serve(argv):
     from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
     from image_retrieval_for_image_based_localization_tpu_torch.serving import serve
 
-    ex = None if args.no_model else _extractor(args)
+    ex = None
+    if not args.no_model:
+        net_sd, _ = _resolve_network(args)
+        ex = _extractor(args, state_dict=net_sd)
     index = Index.load(args.index, device=args.device)
     ivf = pq = None
     if args.ivf:
@@ -616,6 +685,66 @@ def cmd_serve(argv):
           reload_paths={"index": args.index, "ivf": args.ivf, "pq": args.pq,
                         "db_names": args.db_names},
           device=args.device)
+
+
+def cmd_fullsystem(argv):
+    """Disk JPEG -> decode -> device -> descriptor throughput
+    (``benchmarks.run_full_system_bench``), one JSON line."""
+    p = argparse.ArgumentParser(
+        prog="fullsystem",
+        description="disk JPEG -> decode -> device -> descriptor throughput, with the "
+                    "decode-alone rate per thread count")
+    _device_arg(p)
+    p.add_argument("--n-images", type=int, default=64)
+    p.add_argument("--image-size", type=int, default=1024)
+    p.add_argument("--arch", default="resnet50")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--root", default=os.path.join(tempfile.gettempdir(), "irtpu_fullsys"))
+    args = p.parse_args(argv)
+
+    import json
+
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        run_full_system_bench,
+    )
+
+    print(json.dumps(run_full_system_bench(n_images=args.n_images, image_size=args.image_size,
+                                           arch=args.arch, batch_size=args.batch_size,
+                                           root=args.root, device=args.device)))
+
+
+def cmd_download(argv):
+    """Verify or fetch datasets and pretrained networks (``data/download.py``)."""
+    p = argparse.ArgumentParser(
+        prog="download",
+        description="verify or fetch datasets and pretrained networks (set IRTPU_OFFLINE=1 "
+                    "to verify only)")
+    p.add_argument("names", nargs="+",
+                   help="dataset names (roxford5k, rparis6k, oxford5k, paris6k, "
+                        "retrieval-SfM-120k) or zoo network names")
+    p.add_argument("--data-root", default="data")
+    args = p.parse_args(argv)
+
+    from image_retrieval_for_image_based_localization_tpu_torch.data.download import (
+        TEST_MANIFESTS,
+        TRAIN_MANIFESTS,
+        ZOO_MANIFESTS,
+        download_network,
+        download_test,
+        download_train,
+    )
+
+    for name in args.names:
+        if name in TEST_MANIFESTS:
+            download_test(args.data_root, name)
+        elif name in TRAIN_MANIFESTS:
+            download_train(args.data_root, name)
+        elif name in ZOO_MANIFESTS:
+            download_network(args.data_root, name)
+        else:
+            raise SystemExit(f"unknown artifact '{name}'; known: "
+                             f"{sorted([*TEST_MANIFESTS, *TRAIN_MANIFESTS, *ZOO_MANIFESTS])}")
+        print(f"{name}: present under {args.data_root}")
 
 
 def cmd_bench_ann(argv):
@@ -700,17 +829,10 @@ def cmd_bench_train(argv):
           f"step p50={out['lat_p50_ms']:.1f}ms p95={out['lat_p95_ms']:.1f}ms")
 
 
-def _not_ported(name: str):
-    def cmd(argv):
-        raise NotPorted(f"'{name}' is not yet ported (ROADMAP A9)")
-
-    return cmd
-
-
 COMMANDS = {
-    "download": _not_ported("download"),
+    "download": cmd_download,
     "extract": cmd_extract,
-    "fullsystem": _not_ported("fullsystem"),
+    "fullsystem": cmd_fullsystem,
     "bench-ann": cmd_bench_ann,
     "bench-serve": cmd_bench_serve,
     "bench-train": cmd_bench_train,
@@ -718,7 +840,7 @@ COMMANDS = {
     "train": cmd_train,
     "synth": cmd_synth,
     "config": cmd_config,
-    "parity": _not_ported("parity"),
+    "parity": cmd_parity,
     "build-index": cmd_build_index,
     "query": cmd_query,
     "serve": cmd_serve,

@@ -107,12 +107,14 @@ def preprocess_batch_native(
     out_h: int,
     out_w: int,
     bbxs: Optional[Sequence] = None,
+    nthreads: int = 0,
     upscale: bool = True,
     resize_filter: str = "bilinear",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode, crop and resize ``paths`` into a padded batch.
 
-    ``upscale=False`` shrinks only (the reference's thumbnail);
+    ``nthreads``: decode threads, 0 for one an image up to the host's
+    cores. ``upscale=False`` shrinks only (the reference's thumbnail);
     ``resize_filter='lanczos'`` is the reference's antialiased LANCZOS.
     Returns (pixels [n, out_h, out_w, 3] uint8, raw: the extractor
     normalizes on the device; sizes [n, 2] int32 valid (h, w), (0, 0) for a
@@ -147,6 +149,6 @@ def preprocess_batch_native(
         sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
         bbx_ptr,
         filt,
-        min(n, os.cpu_count() or 4),  # decode threads
+        nthreads if nthreads > 0 else min(n, os.cpu_count() or 4),
     )
     return out, sizes

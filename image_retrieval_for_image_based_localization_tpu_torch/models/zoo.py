@@ -5,10 +5,8 @@ networks, the checkpoint ``meta`` contract (``model_to_meta`` /
 ``create_model_from_meta``, cirtorch's ``init_network(meta)``), and loading
 a model with its weights from a local file: a ``.pth``/``.pt`` state dict
 (this package's layout, or cirtorch's with numeric trunk keys) or a
-checkpoint directory of this package (``utils.checkpoint``).
-
-``load_pretrained``, which fetches a zoo network, is not ported: it needs
-the download engine (ROADMAP A9).
+checkpoint directory of this package (``utils.checkpoint``), and
+``load_pretrained``, which fetches a zoo network through ``data.download``.
 """
 
 from __future__ import annotations
@@ -27,6 +25,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net
     RetrievalNet,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import ModelConfig
+from image_retrieval_for_image_based_localization_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+)
 
 # Named presets mirroring the cirtorch-lineage zoo (the JAX package's list).
 MODEL_ZOO: Dict[str, ModelConfig] = {
@@ -161,8 +163,41 @@ def _torch_load_untrusted(path: str):
         return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def load_pretrained(name: str, *args, **kwargs):
-    """Fetch a pretrained zoo network and port it: not ported yet."""
-    raise NotImplementedError(
-        f"load_pretrained({name!r}) needs the download engine (data/download.py), which is "
-        f"not ported yet (ROADMAP A9); load a local .pth with load_model instead")
+def load_pretrained(name: str, data_root: str = "data",
+                    whitening_dataset: str = "retrieval-SfM-120k", whitening_scale: str = "ss",
+                    zoo_manifests=None, device: DeviceLike = "cuda"):
+    """Fetch (or verify on disk) a pretrained zoo checkpoint and load it.
+
+    The reference's ``init_network(pretrained-name)`` and download in one
+    call: ``data.download.download_network`` resolves or downloads the
+    ``.pth``, its cirtorch ``meta`` rebuilds the model
+    (``meta_from_cirtorch``, ``create_model_from_meta``), and its
+    ``state_dict`` loads natively (cirtorch's numeric trunk keys renamed to
+    torchvision's; a one-element tensor such as GeM's ``p`` takes the
+    model's shape). Any pre-learned Lw whitening comes back as ``(m, P)``
+    for ``retrieval.index.Index.build(whitening_mP=...)``;
+    ``whitening_scale`` ('ss' or 'ms') picks the checkpoint's single- or
+    multi-scale Lw, as cirtorch does by whether extraction is multi-scale.
+
+    Returns ``(model, whitening_mP_or_None)``, the model in eval mode with
+    its weights on ``device``. The JAX function returns ``(model,
+    variables, mP)``: its flax module holds no weights, so they come back
+    as a separate variables tree; here they are the module's own.
+    """
+    from image_retrieval_for_image_based_localization_tpu_torch.data.download import (
+        download_network,
+    )
+
+    path = download_network(data_root, name, manifests=zoo_manifests)
+    ckpt = _torch_load_untrusted(path)
+    meta = ckpt.get("meta", {}) if isinstance(ckpt, dict) else {}
+    model = create_model_from_meta(meta_from_cirtorch(meta))
+    own = model.state_dict()
+    sd = {}
+    for k, v in cirtorch_to_torchvision_keys(ckpt.get("state_dict", ckpt), model.arch).items():
+        if k in own and v.shape != own[k].shape and v.numel() == own[k].numel() == 1:
+            v = v.reshape(own[k].shape)
+        sd[k] = v
+    model.load_state_dict(sd)
+    return (model.to(resolve_device(device)).eval(),
+            cirtorch_Lw(meta, whitening_dataset, scale=whitening_scale))

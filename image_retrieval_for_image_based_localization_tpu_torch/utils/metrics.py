@@ -1,8 +1,9 @@
-"""Structured metrics: JSONL records and phase timers.
+"""Structured metrics, phase timers and profiler traces.
 
-The JAX package's ``utils/metrics.py`` without ``profile_trace`` (a
-``jax.profiler`` trace; its ``torch.profiler`` counterpart comes with the
-tooling, ROADMAP A9). Records stream as JSON lines, host-side and cheap.
+The JAX package's ``utils/metrics.py``: records stream as JSON lines,
+host-side and cheap, and a region can run under ``torch.profiler``
+(:func:`profile_trace`, the counterpart of its ``jax.profiler`` trace),
+which writes a Chrome/Perfetto trace.
 """
 
 from __future__ import annotations
@@ -10,10 +11,12 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import tempfile
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 
 class MetricsLogger:
@@ -48,6 +51,34 @@ def phase_timer(name: str, logger: Optional[MetricsLogger] = None, items: int = 
         rec["items_per_sec"] = items / dt
     if logger:
         logger.log(**rec)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str = os.path.join(tempfile.gettempdir(), "irtpu_trace"),
+                  enabled: bool = True):
+    """``torch.profiler`` around a region: CPU activity and, where a card is
+    present, CUDA activity (the card's kernels with their device times).
+    Yields the profiler, whose ``events()`` the caller reads after the
+    block; on exit a Chrome/Perfetto trace (``export_chrome_trace``) is
+    written under ``logdir`` as ``<pid>-<time ns>.pt.trace.json``, its path
+    kept as the profiler's ``trace_path``. ``enabled=False`` yields None and
+    writes nothing."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        os.makedirs(logdir, exist_ok=True)
+        prof.trace_path = os.path.join(logdir, f"{os.getpid()}-{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(prof.trace_path)
 
 
 def percentile_summary(lat_seconds, unit: str = "ms") -> dict:

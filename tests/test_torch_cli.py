@@ -3,14 +3,21 @@
 Both CLIs run on one synthetic dataset with the same resnet18 weights (a
 torch ``state_dict`` file, which both load through ``--checkpoint``):
 ``extract`` -> ``build-index`` -> ``query``, ``evaluate`` and ``shortlist``
-give the same descriptors, indices, mAP and pairs. The benches run at toy
-sizes, ``serve`` runs as a subprocess, and the commands and flags still to
-port return 2 with their ROADMAP label.
+give the same descriptors, indices, mAP and pairs. ``--network`` loads a
+cirtorch-layout checkpoint from a zoo served on localhost and matches
+``--checkpoint`` on the same weights (and the JAX CLI's ``--network``).
+The benches, ``fullsystem`` and ``parity`` run at toy sizes, ``download``
+verifies or fetches, ``serve`` runs as a subprocess, and an Orbax
+checkpoint, which the port does not read yet, returns 2 with its ROADMAP
+label.
 """
 
+import ast
+import http.server
 import json
 import os
 import socket
+import threading
 import subprocess
 import sys
 import time
@@ -20,15 +27,22 @@ import numpy as np
 import pytest
 import torch
 
+import irtpu.data.download as jdl
 import irtpu.data.native as jnative
 from irtpu.cli import main as jmain
 
 import image_retrieval_for_image_based_localization_tpu_torch.api as port_api
+import image_retrieval_for_image_based_localization_tpu_torch.data.download as dl
+import image_retrieval_for_image_based_localization_tpu_torch.evaluation.harness as harness
+import image_retrieval_for_image_based_localization_tpu_torch.serving as serving
 from image_retrieval_for_image_based_localization_tpu_torch.cli import main
 from image_retrieval_for_image_based_localization_tpu_torch.data import native as pnative
 from image_retrieval_for_image_based_localization_tpu_torch.models import (
     RetrievalNet,
     init_random_,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+    _CIRTORCH_SEQ_NAMES,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -234,23 +248,192 @@ def test_bench_train_tiny(capsys):
 
 
 @pytest.mark.parametrize("argv,label", [
-    (["download", "roxford5k"], "ROADMAP A9"),
-    (["fullsystem"], "ROADMAP A9"),
-    (["parity"], "ROADMAP A9"),
-    (["extract", "--images", "x.jpg", "--out", "x.npy", "--network", "gl18-tl-resnet50-gem-w"],
-     "ROADMAP A9"),
     (["extract", "--images", "x.jpg", "--out", "x.npy", "--checkpoint", "{orbax}"],
      "ROADMAP C3"),
-    (["serve", "--index", "x.npz", "--network", "gl18-tl-resnet50-gem-w"], "ROADMAP A9"),
-], ids=["download", "fullsystem", "parity", "network", "orbax", "serve-network"])
+], ids=["orbax"])
 def test_not_yet_ported_returns_2(argv, label, tmp_path, capsys):
     orbax = tmp_path / "orbax_ckpt"
     (orbax / "best").mkdir(parents=True)  # an Orbax directory holds no state.pt
     argv = [a.replace("{orbax}", str(orbax)) for a in argv]
-    assert main(argv + ["--device", "cpu"] if argv[0] not in ("download", "fullsystem",
-                                                               "parity") else argv) == 2
+    assert main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and label in err
+
+
+def test_train_refuses_network(tmp_path, capsys):
+    """The JAX trainer takes --network and ignores it; the port refuses it."""
+    assert main(["train", "--network", "fake-net", "--out-dir", str(tmp_path), "--synthetic",
+                 "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "--network" in err and "ROADMAP" not in err
+
+
+@pytest.fixture(scope="module")
+def fake_zoo(tmp_path_factory):
+    """A zoo on a localhost HTTP server holding one cirtorch-layout
+    checkpoint, ``fake-net``: a resnet18 + GeM's weights with cirtorch's
+    numeric trunk keys, its meta and a flat Lw, listed in both packages'
+    ZOO_MANIFESTS. Yields the same weights in this package's layout as a
+    plain ``.pth`` for ``--checkpoint``, and the Lw (m, P)."""
+    root = tmp_path_factory.mktemp("zoo")
+    net = RetrievalNet("resnet18", "gem")
+    init_random_(net, torch.Generator().manual_seed(4))
+    names = _CIRTORCH_SEQ_NAMES["resnet"]
+    sd = {}
+    for k, v in net.state_dict().items():
+        parts = k.split(".")
+        if parts[0] == "features":
+            parts[1] = str(names.index(parts[1]))
+        sd[".".join(parts)] = v
+    rng = np.random.RandomState(6)
+    m, P = rng.randn(512).astype(np.float32), rng.randn(512, 512).astype(np.float32)
+    torch.save({"state_dict": sd, "meta": {"architecture": "resnet18", "pooling": "gem",
+                                           "whitening": False, "outputdim": 512,
+                                           "Lw": {"retrieval-SfM-120k": {"m": m, "P": P}}}},
+               root / "fake-net.pth")
+    pth = str(root / "plain.pth")
+    torch.save(net.state_dict(), pth)
+    srv = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0),
+        lambda *a, **kw: http.server.SimpleHTTPRequestHandler(*a, directory=str(root), **kw))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/fake-net.pth"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("IRTPU_OFFLINE", raising=False)
+        mp.setattr(dl, "ZOO_MANIFESTS", {"fake-net": dl.Artifact(url, "networks/fake-net.pth")})
+        mp.setattr(jdl, "ZOO_MANIFESTS",
+                   {"fake-net": jdl.Artifact(url, "networks/fake-net.pth")})
+        yield pth, m, P
+    srv.shutdown()
+
+
+@pytest.mark.parametrize("case", ["present", "missing", "unknown", "network"])
+def test_download_command(case, tmp_path, monkeypatch, capsys, request):
+    """``download`` verifies a dataset in place offline, lists what to place
+    where one is missing, refuses an unknown name, and fetches a zoo network."""
+    argv = ["download", "--data-root", str(tmp_path)]
+    if case == "network":
+        pth, _, _ = request.getfixturevalue("fake_zoo")
+        assert main(argv + ["fake-net"]) == 0
+        with open(tmp_path / "networks" / "fake-net.pth", "rb") as a, \
+                open(os.path.join(os.path.dirname(pth), "fake-net.pth"), "rb") as b:
+            assert a.read() == b.read()
+        return
+    monkeypatch.setenv("IRTPU_OFFLINE", "1")
+    os.makedirs(tmp_path / "roxford5k" / "jpg")
+    (tmp_path / "roxford5k" / "gnd_roxford5k.pkl").write_bytes(b"x")
+    if case == "present":
+        assert main(argv + ["roxford5k"]) == 0
+        assert "roxford5k: present" in capsys.readouterr().out
+    elif case == "missing":
+        with pytest.raises(FileNotFoundError, match="IRTPU_OFFLINE.*\n.*rparis6k"):
+            main(argv + ["rparis6k"])
+    else:
+        with pytest.raises(SystemExit, match="unknown artifact"):
+            main(argv + ["not-a-thing"])
+
+
+@pytest.mark.parametrize("command", ["fullsystem", "parity"])
+def test_tool_commands_run_at_toy_size(command, synth, tmp_path, capsys):
+    root, pth, _ = synth
+    if command == "fullsystem":
+        argv = ["fullsystem", "--n-images", "4", "--image-size", "64", "--arch", "resnet18",
+                "--batch-size", "2", "--root", str(tmp_path)]
+    else:
+        argv = ["parity", "--arch", "resnet18", "--image-size", "64", "--batch-size", "4",
+                "--synth-root", str(tmp_path), "--checkpoint", pth]
+    assert main(argv + ["--device", "cpu"]) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    if command == "fullsystem":
+        res = json.loads(last)
+        assert res["n_images"] == 4 and res["e2e_img_per_sec"] > 0
+        assert res["device_img_per_sec"] > 0 and res["overlap_efficiency"] > 0
+    else:
+        res = ast.literal_eval(last)
+        assert set(res) == {"bucketed", "exact", "map_delta", "stress_cos_mean",
+                            "stress_cos_min"}
+        assert res["map_delta"] == pytest.approx(res["bucketed"] - res["exact"])
+
+
+@pytest.mark.parametrize("command", ["extract", "shortlist", "serve"])
+def test_network_flag_matches_checkpoint(command, synth, fake_zoo, tmp_path, monkeypatch):
+    """``--network fake-net`` (fetched from the local zoo into --data-root,
+    the model rebuilt from the checkpoint's meta: --arch resnet50 is
+    overridden) gives what ``--checkpoint`` gives on the same weights."""
+    _, imgs = synth[0], synth[2]
+    pth = fake_zoo[0]
+    model = ["--image-size", "64", "--batch-size", "2", "--device", "cpu"]
+    by_network = ["--network", "fake-net", "--arch", "resnet50",
+                  "--data-root", str(tmp_path / "cache")]
+    by_checkpoint = ["--checkpoint", pth, "--arch", "resnet18"]
+    if command == "extract":
+        out = {}
+        for tag, flags in (("net", by_network), ("ckpt", by_checkpoint)):
+            out[tag] = str(tmp_path / f"{tag}.npy")
+            assert main(["extract", "--images", *imgs, "--out", out[tag], *model, *flags]) == 0
+        got = np.load(out["net"])
+        assert got.shape == (len(imgs), 512)
+        np.testing.assert_array_equal(got, np.load(out["ckpt"]))
+        assert os.path.exists(tmp_path / "cache" / "networks" / "fake-net.pth")
+        jout = str(tmp_path / "jax.npy")
+        assert (jmain(["extract", "--images", *imgs, "--out", jout, *model[:4], *by_network[:2],
+                       "--data-root", str(tmp_path / "jcache")]) or 0) == 0
+        np.testing.assert_allclose(got, np.load(jout), rtol=0, atol=2e-5)
+    elif command == "shortlist":
+        descs, index = str(tmp_path / "db.npy"), str(tmp_path / "i.npz")
+        assert main(["extract", "--images", *imgs[:4], "--out", descs, *model,
+                     *by_checkpoint]) == 0
+        assert main(["build-index", "--descriptors", descs, "--out", index, "--whitening",
+                     "none", "--device", "cpu"]) == 0
+        pairs = {}
+        for tag, flags in (("net", by_network), ("ckpt", by_checkpoint)):
+            out = str(tmp_path / f"{tag}.txt")
+            assert main(["shortlist", "--index", index, "--images", *imgs[4:6], "-k", "3",
+                         "--out", out, *model, *flags]) == 0
+            with open(out) as f:
+                pairs[tag] = f.read()
+        assert pairs["net"] == pairs["ckpt"] and len(pairs["net"].splitlines()) == 6
+    else:
+        g = np.random.RandomState(5).randn(8, 512).astype(np.float32)
+        np.save(tmp_path / "g.npy", g / np.linalg.norm(g, axis=1, keepdims=True))
+        index = str(tmp_path / "g.npz")
+        assert main(["build-index", "--descriptors", str(tmp_path / "g.npy"), "--out", index,
+                     "--whitening", "none", "--device", "cpu"]) == 0
+        served = []
+        monkeypatch.setattr(serving, "serve", lambda index, extractor=None, **kw:
+                            served.append(extractor))
+        for flags in (by_network, by_checkpoint):
+            assert main(["serve", "--index", index, *model, *flags]) == 0
+        assert served[0].model.arch == "resnet18"
+        np.testing.assert_array_equal(served[0].extract(imgs[:2]), served[1].extract(imgs[:2]))
+
+
+def test_evaluate_network_applies_the_checkpoint_lw_as_jax_does(synth, fake_zoo, tmp_path,
+                                                                 monkeypatch):
+    """``evaluate --network``: the checkpoint's Lw reaches ``Index.build`` as
+    the pre-learned whitening, and the mAP is the JAX CLI's."""
+    root = synth[0]
+    _, m, P = fake_zoo
+    seen = {}
+    build = harness.Index.build
+
+    def spy(descriptors, *a, **kw):
+        seen["mP"] = kw.get("whitening_mP")
+        return build(descriptors, *a, **kw)
+
+    monkeypatch.setattr(harness.Index, "build", staticmethod(spy))
+
+    def argv(tag):
+        return ["evaluate", "--network", "fake-net", "--dataset", "clitest", "--data-root",
+                root, "--image-size", "64", "--batch-size", "2",
+                "--metrics-out", str(tmp_path / f"{tag}.jsonl")]
+
+    _both(tmp_path, argv)
+    np.testing.assert_array_equal(seen["mP"][0], m)
+    np.testing.assert_array_equal(seen["mP"][1], P)
+    mj, mp = _map_record(tmp_path / "jax.jsonl"), _map_record(tmp_path / "port.jsonl")
+    for proto in ("easy", "medium", "hard"):
+        assert mp[f"map_{proto}"] == pytest.approx(mj[f"map_{proto}"], abs=1e-9), proto
 
 
 def test_port_checkpoint_directory_loads(synth, tmp_path):

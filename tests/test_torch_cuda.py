@@ -112,6 +112,41 @@ def test_gem_kernel_refuses_more_channels_than_a_cluster_holds(dev):
         gem_l2n_fused(x, 3.0)
 
 
+def test_gem_launches_are_named_in_a_profile_trace(dev, tmp_path):
+    """Under ``utils.metrics.profile_trace`` each GeM launch is a range named
+    after its entry point, around one ``gem_l2n_kernel`` on the card; and
+    ``utils.debug`` passes the kernel's finite, repeatable output."""
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.debug import (
+        assert_deterministic,
+        debug_checks,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import (
+        profile_trace,
+    )
+
+    x = _rand((4, 8, 8, 2048), 13, dev)
+    sizes = torch.tensor([[8, 8], [5, 8], [8, 3], [1, 1]], dtype=torch.int32, device=dev)
+    with profile_trace(str(tmp_path)) as prof:
+        for _ in range(3):
+            gem_l2n_fused_rect(x, 3.0, sizes)
+        gem_l2n_fused(x, 3.0)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type != cuda]  # host-side ranges
+    assert names.count("gem_l2n_fused_rect") == 3 and names.count("gem_l2n_fused") == 1
+    kernels = [e for e in prof.events() if e.device_type == cuda and "gem_l2n_kernel" in e.name
+               and not e.is_user_annotation]
+    assert len(kernels) == 4
+    with debug_checks():
+        assert_deterministic(gem_l2n_fused_rect, x, 3.0, sizes)
+    # the kernel writes inf / inf for an infinite map; its output is checked
+    # at the first operator that reads it
+    inf = torch.full_like(x, float("inf"))
+    with pytest.raises(FloatingPointError):
+        with debug_checks():
+            gem_l2n_fused(inf, 3.0).sum()
+
+
 def _grads_close(got, want, rel=1e-5, atol=0.0):
     """Each gradient within ``rel`` of its reference's max|g| (or ``atol``)."""
     for g, w in zip(got, want):

@@ -168,9 +168,20 @@ def test_untrusted_load_takes_numpy_metas_without_the_full_unpickler(tmp_path):
                                   LW_METAS["nested"]["Lw"]["retrieval-SfM-120k"]["ss"]["P"])
 
 
-def test_load_pretrained_waits_for_the_download():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        zoo.load_pretrained("retrievalSfM120k-resnet101-gem")
+def test_load_pretrained_verifies_a_cached_checkpoint_offline(r18, tmp_path, monkeypatch):
+    """With IRTPU_OFFLINE set, a zoo checkpoint already under
+    ``networks/`` loads without a fetch: the model its meta names, the
+    weights bit for bit (a 0-d ``pool.p`` takes the model's shape), no Lw
+    where the meta has none."""
+    monkeypatch.setenv("IRTPU_OFFLINE", "1")
+    sd = dict(r18.state_dict(), **{"pool.p": r18.state_dict()["pool.p"].reshape(())})
+    (tmp_path / "networks").mkdir()
+    torch.save({"state_dict": sd, "meta": {"architecture": "resnet18", "pooling": "gem"}},
+               tmp_path / "networks" / "rSfM120k-tl-resnet50-gem-w.pth")
+    model, mP = zoo.load_pretrained("rSfM120k-tl-resnet50-gem-w", data_root=str(tmp_path),
+                                    device="cpu")
+    _same(model, r18)
+    assert mP is None and not model.training
 
 
 def test_jax_variables_load_into_zoo_models(r18):
