@@ -12,7 +12,9 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card:
      - gem_l2n at the GeM head's widths (B=16, 32x32 map, C=2048, and the
        other trunks' 256, 1024, 1664 and 2208; f32 and bf16, ragged
-       extents), and a second call bit for bit;
+       extents), and a second call bit for bit; a map holding one NaN and
+       an all-NaN map through both, f32 and bf16, with the plain version's
+       NaN pattern (ROADMAP C15);
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
        ragged extents with a (0, 0) row, one image with zero-mass clusters),
        and on the same map at K=256; a second call bit for bit;
@@ -36,7 +38,7 @@ Phases (any failure exits non-zero):
        5 % of the values not equal bit for bit, a second call bit for bit;
        the launch plan the built library reports held against the
        wrapper's);
-  4. fourteen paths at full width, each with the launch counts set to 0 just
+  4. fifteen paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -139,6 +141,27 @@ Phases (any failure exits non-zero):
        2048, k=200) under the trained weights: scores_blockmax and
        knn_search against their plain versions, and the epoch's tuples
        mined on the card against those mined on the CPU;
+     - path L, what the JAX trainer trains beyond path D (after path D,
+       before path J): L1 path D's recipe with a bf16 trunk
+       (run_training_bench beside path D's f32 bench; on one batch of masked
+       u8 tuples under deterministic cuDNN, the bf16 step's loss against the
+       f32 step's, the kernel head against the plain head (each gradient
+       within 2^-8 of max|g|, or for the trunk's parameters twice the plain
+       step's own spread with its tuples reversed where that is wider; the
+       head's pool.p and whiten at the fixed bound), every conv weight
+       with a nonzero gradient that moved, parameters and optimizer state
+       f32); L2 remat at runs/train_remat1024's recipe (resnet50, 1024 px, 2
+       tuples of 3 in a 768 x 1024 bucket) against no remat on the same
+       weights and tuples, loss, gradients, parameters and running statistics
+       bit for bit, the running statistics moved once (counted against the
+       re-runs), peak memory and step ms of each; L3 one step each of
+       densenet121 + GeM (f32 and bf16), alexnet + GeM (unmasked, B2),
+       squeezenet1_1 + GeM, resnet101 + GeMmp, vgg16 + R-MAC (masked,
+       rmac_bucketed) and resnet101 regional GeM with whiten_dim 2048
+       (unmasked; a masked step raises), the GeM kernel head against the
+       plain head where it applies; L4 cli train --dtype bfloat16 --remat for
+       one epoch on a cut of path D's pool (rc 0, checkpoints, Lw); B1, B2
+       and B3 launched in its window;
      - path J, data parallelism over the mesh's data axis (after path D):
        config 2 through Extractor(mesh=create_mesh([2, 1], devices=[cuda:0,
        cuda:0])) against config 2's one-device descriptors, top-10 and mAP,
@@ -421,7 +444,40 @@ def check_gem(dev):
             del x32
     log(f"[check] gem_l2n extents: {kept[GEM_WIDTHS[0]]['valid_positions']} of "
         f"{B * H * W} positions valid")
+    check_gem_nan(dev, kept[GEM_WIDTHS[0]]["x"], p, kept[GEM_WIDTHS[0]]["sizes"])
     return dict(kept[GEM_WIDTHS[0]], err=err, at_timed_width=kept[GEM_TIMED_WIDTH])
+
+
+def check_gem_nan(dev, x32, p, sizes):
+    """ROADMAP C15: a map holding one NaN (in image 0, a valid position) and
+    an all-NaN map through both GeM kernels, f32 and bf16, against the plain
+    version: the same NaN pattern (one NaN makes its image's descriptor all
+    NaN through the L2 norm; a (0, 0) row stays zero), and the images without
+    a NaN within GEM_TOL."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        gem_l2n_fused,
+        gem_l2n_fused_rect,
+        gem_l2n_plain,
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        one = x32.to(dtype).clone()
+        one[0, 1, 2, 5] = float("nan")
+        for what, y in (("one NaN", one), ("all NaN", torch.full_like(one, float("nan")))):
+            for entry, got, want in (
+                    ("B1 gem_l2n_fused_rect", gem_l2n_fused_rect(y, p, sizes),
+                     gem_l2n_plain(y, p, sizes)),
+                    ("B2 gem_l2n_fused", gem_l2n_fused(y, p), gem_l2n_plain(y, p))):
+                same = torch.equal(torch.isnan(got), torch.isnan(want))
+                ok = ~torch.isnan(want)
+                err = float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) else 0.0
+                log(f"[check] gem_l2n {what} {dtype} {entry}: NaN values kernel "
+                    f"{int(torch.isnan(got).sum())} plain {int(torch.isnan(want).sum())}, "
+                    f"same pattern {same}, max|err| elsewhere {err:.3e}")
+                if not (same and err <= GEM_TOL):
+                    raise AssertionError(f"gem_l2n {what} {dtype} {entry}: the kernel does not "
+                                         f"pass the NaN through as the plain version does")
 
 
 _TOPK_CACHE = {}
@@ -3193,15 +3249,23 @@ GRAD_REL, GRAD_ATOL = 1e-4, 1e-6  # kernel-head vs plain-head gradients, of max|
 LOSS_REL = 1e-5
 
 
-def _grad_check(tag, smi, k_model, p_model, k_loss, p_loss, params_only=None):
+def _grad_check(tag, smi, k_model, p_model, k_loss, p_loss, params_only=None,
+                grad_rel=None, spread=None):
     """Kernel-head step against plain-head step on one batch: the losses,
-    every parameter's gradient (within GRAD_REL of its tensor's max|g| or
-    GRAD_ATOL) and the BN running statistics (equal)."""
+    every parameter's gradient (within ``grad_rel``, default GRAD_REL, of its
+    tensor's max|g| or GRAD_ATOL, or, for the trunk's parameters, within
+    ``spread[name]`` where that is wider: the head's own, ``pool.*`` and
+    ``whiten.*``, keep the fixed bound, so a wrong d/dp of the kernel's
+    backward fails) and the BN running statistics (equal). The log gives the
+    head's and the trunk's last conv weight's error over the fixed bound."""
+    grad_rel = GRAD_REL if grad_rel is None else grad_rel
     import torch
 
     rel = abs(float(k_loss) - float(p_loss)) / max(abs(float(p_loss)), 1e-30)
     worst, worst_name, n_grads = 0.0, None, 0
     p_named = dict(p_model.named_parameters())
+    last_conv = [n for n, p in k_model.named_parameters() if p.dim() == 4][-1]
+    fixed_ratio = {}  # the head's and the last conv's err / the fixed bound
     for name, pk in k_model.named_parameters():
         if params_only is not None and name not in params_only:
             continue
@@ -3212,7 +3276,11 @@ def _grad_check(tag, smi, k_model, p_model, k_loss, p_loss, params_only=None):
             continue
         n_grads += 1
         err = (pk.grad - gp).abs().max().item()
-        bound = max(GRAD_REL * gp.abs().max().item(), GRAD_ATOL)
+        fixed = max(grad_rel * gp.abs().max().item(), GRAD_ATOL)
+        head = name.startswith(("pool.", "whiten."))
+        if head or name == last_conv:
+            fixed_ratio[name] = err / fixed
+        bound = fixed if head or not spread else max(fixed, spread[name])
         if err / bound > worst:
             worst, worst_name = err / bound, name
     stats_diff = 0.0
@@ -3222,12 +3290,13 @@ def _grad_check(tag, smi, k_model, p_model, k_loss, p_loss, params_only=None):
             stats_diff = max(stats_diff, (v - p_sd[k]).abs().max().item())
     log(f"[training] {tag}: loss kernel {float(k_loss):.8f} plain {float(p_loss):.8f} "
         f"(rel {rel:.2e}), {n_grads} gradients, worst err/bound {worst:.3f} ({worst_name}), "
+        f"err/fixed bound {json.dumps({k: round(v, 4) for k, v in fixed_ratio.items()})}, "
         f"BN running stats max|diff| {stats_diff:.3e} | {smi}")
     if rel > LOSS_REL or worst > 1.0 or stats_diff != 0.0 or n_grads == 0:
         raise AssertionError(f"[training] {tag}: the kernel head's step disagrees with the "
                              f"plain head's")
     return {"loss_rel": rel, "worst_err_over_bound": worst, "gradients": n_grads,
-            "bn_stats_max_diff": stats_diff}
+            "err_over_fixed_bound": fixed_ratio, "bn_stats_max_diff": stats_diff}
 
 
 def _mining_check(dev, smi, args, paths, clusters, qidxs, pidxs):
@@ -3505,6 +3574,384 @@ def training_phase(dev, smi):
     out["wall_s"] = time.perf_counter() - t_path
     log(f"[training] path D wall {out['wall_s']:.1f} s | {smi}")
     log(json.dumps({"training": out}))
+    return launches, out
+
+
+# Path L: what the JAX trainer trains beyond path D. L1 bf16 at path D's
+# recipe; L2 remat at runs/train_remat1024's (resnet50, 1024 px, 1 negative,
+# 2 tuples, a 768 x 1024 bucket, cli train's defaults otherwise); L3 the
+# other trunks and heads, one step each on path D's tuples; L4 ``cli train
+# --dtype bfloat16 --remat`` for one epoch
+REMAT_RECIPE = dict(arch="resnet50", image_size=1024, n_neg=1, batch_tuples=2,
+                    bucket=(768, 1024))
+L_BUCKET = (288, 384)  # path D's 362-px bucket
+# a bf16 step's loss against the f32 step's on the same weights and tuples:
+# the JAX package's own bound for its bf16 step against its f32 step
+# (tests/test_training.py::test_mixed_precision_train_step_bf16). Random
+# weights put the descriptors close together, so the contrastive loss's
+# distances carry bf16's rounding in full: 1.4e-2 for this resnet101 on a
+# 64 x 96 bucket on the CPU (the port's bf16 rounding points)
+L_LOSS_BF16_REL = 5e-2
+# kernel head against plain head on paths L1 and L3: the trunk's forward is
+# the same to the bit (deterministic cuDNN) and the two heads' gradients lie
+# ~1e-7 apart, but the trunk's backward can carry that far: in a bf16 trunk
+# where a gradient rounds to bf16 on the other side of a boundary (measured
+# on an H100: 3.3e-2 of max|g| at resnet101's layer1.1.bn2.weight, where one
+# bf16 ulp, 2^-8, was expected), and in f32 where a weight's gradient is a
+# sum that cancels (alexnet's features.3.weight, 8.3 x the 1e-4 bound). So
+# each trunk tensor is held within GRAD_REL (f32) or 2^-8 (bf16) of its
+# max|g|, or L_SPREAD x the step's own spread where that is wider: the
+# plain-head step against itself with its tuples in reverse order (the same
+# function, its sums and roundings in another order; path J's rule). The
+# head's own parameters (pool.p, whiten) keep the fixed bound (_grad_check)
+L_BF16_GRAD_REL = 2.0 ** -8
+L_SPREAD = 2.0
+L_CLI_POOL = dict(scenes=20, views=4, qsize=20)  # path D's pool cut for L4
+
+
+def _train_tuples(n, T, H, W, seed=0):
+    """n masked u8 tuples of T blocky images in an H x W bucket: q and p from
+    one scene, the negatives from others, each extent one of three ragged
+    rectangles (all of it, fewer rows, fewer columns), zeroed padding."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def scene():
+        return np.kron(rng.rand(H // 16, W // 16, 3), np.ones((16, 16, 1)))
+
+    px = np.zeros((n, T, H, W, 3), np.uint8)
+    sizes = np.zeros((n, T, 2), np.int32)
+    for b in range(n):
+        shared = scene()
+        for t in range(T):
+            base = shared if t < 2 else scene()
+            h, w = ((H, W), (H - H // 4, W), (H, W - W // 3))[(b + t) % 3]
+            img = np.roll(base, rng.randint(-8, 9), axis=1)[:h, :w]
+            img = img * (1 + 0.1 * rng.randn()) + 0.05 * rng.randn(h, w, 3)
+            px[b, t, :h, :w] = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            sizes[b, t] = (h, w)
+    labels = np.zeros((n, T), np.int32)
+    labels[:, 1], labels[:, 2:] = 1, -1
+    return px, sizes, labels
+
+
+def _timed_step(step, state, *args):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, *args)
+    torch.cuda.synchronize()
+    return state, loss, (time.perf_counter() - t0) * 1e3
+
+
+def _conv_trained(tag, model, before):
+    """Every conv weight has a nonzero gradient and moved; every parameter
+    and gradient is f32; returns how many parameter tensors moved."""
+    import torch
+
+    for n, p in model.named_parameters():
+        if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32):
+            raise AssertionError(f"[{tag}] {n}: a parameter or gradient not in float32")
+        if p.dim() == 4 and (p.grad is None or float(p.grad.abs().max()) == 0.0
+                             or torch.equal(p.detach(), before[n])):
+            raise AssertionError(f"[{tag}] {n}: a conv weight without gradient or not moved")
+    return sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+
+
+def _step_spread(ref, sd, cfg, args, from_u8, dev, **model_kw):
+    """L_SPREAD x each parameter's max|g - g_reversed|: ``ref``'s step (the
+    plain head) against the same step from ``sd`` on ``args`` with the
+    tuples in reverse order: the same function, its sums over the batch (and
+    so its roundings) in another order."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+
+    rev = create_train_state(RetrievalNet(**dict(model_kw, use_kernel=False)), cfg,
+                             state_dict=sd, device=dev)
+    flipped = [torch.flip(a, [0]) if torch.is_tensor(a) else a[::-1].copy() for a in args]
+    make_train_step(rev.model, cfg, from_u8=from_u8)(rev, *flipped)
+    got = dict(rev.model.named_parameters())
+    out = {n: L_SPREAD * float((p.grad - got[n].grad).abs().max())
+           for n, p in ref.model.named_parameters() if p.grad is not None}
+    del rev, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_more_phase(dev, smi, main_d=None):
+    """Path L: bf16 training (L1: path D's recipe in bf16, the bench beside
+    path D's f32 one, the step against the f32 step and the kernel head
+    against the plain head, every conv weight trained), remat (L2: remat
+    against no remat at runs/train_remat1024's recipe, bit for bit, the
+    running statistics moved once), the other trunks and heads (L3: one
+    step each, a kernel head against the plain head where one applies) and
+    ``cli train --dtype bfloat16 --remat`` (L4); the launch counts over all
+    of it."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch import cli
+    from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (
+        run_training_bench,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.models import resnet
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        TrainConfig,
+        create_train_state,
+        make_train_step,
+        u8_to_input,
+    )
+
+    t_path = time.perf_counter()
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    r = TRAIN_RECIPE
+    T = 2 + r["n_neg"]
+    cfg = TrainConfig(loss=r["loss"], margin=r["margin"], lr=r["lr"], n_neg=r["n_neg"],
+                      batch_tuples=r["batch_tuples"])
+    px, sizes, labels = _train_tuples(r["batch_tuples"], T, *L_BUCKET, seed=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_l_")
+    out = {}
+
+    def state(sd=None, **kw):
+        return create_train_state(RetrievalNet(**kw), cfg, state_dict=sd, seed=0, device=dev)
+
+    try:
+        log(f"[training L] path L: bf16, remat, the other trunks and heads, cli train; "
+            f"path D's recipe {r} on {r['batch_tuples']} masked u8 tuples of {T} images in "
+            f"a {L_BUCKET[0]}x{L_BUCKET[1]} bucket, random weights from torch.Generator seed "
+            f"0 | {smi}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+
+        # L1: bf16, the bench beside path D's f32 bench
+        torch.cuda.reset_peak_memory_stats()
+        bench = run_training_bench(
+            arch=r["arch"], pooling=r["pooling"], image_size=r["image_size"],
+            batch_tuples=r["batch_tuples"], n_neg=r["n_neg"], loss=r["loss"], reps=10,
+            warmup=2, pallas=True, dtype="bfloat16", device=dev, profile=profile_window)
+        peak = torch.cuda.max_memory_allocated()
+        prof = bench.pop("profile")
+        f32 = (main_d or {}).get("bench")
+        log(f"[training L1] run_training_bench {r['arch']} bf16 {r['image_size']} px, "
+            f"{r['batch_tuples']} tuples x {T} images, kernel head: step p50 "
+            f"{bench['lat_p50_ms']} ms p95 {bench['lat_p95_ms']} ms, {bench['tuples_per_sec']} "
+            f"tuples/s, peak memory {peak / 2**30:.2f} GiB, idle share {prof['idle_share']:.4f}, "
+            f"device ms by group {json.dumps(prof['device_ms_by_group'])}; path D's f32 step "
+            f"in this call: " + (f"p50 {f32['lat_p50_ms']} ms p95 {f32['lat_p95_ms']} ms, "
+                                 f"{f32['tuples_per_sec']} tuples/s, peak memory "
+                                 f"{f32['max_memory_allocated'] / 2**30:.2f} GiB, idle share "
+                                 f"{f32['profile']['idle_share']:.4f}" if f32 else "not run")
+            + f" | {smi}")
+        out["L1_bench"] = dict(bench, max_memory_allocated=peak, profile=prof)
+        torch.cuda.empty_cache()
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        k16 = state(arch=r["arch"], use_kernel=True, dtype="bfloat16")
+        sd = copy.deepcopy(k16.model.state_dict())
+        p16 = state(sd, arch=r["arch"], use_kernel=False, dtype="bfloat16")
+        k32 = state(sd, arch=r["arch"], use_kernel=True)
+        before = {n: p.detach().clone() for n, p in k16.model.named_parameters()}
+        _, lk, ms16 = _timed_step(make_train_step(k16.model, cfg, from_u8=True), k16, px, sizes,
+                                  labels)
+        _, lp = make_train_step(p16.model, cfg, from_u8=True)(p16, px, sizes, labels)
+        _, lf, ms32 = _timed_step(make_train_step(k32.model, cfg, from_u8=True), k32, px, sizes,
+                                  labels)
+        spread = _step_spread(p16, sd, cfg, (px, sizes, labels), True, dev, arch=r["arch"],
+                              dtype="bfloat16")
+        chk = _grad_check(f"L1 {r['arch']} bf16 u8 masked step", smi, k16.model, p16.model, lk,
+                          lp, grad_rel=L_BF16_GRAD_REL, spread=spread)
+        loss_rel = abs(float(lk) - float(lf)) / abs(float(lf))
+        moved = _conv_trained("L1 bf16", k16.model, before)
+        opt_f32 = all(v.dtype == torch.float32 for st in k16.optimizer.state.values()
+                      for v in st.values() if torch.is_tensor(v))
+        n_conv = sum(p.dim() == 4 for p in k16.model.parameters())
+        log(f"[training L1] bf16 step loss {float(lk):.8f} vs the f32 step's {float(lf):.8f} on "
+            f"the same weights and tuples (rel {loss_rel:.3e}, bound {L_LOSS_BF16_REL}); "
+            f"kernel vs plain head worst err/bound {chk['worst_err_over_bound']:.3f} (bound "
+            f"{L_BF16_GRAD_REL:.3e} of max|g|); all {n_conv} conv weights have a nonzero "
+            f"gradient and moved, {moved} parameter tensors moved; parameters, gradients and "
+            f"optimizer state f32 {opt_f32}; deterministic cuDNN step ms bf16 {ms16:.1f} f32 "
+            f"{ms32:.1f} | {smi}")
+        if loss_rel > L_LOSS_BF16_REL or not opt_f32:
+            raise AssertionError("[training L1] the bf16 step's loss is off the f32 step's, or "
+                                 "its optimizer state is not f32")
+        out["L1"] = dict(chk, loss_bf16=float(lk), loss_f32=float(lf), loss_rel=loss_rel,
+                         conv_weights=n_conv, moved=moved, step_ms_bf16=ms16, step_ms_f32=ms32)
+        del k16, p16, k32, before
+        torch.cuda.empty_cache()
+
+        # L2: remat against no remat at runs/train_remat1024's recipe
+        rr = REMAT_RECIPE
+        cfg2 = TrainConfig(n_neg=rr["n_neg"], batch_tuples=rr["batch_tuples"])
+        px2, sizes2, labels2 = _train_tuples(rr["batch_tuples"], 2 + rr["n_neg"],
+                                             *rr["bucket"], seed=2)
+        sd50, runs = None, {}
+        for remat in (False, True):
+            c = dataclasses.replace(cfg2, remat=remat)
+            st = create_train_state(RetrievalNet(arch=rr["arch"], use_kernel=True), c,
+                                    state_dict=sd50, seed=0, device=dev)
+            if sd50 is None:
+                sd50 = copy.deepcopy(st.model.state_dict())
+            n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in st.model.modules())
+            step = make_train_step(st.model, c, from_u8=True)
+            resnet.BN_TRAIN_COUNTS.update(moved=0, recomputed=0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st, loss, first_ms = _timed_step(step, st, px2, sizes2, labels2)
+            runs[remat] = {
+                "loss": loss.clone(), "peak": torch.cuda.max_memory_allocated(),
+                "counts": dict(resnet.BN_TRAIN_COUNTS), "n_bn": n_bn, "first_ms": first_ms,
+                "grads": {n: p.grad.clone() for n, p in st.model.named_parameters()},
+                "state": {k: v.clone() for k, v in st.model.state_dict().items()}}
+            runs[remat]["ms"] = statistics.median(
+                _timed_step(step, st, px2, sizes2, labels2)[2] for _ in range(3))
+            del st, step
+        a, b = runs[False], runs[True]
+        grads_equal = all(torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+        state_equal = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+        worst_g = max(float((a["grads"][n] - b["grads"][n]).abs().max()) for n in a["grads"])
+        once = (a["counts"] == {"moved": a["n_bn"], "recomputed": 0}
+                and b["counts"]["moved"] == b["n_bn"] and b["counts"]["recomputed"] > 0)
+        log(f"[training L2] remat {rr}: loss no-remat {float(a['loss']):.8f} remat "
+            f"{float(b['loss']):.8f} bit-equal {torch.equal(a['loss'], b['loss'])}; gradients "
+            f"bit-equal {grads_equal} (max|diff| {worst_g:.3e}); parameters and BN running "
+            f"statistics after the update bit-equal {state_equal}; BatchNorm calls: no-remat "
+            f"{a['counts']}, remat {b['counts']} of {a['n_bn']} layers (moved once: {once}); "
+            f"peak memory no-remat {a['peak'] / 2**30:.2f} GiB remat {b['peak'] / 2**30:.2f} "
+            f"GiB; step ms no-remat {a['ms']:.1f} remat {b['ms']:.1f} (median of 3 after the "
+            f"first, deterministic cuDNN) | {smi}")
+        if not (torch.equal(a["loss"], b["loss"]) and grads_equal and state_equal and once):
+            raise AssertionError("[training L2] the remat step differs from the plain step, or "
+                                 "moved the running statistics twice")
+        out["L2"] = {"loss": float(a["loss"]), "grads_equal": grads_equal,
+                     "state_equal": state_equal, "bn_counts": [a["counts"], b["counts"]],
+                     "peak_bytes": [a["peak"], b["peak"]], "step_ms": [a["ms"], b["ms"]],
+                     "first_step_ms": [a["first_ms"], b["first_ms"]]}
+        del runs, a, b, sd50
+        torch.cuda.empty_cache()
+
+        # L3: the other trunks and heads, one step each; a kernel head against
+        # the plain head where one applies
+        full = np.broadcast_to(np.asarray(L_BUCKET, np.int32), sizes.shape).copy()
+        x_full, _ = u8_to_input(torch.from_numpy(px).to(dev), torch.from_numpy(full).to(dev))
+        cases = [  # (tag, model kwargs, kernel twin, masked u8)
+            ("densenet121-gem", dict(arch="densenet121"), True, True),
+            ("densenet121-gem bf16", dict(arch="densenet121", dtype="bfloat16"), True, True),
+            ("alexnet-gem", dict(arch="alexnet"), True, False),
+            ("squeezenet1_1-gem", dict(arch="squeezenet1_1"), True, True),
+            ("resnet101-gemmp", dict(arch="resnet101", pooling="gemmp"), False, True),
+            ("vgg16-rmac", dict(arch="vgg16", pooling="rmac"), False, True),
+            ("resnet101-gem-regional-whiten2048", dict(arch="resnet101", regional=True,
+                                                       whiten_dim=2048), False, False)]
+        out["L3"] = {}
+        for tag, kw, twin, masked in cases:
+            def run(st):
+                step = make_train_step(st.model, cfg, from_u8=masked)
+                args = (px, sizes, labels) if masked else (x_full, labels)
+                return _timed_step(step, st, *args)
+
+            st = state(use_kernel=twin, **kw)
+            before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+            plain = state(copy.deepcopy(st.model.state_dict()), use_kernel=False,
+                          **kw) if twin else None
+            st, loss, ms = run(st)
+            moved = _conv_trained(f"L3 {tag}", st.model, before)
+            rec = {"loss": float(loss), "step_ms": ms, "moved": moved}
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"[training L3] {tag}: a non-finite loss")
+            if twin:
+                sd_twin = copy.deepcopy(plain.model.state_dict())
+                plain, lp, _ = run(plain)
+                spread = _step_spread(plain, sd_twin, cfg, (px, sizes, labels) if masked
+                                      else (x_full, labels), masked, dev, **kw)
+                rec["vs_plain"] = _grad_check(
+                    f"L3 {tag} {'u8 masked' if masked else 'unmasked'} step", smi, st.model,
+                    plain.model, loss, lp, spread=spread,
+                    grad_rel=L_BF16_GRAD_REL if kw.get("dtype") == "bfloat16" else None)
+                del sd_twin
+            if kw.get("pooling") == "gemmp":
+                rec["p_grad_nonzero"] = int((st.model.pool.p.grad != 0).sum())
+            log(f"[training L3] {tag}: loss {float(loss):.8f}, step {ms:.1f} ms (deterministic "
+                f"cuDNN, first step), {moved} parameter tensors moved, every conv weight "
+                f"trained" + (f", GeMmp p with a nonzero gradient in "
+                              f"{rec['p_grad_nonzero']} of {st.model.pool.p.numel()} channels"
+                              if "p_grad_nonzero" in rec else "") + f" | {smi}")
+            if kw.get("regional"):  # a masked batch: the JAX package's ValueError
+                try:
+                    make_train_step(st.model, cfg, from_u8=True)(st, px, sizes, labels)
+                except ValueError as e:
+                    rec["masked_raises"] = str(e)
+                else:
+                    raise AssertionError("[training L3] a masked regional step did not raise")
+                log(f"[training L3] {tag}: a masked u8 step raises ValueError: "
+                    f"{rec['masked_raises']} | {smi}")
+            out["L3"][tag] = rec
+            del st, plain, before
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+
+        # L4: cli train --dtype bfloat16 --remat, one epoch on path D's pool cut
+        pool = L_CLI_POOL
+        run_dir, data_dir = os.path.join(tmp, "run"), os.path.join(tmp, "data")
+        argv = ["train", "--arch", r["arch"], "--pallas", "--dtype", "bfloat16", "--remat",
+                "--epochs", "1", "--loss", r["loss"], "--margin", str(r["margin"]),
+                "--lr", str(r["lr"]), "--n-neg", str(r["n_neg"]),
+                "--batch-tuples", str(r["batch_tuples"]), "--qsize", str(pool["qsize"]),
+                "--image-size", str(r["image_size"]), "--batch-size", "16",
+                "--synth-scenes", str(pool["scenes"]), "--synth-views", str(pool["views"]),
+                "--out-dir", run_dir, "--data-root", data_dir, "--device", "cuda"]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        t_cli = time.perf_counter() - t0
+        files = sorted(os.listdir(run_dir))
+        with open(os.path.join(run_dir, "latest.meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            ep = next(x for x in map(json.loads, f) if "train_loss" in x)
+        wh = np.load(os.path.join(run_dir, "whitening.npz"))
+        log(f"[training L4] cli {' '.join(argv[:-4])} ...: rc {rc} in {t_cli:.1f} s, "
+            f"{ep['steps']} steps, mean train loss {ep['train_loss']:.6f}, files {files}, meta "
+            f"dtype {meta.get('dtype')} remat {meta.get('remat')}, whitening P "
+            f"{wh['P'].shape} (cuts: {pool['scenes']} scenes x {pool['views']} views at the "
+            f"CLI's synthetic 96 x 128 px, qsize {pool['qsize']}) | {smi}")
+        need = {"latest", "best", "latest.meta.json", "best.meta.json", "whitening.npz",
+                "metrics.jsonl"}
+        if not (rc == 0 and need <= set(files) and ep["steps"] > 0
+                and np.isfinite(ep["train_loss"]) and np.isfinite(wh["P"]).all()
+                and meta.get("dtype") == "bfloat16" and meta.get("remat") is True):
+            raise AssertionError("[training L4] cli train --dtype bfloat16 --remat failed or "
+                                 "left an artifact out")
+        out["L4"] = {"rc": rc, "seconds": t_cli, "steps": ep["steps"],
+                     "train_loss": ep["train_loss"], "files": files}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"[training L] launches {launches} | {smi}")
+        for name in ("gem_l2n_fused_rect", "gem_l2n_fused", "scores_blockmax"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on path L")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"[training L] path L wall {out['wall_s']:.1f} s | {smi}")
+    log(json.dumps({"training_l": out}))
     return launches, out
 
 
@@ -4664,7 +5111,9 @@ def main() -> int:
     del e_keep, ann_keep, q_u8
     launches_h, main_h = other_trunks_phase(dev)
     launches_d, main_d = training_phase(dev, smi)
-    torch.cuda.empty_cache()  # path D's memory, before path J's workers start
+    torch.cuda.empty_cache()
+    launches_l, main_l = training_more_phase(dev, smi, main_d)
+    torch.cuda.empty_cache()  # paths D's and L's memory, before path J's workers start
     launches_j, main_j = data_parallel_phase(dev, smi, c2, main_d)
     del c2
     launches_k, main_k = tooling_phase(dev, smi)
@@ -4673,7 +5122,7 @@ def main() -> int:
                "config5": launches_c5, "config5_fused_trunk": launches_i,
                "config4": launches_e, "rerank": launches_f,
                "serving": launches_g, "other_trunks": launches_h, "training": launches_d,
-               "data_parallel": launches_j, "tooling": launches_k}
+               "training_l": launches_l, "data_parallel": launches_j, "tooling": launches_k}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -4709,7 +5158,8 @@ def main() -> int:
                                   "config5_fused_trunk": main_i,
                                   "config4": main_e, "rerank": main_f,
                                   "serving": main_g, "other_trunks": main_h,
-                                  "training": main_d, "data_parallel": main_j,
+                                  "training": main_d, "training_l": main_l,
+                                  "data_parallel": main_j,
                                   "tooling": main_k,
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,

@@ -309,8 +309,7 @@ def cmd_train(argv):
     p.add_argument("--lr", type=float, default=1e-6)
     p.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="trunk compute dtype (bfloat16 training is not yet ported: "
-                        "ROADMAP C3)")
+                   help="trunk compute dtype (parameters and optimizer state stay float32)")
     p.add_argument("--momentum", type=float, default=0.9, help="SGD momentum")
     p.add_argument("--update-every", type=int, default=1,
                    help="gradient accumulation: apply the optimizer every k-th tuple batch")
@@ -324,7 +323,7 @@ def cmd_train(argv):
     p.add_argument("--out-dir", required=True)
     p.add_argument("--resume", default=None, help="checkpoint dir to resume from ('latest')")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize trunk activations (not yet ported: ROADMAP C3)")
+                   help="rematerialize trunk activations in the backward (lower peak memory)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the generated synthetic corpus")
     p.add_argument("--synth-scenes", type=int, default=12)

@@ -108,10 +108,12 @@ template <> struct Chan<__nv_bfloat16, 1> {
 
 // max(v, 1e-6)^p as 2^(p log2 v) on the special function unit; v >= 1e-6 and
 // the result is never subnormal for p <= 6, so flushing subnormals changes
-// nothing
+// nothing. A NaN stays NaN (fmaxf alone would return 1e-6 for it), as
+// torch.clamp and jnp.clip pass it through; lg2 and ex2 carry it into the sum
 __device__ __forceinline__ float gem_term(float v, float p) {
   float l, e;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(fmaxf(v, GEM_EPS)));
+  const float c = v != v ? v : fmaxf(v, GEM_EPS);
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(c));
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(p * l));
   return e;
 }

@@ -14,12 +14,18 @@ rounds to bf16 (``resnet.conv_lowp``), each BatchNorm computes in f32 and
 rounds once (``resnet.bn_lowp``), ReLU, max-pool and the concatenations run
 in bf16, and a transition's 2x2 average pool sums its four values in bf16
 in row-major order, rounding after each add, then divides by 4 in bf16, as
-XLA reduces flax's ``avg_pool`` (:func:`avg_pool2x2_lowp`). Inference only:
-train-mode BatchNorm stays with the ResNet trunks
-(``training.trainer.check_trainable``).
+XLA reduces flax's ``avg_pool`` (:func:`avg_pool2x2_lowp`).
+
+In train mode every BatchNorm (``norm0``, each dense layer's ``norm1`` and
+``norm2``, each transition's ``norm``, ``norm5``) is flax's, as the JAX
+package's ``_BN`` (momentum 0.9, eps 1e-5, the biased fast variance), in
+either dtype (``resnet.bn_train``); under ``resnet.remat`` the stem and each
+dense block with its transition are checkpointed segments.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -27,7 +33,9 @@ import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
     bn_lowp,
+    bn_train,
     conv_lowp,
+    segment,
 )
 
 # (growth_rate, block_config, num_init_features)
@@ -51,6 +59,8 @@ def densenet_out_channels(arch: str) -> int:
 
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    if bn.training:
+        return bn_train(bn, x)
     return bn(x) if x.dtype == torch.float32 else bn_lowp(bn, x)
 
 
@@ -117,11 +127,20 @@ class DenseNetTrunk(nn.Module):
         self.norm5 = nn.BatchNorm2d(ch)
         self.n_blocks = len(blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.max_pool2d(F.relu(_bn(self.norm0, _conv(self.conv0, x))), 3, 2, 1)
-        for bi in range(1, self.n_blocks + 1):
-            for layer in getattr(self, f"denseblock{bi}").children():
-                x = layer(x)
-            if bi < self.n_blocks:
-                x = getattr(self, f"transition{bi}")(x)
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(F.relu(_bn(self.norm0, _conv(self.conv0, x))), 3, 2, 1)
+
+    def _stage(self, bi: int, x: torch.Tensor) -> torch.Tensor:
+        """Dense block ``bi`` and the transition after it (``norm5`` and the
+        final ReLU after the last)."""
+        for layer in getattr(self, f"denseblock{bi}").children():
+            x = layer(x)
+        if bi < self.n_blocks:
+            return getattr(self, f"transition{bi}")(x)
         return F.relu(_bn(self.norm5, x))  # cirtorch appends the final ReLU
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = segment(self._stem, x)
+        for bi in range(1, self.n_blocks + 1):
+            x = segment(functools.partial(self._stage, bi), x)
+        return x

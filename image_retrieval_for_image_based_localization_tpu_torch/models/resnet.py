@@ -16,14 +16,23 @@ computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 on that
 output and rounds once (:func:`bn_lowp`); ReLU, max-pool and the residual
 add run in bf16. A float32 input takes the f32 modules as they are.
 
-In train mode (``module.train()``, f32 only) BatchNorm has flax's
-semantics, not ``nn.BatchNorm2d``'s (:func:`bn_train`): it normalizes with
-the biased batch variance and moves the running statistics by
-``ra <- 0.9 ra + 0.1 batch`` with the biased variance too, where torch's own
-train mode stores the unbiased one. Under :func:`global_batch_stats` (a
-train step whose data group holds several processes) the statistics are the data group's global batch's,
-summed in float64 so that they do not depend on how the batch is split.
-bf16 training raises.
+In train mode (``module.train()``) BatchNorm has flax's semantics, not
+``nn.BatchNorm2d``'s (:func:`bn_train`): it normalizes with the biased batch
+variance and moves the running statistics by ``ra <- 0.9 ra + 0.1 batch``
+with the biased variance too, where torch's own train mode stores the
+unbiased one. Under :func:`global_batch_stats` (a train step whose data
+group holds several processes) the statistics are the data group's global
+batch's, summed in float64 so that they do not depend on how the batch is
+split. A bf16 map trains at flax's rounding points: the statistics in f32,
+the output rounded once, the running statistics f32; the bf16 weights are
+cast in the graph, so the f32 master weights get the cast's gradient
+(:func:`lowp_weight`).
+
+Under :func:`remat` (``TrainConfig(remat=True)``) the trunks checkpoint
+each segment (a ResNet block, a DenseNet dense block) with
+``torch.utils.checkpoint``; the recompute in the backward takes the same
+batch statistics and leaves the running statistics where the forward put
+them (:func:`segment`).
 """
 
 from __future__ import annotations
@@ -46,10 +55,15 @@ RESNET_SPECS = {
 
 
 def lowp_weight(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """``conv.weight`` in ``dtype`` (channels_last), cast once and kept on
-    the module: made again only when the weight moves to another device or
-    is written (``load_state_dict``), never on every forward."""
+    """``conv.weight`` in ``dtype`` (channels_last). In grad mode with a
+    weight that requires grad (training) the cast sits in the graph, so the
+    f32 weight gets the cast's gradient, as flax's ``promote_dtype`` gives
+    it; otherwise (inference) it is cast once and kept on the module: made
+    again only when the weight moves to another device or is written
+    (``load_state_dict``), never on every forward."""
     w = conv.weight
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.to(dtype).contiguous(memory_format=torch.channels_last)
     key = (dtype, w.device, w.data_ptr(), w._version)
     cached = getattr(conv, "_lowp_weight", None)
     if cached is None or cached[0] != key:
@@ -82,9 +96,23 @@ def bn_lowp(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
 
 BN_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
 _STATS_GROUP = []  # the data group of the data-parallel step being run, if any
+_REMAT = []        # non-empty within remat(): the trunks checkpoint their segments
+_RECOMPUTING = []  # non-empty while a checkpointed segment re-runs in the backward
+# train-mode BatchNorm calls since the last reset: those that moved the
+# running statistics, and those of a checkpointed segment's re-run (which
+# move nothing)
+BN_TRAIN_COUNTS = {"moved": 0, "recomputed": 0}
 
 
 @contextlib.contextmanager
+def _pushed(stack: list, value=True):
+    stack.append(value)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def global_batch_stats(group):
     """Within the block (a train step whose data group holds several
     processes, or its one-process reference), train-mode BatchNorm
@@ -93,11 +121,35 @@ def global_batch_stats(group):
     :class:`_BatchNormTrain`: its sums are all-reduced over the group in the
     forward and the backward, a no-op for a group of one process. Every
     process of the group must run the same layers in the same order."""
-    _STATS_GROUP.append(group)
-    try:
-        yield
-    finally:
-        _STATS_GROUP.pop()
+    return _pushed(_STATS_GROUP, group)
+
+
+def remat():
+    """Within the block (the train step of ``TrainConfig(remat=True)``, the
+    JAX step's ``jax.checkpoint``), the trunks keep only each segment's input
+    for the backward and run the segment again there (:func:`segment`)."""
+    return _pushed(_REMAT)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _pushed(_RECOMPUTING)
+
+
+def segment(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, a trunk segment (a ResNet block, a DenseNet dense block, a
+    VGG stage). Under :func:`remat` in grad mode it runs through
+    ``torch.utils.checkpoint`` (non-reentrant): the backward re-runs it on
+    the same input, so its BatchNorms take the same batch statistics, while
+    the re-run leaves the running statistics alone (:func:`_move_running`),
+    as flax's functional ``jax.checkpoint`` returns them once. Gradients,
+    loss and statistics are those of the step without remat, bit for bit
+    wherever the re-run is deterministic."""
+    if not (_REMAT and torch.is_grad_enabled()):
+        return fn(x)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, x, use_reentrant=False, context_fn=_remat_contexts,
+                      preserve_rng_state=False)
 
 
 def _channel_rows(t: torch.Tensor) -> torch.Tensor:
@@ -130,7 +182,10 @@ class _BatchNormTrain(torch.autograd.Function):
     Forward: ``mean = sum(y) / n``, ``var = max(sum(y^2) / n - mean^2, 0)``
     (biased; flax's fast variance, in float64), ``out = (y - mean) *
     (rsqrt(var + eps) * scale) + bias``; also returns the mean and the
-    variance for the running statistics. Backward: BatchNorm's gradient with
+    variance for the running statistics. A bf16 ``y`` is taken at flax's
+    rounding points: its squares, the statistics and the output are computed
+    in f32 and the output is rounded to bf16 once; the statistics stay f32.
+    Backward: BatchNorm's gradient with
     the global sums of ``dout`` and ``dout * (y - mean)``; ``scale`` and
     ``bias`` get this process's share (the train step sums the shares).
     Autograd through the sums instead would cancel ``2 y dvar`` against
@@ -144,30 +199,32 @@ class _BatchNormTrain(torch.autograd.Function):
         shape = (1, C, 1, 1)
         rows = _channel_rows(y)
         s = _sum_over(torch.cat([rows.sum(dim=0, dtype=torch.float64),
-                                 torch.square(rows).sum(dim=0, dtype=torch.float64),
+                                 torch.square(rows.float()).sum(dim=0, dtype=torch.float64),
                                  rows.new_full((1,), rows.shape[0], dtype=torch.float64)]),
                       group)
         n = s[2 * C]
         s = s[:2 * C] / n
         mean64 = s[:C]
-        var = torch.addcmul(s[C:], mean64, mean64, value=-1.0).clamp_(min=0.0).to(y.dtype)
-        mean = mean64.to(y.dtype)
+        f32 = weight.dtype
+        var = torch.addcmul(s[C:], mean64, mean64, value=-1.0).clamp_(min=0.0).to(f32)
+        mean = mean64.to(f32)
         invstd = torch.rsqrt(var + eps)
-        xmu = y - mean.reshape(shape)
+        xmu = y - mean.reshape(shape)  # f32 for a bf16 y too
         ctx.save_for_backward(xmu, weight, invstd)
-        ctx.n, ctx.group = n, group
+        ctx.n, ctx.group, ctx.in_dtype = n, group, y.dtype
         ctx.mark_non_differentiable(mean, var)
         # out= keeps y's memory format (channels_last): with the (1, C, 1, 1)
         # bias first, addcmul would return an NCHW tensor
         out = torch.addcmul(bias.reshape(shape), xmu, (invstd * weight).reshape(shape),
                             out=torch.empty_like(xmu))
-        return out, mean, var
+        return out.to(y.dtype), mean, var
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         xmu, weight, invstd = ctx.saved_tensors
         C = xmu.shape[1]
         shape = (1, C, 1, 1)
+        dout = dout.to(xmu.dtype)
         local = torch.cat([_channel_rows(dout).sum(dim=0, dtype=torch.float64),
                            _channel_rows(dout * xmu).sum(dim=0, dtype=torch.float64)])
         sums = (_sum_over(local, ctx.group) / ctx.n).to(xmu.dtype)
@@ -177,13 +234,14 @@ class _BatchNormTrain(torch.autograd.Function):
                            out=torch.empty_like(xmu))
         dx.addcmul_(xmu, (-invstd * invstd * sums[C:] * k).reshape(shape))
         dw = (local[C:] * invstd.double()).to(xmu.dtype)
-        return dx, dw, local[:C].to(xmu.dtype), None, None
+        return dx.to(ctx.in_dtype), dw, local[:C].to(xmu.dtype), None, None
 
 
 def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    BN_TRAIN_COUNTS["moved"] += 1
 
 
 def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
@@ -191,32 +249,40 @@ def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     the output is normalized with the batch mean and the biased batch
     variance, and the running statistics move by ``ra <- 0.9 ra + 0.1 batch``
     with flax's fast variance ``mean(y^2) - mean(y)^2`` (biased, floored at
-    0), outside the graph. Under :func:`global_batch_stats` (a data-parallel
-    train step) the statistics are the data group's global batch's, as
-    flax's are under ``jit`` over a batch sharded on ``data``
-    (:class:`_BatchNormTrain`)."""
+    0), outside the graph. A bf16 ``y`` takes its statistics in f32 and its
+    output is rounded to bf16 once (flax's ``force_float32_reductions`` and
+    ``_normalize``; torch's batch_norm on a bf16 input with f32 parameters
+    computes so); the running statistics stay f32. Under
+    :func:`global_batch_stats` (a data-parallel train step) the statistics
+    are the data group's global batch's, as flax's are under ``jit`` over a
+    batch sharded on ``data`` (:class:`_BatchNormTrain`). In a checkpointed
+    segment's re-run (:func:`segment`) the running statistics stay where the
+    forward moved them."""
     if _STATS_GROUP:
         out, mean, var = _BatchNormTrain.apply(y, bn.weight, bn.bias, bn.eps, _STATS_GROUP[-1])
-        _move_running(bn, mean, var)
+    else:
+        out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        mean = var = None
+    if _RECOMPUTING:
+        BN_TRAIN_COUNTS["recomputed"] += 1
         return out
-    out = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
-    with torch.no_grad():
-        mean = y.mean(dim=(0, 2, 3))
-        var = torch.clamp(torch.square(y).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+    if mean is None:
+        with torch.no_grad():
+            t = y.float()
+            mean = t.mean(dim=(0, 2, 3))
+            var = torch.clamp(torch.square(t).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
     _move_running(bn, mean, var)
     return out
 
 
 def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16);
-    in train mode with flax's statistics (:func:`bn_train`)."""
+    in train mode with flax's statistics (:func:`bn_train`), either dtype."""
     if x.dtype == torch.float32:
-        return bn_train(bn, conv(x)) if bn.training else bn(conv(x))
-    if bn.training:
-        raise NotImplementedError(
-            "bf16 training is not supported: train-mode BatchNorm runs in float32 only "
-            "(ROADMAP C3, bf16 training)")
-    return bn_lowp(bn, conv_lowp(conv, x))
+        y = conv(x)
+        return bn_train(bn, y) if bn.training else bn(y)
+    y = conv_lowp(conv, x)
+    return bn_train(bn, y) if bn.training else bn_lowp(bn, y)
 
 
 def _downsample(ds: Optional[nn.Sequential], x: torch.Tensor) -> torch.Tensor:
@@ -295,6 +361,12 @@ class ResNetTrunk(nn.Module):
             layers += [block(inplanes, width) for _ in range(1, depth)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*layers))
 
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool(self.relu(conv_bn(self.conv1, self.bn1, x)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.maxpool(self.relu(conv_bn(self.conv1, self.bn1, x)))
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        x = segment(self._stem, x)
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = segment(block, x)
+        return x

@@ -20,9 +20,12 @@ rounding points. The head routes by dtype as the JAX head does: the fused
 GeM kernel reads the bf16 map as it is and accumulates in f32; every other
 head pools ``feats.float()``.
 
-In train mode (``.train()``, f32) the trunk's BatchNorm takes the batch's
-statistics as flax does (``models.resnet.bn_train``) and the kernel head
-differentiates through the GeM and NetVLAD autograd Functions.
+In train mode (``.train()``, f32 or bf16) the trunk's BatchNorm takes the
+batch's statistics as flax does (``models.resnet.bn_train``), every head
+trains (GeMmp's [C] exponent, the learned ``whiten`` FC, R-MAC through
+``rmac_bucketed`` on a bucketed mask, the regional pool on exact shapes)
+and the kernel head differentiates through the GeM and NetVLAD autograd
+Functions.
 """
 
 from __future__ import annotations

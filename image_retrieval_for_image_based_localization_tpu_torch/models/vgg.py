@@ -8,15 +8,21 @@ or cirtorch ``features.N.weight/bias`` ``state_dict`` loads as it is.
 
 A bf16 input runs in bf16 as flax's ``nn.Conv(dtype=bf16)`` does: the
 convolution rounds to bf16 (``resnet.conv_lowp``), then the bias, cast to
-bf16, is added in bf16; ReLU and max-pool stay in bf16.
+bf16, is added in bf16; ReLU and max-pool stay in bf16. In grad mode both
+casts sit in the graph, so the f32 weights and biases train in either dtype.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 
-from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import conv_lowp
+from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
+    conv_lowp,
+    segment,
+)
 
 # torchvision vgg16 cfg "D": numbers are conv widths, "M" is 2x2 maxpool
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512)
@@ -51,11 +57,23 @@ def biased_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv_lowp(conv, x) + conv.bias.to(x.dtype).reshape(1, -1, 1, 1)
 
 
-def sequential_forward(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """A sequence of biased convolutions, ReLUs and max-pools in x's dtype."""
+def _run(layers, x: torch.Tensor) -> torch.Tensor:
     for layer in layers:
         x = biased_conv(layer, x) if isinstance(layer, nn.Conv2d) else layer(x)
     return x
+
+
+def sequential_forward(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """A sequence of biased convolutions, ReLUs and max-pools in x's dtype,
+    run as stages that each end at a max-pool (the checkpointed segments of
+    ``resnet.remat``)."""
+    stage = []
+    for layer in layers:
+        stage.append(layer)
+        if isinstance(layer, nn.MaxPool2d):
+            x = segment(functools.partial(_run, stage), x)
+            stage = []
+    return segment(functools.partial(_run, stage), x) if stage else x
 
 
 def conv_indices():

@@ -15,9 +15,14 @@ checkpoints and post-training Lw whitening (cirtorch's ``train.py``).
   * the lr decays per epoch (``TrainConfig.steps_per_epoch``).
 
 Without retrieval-SfM-120k on disk it trains on the synthetic scene corpus
-(``data.test_datasets.make_synthetic_dataset``). Two deliberate differences
-from the JAX loop (ROADMAP C): a resumed run never re-initializes NetVLAD's
-centroids, and ``pallas`` reaches the mining extractor too.
+(``data.test_datasets.make_synthetic_dataset``). ``dtype`` (bf16 training),
+``remat``, ``regional`` and ``whiten_dim`` reach the train step and the
+checkpoints' meta. Three deliberate differences from the JAX loop (ROADMAP
+C): a resumed run never re-initializes NetVLAD's centroids, and ``pallas``
+and the model's ``dtype`` and ``regional`` reach the mining extractor too
+(the JAX loop extracts in f32 with the global head). The u8 tuple step
+always carries a mask, so a regional model raises there, as the JAX step
+does.
 """
 
 from __future__ import annotations
@@ -198,8 +203,10 @@ def run_training(args, device: DeviceLike = "cuda") -> dict:
     dtype = getattr(args, "dtype", "float32")
     pallas = getattr(args, "pallas", False)
     clusters_k = getattr(args, "netvlad_clusters", 64)
+    regional = getattr(args, "regional", False)
     model = RetrievalNet(arch=args.arch, pooling=args.pooling, whiten_dim=args.whiten_dim,
-                         dtype=dtype, netvlad_clusters=clusters_k, use_kernel=pallas)
+                         dtype=dtype, netvlad_clusters=clusters_k, use_kernel=pallas,
+                         regional=regional)
 
     paths, clusters, qidxs, pidxs, source, val_ds = _real_or_synthetic_pool(
         args.data_root,
@@ -239,7 +246,8 @@ def run_training(args, device: DeviceLike = "cuda") -> dict:
 
     ex_cfg = ExtractConfig(
         model=ModelConfig(arch=args.arch, pooling=args.pooling, whiten_dim=args.whiten_dim,
-                          netvlad_clusters=clusters_k, use_pallas=pallas),
+                          netvlad_clusters=clusters_k, use_pallas=pallas, dtype=dtype,
+                          regional=regional),
         image_size=args.image_size,
         batch_size=getattr(args, "batch_size", 8),
     )
@@ -259,7 +267,8 @@ def run_training(args, device: DeviceLike = "cuda") -> dict:
     best_loss = float("inf")
     for epoch in range(start_epoch, args.epochs):
         meta = {"arch": args.arch, "pooling": args.pooling, "whiten_dim": args.whiten_dim,
-                "loss": args.loss, "dtype": dtype, "epoch": epoch}
+                "regional": regional, "loss": args.loss, "dtype": dtype, "remat": cfg.remat,
+                "epoch": epoch}
         # 1. re-mine hard negatives with the current model; only the
         # sampled union is extracted
         ex = extractor()

@@ -26,8 +26,18 @@ is the global mean; the numbers are those of one process on the global batch
 with its BatchNorm on that path. ``create_train_state(mesh=...)`` broadcasts
 the data group's first process's weights.
 
+Every trunk, head and dtype of ``models.retrieval_net`` trains, as in the
+JAX trainer. ``dtype="bfloat16"`` computes the trunk in bf16 at flax's
+rounding points while the parameters, their gradients and the optimizer
+state stay f32 (the conv weights reach the bf16 trunk through a cast in the
+graph, ``models.resnet.lowp_weight``). ``TrainConfig(remat=True)``, the JAX
+step's ``jax.checkpoint`` of the forward, checkpoints each trunk segment
+(``models.resnet.remat``): the same loss, gradients and running statistics
+as without it, at a lower peak memory.
+
 Not here (each raises): several devices in one process (ROADMAP C14: one
-process per card), bf16 training and ``remat`` (ROADMAP C3).
+process per card) and a kernel head on a pooling other than GeM or NetVLAD
+(as the JAX ``make_train_step`` refuses it).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
 from image_retrieval_for_image_based_localization_tpu_torch.models.init import init_random_
 from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
     global_batch_stats,
+    remat,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
     RetrievalNet,
@@ -81,7 +92,7 @@ class TrainConfig:
     update_every: int = 1          # micro-batches averaged into one update
     n_neg: int = 5
     batch_tuples: int = 5          # tuples per step
-    remat: bool = False            # not supported: raises (ROADMAP C3)
+    remat: bool = False            # checkpoint each trunk segment (models.resnet.remat)
 
 
 @dataclasses.dataclass
@@ -104,23 +115,6 @@ def check_trainable(model: RetrievalNet, cfg: TrainConfig, mesh=None) -> None:
             f"a train mesh whose shards lie on {len(set(mesh.local_devices))} devices in one "
             f"process: data-parallel training runs one process per card (ROADMAP C14); "
             f"launch a process per card under torch.distributed")
-    if model.compute_dtype != torch.float32:
-        raise NotImplementedError("bf16 training is not supported: it needs train-mode "
-                                  "BatchNorm with flax's bf16 rounding points and its "
-                                  "backward (ROADMAP C3, bf16 training)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not supported: torch.utils.checkpoint re-runs the forward, which "
-            "would move the BatchNorm running statistics a second time, where flax's "
-            "functional jax.checkpoint does not (ROADMAP C3, remat)")
-    if (not model.arch.startswith("resnet") and model.arch != "vgg16") or model.regional \
-            or model.pooling not in ("gem", "mac", "spoc", "netvlad"):
-        raise NotImplementedError(
-            f"training {model.arch} with pooling {model.pooling!r}"
-            f"{' (regional)' if model.regional else ''} is not supported: the trainer takes "
-            f"the resnet and vgg16 trunks with GeM, MAC, SPoC or NetVLAD; the other trunks "
-            f"need flax's train-mode BatchNorm (densenet) and parity tests "
-            f"(ROADMAP A11, training the other trunks and heads)")
     if model.use_kernel and model.pooling not in ("gem", "netvlad"):
         raise ValueError(
             "training with use_pallas=True is only supported for GeM and NetVLAD pooling "
@@ -272,7 +266,8 @@ def make_train_step(model: RetrievalNet, cfg: TrainConfig = TrainConfig(), mesh=
     def run(state: TrainState, x: torch.Tensor, labels, mask) -> Tuple[TrainState, torch.Tensor]:
         if state.micro == 0:
             state.optimizer.zero_grad(set_to_none=True)
-        with global_batch_stats(group) if n_proc > 1 else contextlib.nullcontext():
+        with global_batch_stats(group) if n_proc > 1 else contextlib.nullcontext(), \
+                remat() if cfg.remat else contextlib.nullcontext():
             loss = _tuple_loss(state.model, cfg, x, _as_tensor(labels, x.device), mask)
             loss.backward()
         apply_micro_step(state, k, group, n_proc)

@@ -26,6 +26,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import 
     _build_luts,
     adc_topk_core,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _setup(n=1100, d=64, m=8, nq=40, seed=0, dup=True):

@@ -34,6 +34,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import
     conv_bn,
     lowp_weight,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 # descriptor bound for whole bf16 models (unit-norm descriptors); measured
 # on these inputs: max|diff| 1.7e-3 (resnet18), 9.7e-4 (resnet50), 1.1e-3
@@ -95,14 +96,22 @@ def test_convbn_relu_block_within_one_ulp(k, stride, pad):
 
 
 def test_bf16_weights_cast_once_and_refreshed_on_write():
+    """Inference (no grad mode) casts once and keeps the cast; in grad mode
+    (training) the cast sits in the graph, so the f32 weight gets its
+    gradient."""
     conv = torch.nn.Conv2d(3, 8, 3, bias=False)
-    a = lowp_weight(conv, torch.bfloat16)
-    assert a.dtype == torch.bfloat16 and lowp_weight(conv, torch.bfloat16) is a
     with torch.no_grad():
+        a = lowp_weight(conv, torch.bfloat16)
+        assert a.dtype == torch.bfloat16 and lowp_weight(conv, torch.bfloat16) is a
         conv.weight.mul_(2.0)
-    b = lowp_weight(conv, torch.bfloat16)
+        b = lowp_weight(conv, torch.bfloat16)
     assert b is not a
     torch.testing.assert_close(b.float(), conv.weight.detach().to(torch.bfloat16).float())
+    c = lowp_weight(conv, torch.bfloat16)
+    assert c.dtype == torch.bfloat16 and c.requires_grad and c is not b
+    torch.testing.assert_close(c.detach().float(), b.float(), rtol=0, atol=0)
+    c.float().sum().backward()
+    assert conv.weight.grad is not None and conv.weight.grad.dtype == torch.float32
     # parameters and the state_dict stay f32
     assert conv.weight.dtype == torch.float32
     assert all(v.dtype != torch.bfloat16 for v in conv.state_dict().values())

@@ -53,6 +53,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottlene
     _plan,
     split_tf32,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _block_args(B, H, W, Cin, Cm, rng):

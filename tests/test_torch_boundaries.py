@@ -15,6 +15,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.serving import (
     RetrievalService,
     serve,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_retrieval_for_image_based_localization_tpu_torch")
@@ -94,11 +95,18 @@ def test_unported_options_raise():
     # every trunk runs in bf16, densenet121 included
     assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(
         arch="densenet121", dtype="bfloat16")), device="cpu").model.compute_dtype == torch.bfloat16
-    # the trainer takes the resnet and vgg16 trunks with GeM/MAC/SPoC/NetVLAD only
+    # the trainer takes every trunk and head (refused until the port trained
+    # them): each builds a train state and takes a step
+    rng = np.random.RandomState(0)
+    pixels = rng.rand(1, 3, 32, 32, 3).astype(np.float32)
+    labels = np.array([[0, 1, -1]], np.int32)
+    cfg = port.TrainConfig(n_neg=1, batch_tuples=1, lr=1e-3)
     for kw in (dict(arch="densenet121"), dict(arch="resnet18", pooling="gemmp"),
                dict(arch="resnet18", regional=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            port.create_train_state(port.models.RetrievalNet(**kw), device="cpu")
+        model = port.models.RetrievalNet(**kw)
+        state = port.create_train_state(model, cfg, device="cpu")
+        state, loss = port.training.make_train_step(model, cfg)(state, pixels, labels)
+        assert state.step == 1 and np.isfinite(float(loss)), kw
     # the fused bottleneck trunk takes bottleneck resnets only
     for arch in ("resnet18", "vgg16"):
         with pytest.raises(ValueError, match="fuse_blocks"):

@@ -9,6 +9,7 @@ import shutil
 import pytest
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 NAMES = sorted(_build.SIGNATURES)
 

@@ -44,6 +44,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import (
 from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
     _CIRTORCH_SEQ_NAMES,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = ["--arch", "resnet18", "--image-size", "64", "--batch-size", "2"]

@@ -40,6 +40,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import adc_topk_core
 from image_retrieval_for_image_based_localization_tpu_torch.utils.device import resolve_device
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 pytestmark = pytest.mark.cuda
 
@@ -139,12 +140,71 @@ def test_gem_launches_are_named_in_a_profile_trace(dev, tmp_path):
     assert len(kernels) == 4
     with debug_checks():
         assert_deterministic(gem_l2n_fused_rect, x, 3.0, sizes)
-    # the kernel writes inf / inf for an infinite map; its output is checked
-    # at the first operator that reads it
+    # the kernel writes inf / inf for an infinite map, and passes a NaN of
+    # the map through (ROADMAP C15); its output is checked at the first
+    # operator that reads it
     inf = torch.full_like(x, float("inf"))
-    with pytest.raises(FloatingPointError):
-        with debug_checks():
-            gem_l2n_fused(inf, 3.0).sum()
+    nan = x.clone()
+    nan[0, 1, 2, 5] = float("nan")
+    for bad in (inf, nan):
+        with pytest.raises(FloatingPointError):
+            with debug_checks():
+                gem_l2n_fused(bad, 3.0).sum()
+        with pytest.raises(FloatingPointError):
+            with debug_checks():
+                gem_l2n_fused_rect(bad, 3.0, sizes).sum()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gem_kernels_pass_a_nan_through_as_plain(dev, dtype):
+    """A NaN in a map gives the plain version's NaN pattern through both
+    entry points (ROADMAP C15: the clamp once turned it into 1e-6 and the
+    descriptor stayed finite): one NaN makes its image's descriptor all NaN
+    (the L2 norm), an all-NaN map every descriptor; images without a NaN
+    stay within 1e-5 of plain."""
+    x = _rand((3, 4, 4, 2048), 21, dev, dtype)
+    sizes = torch.tensor([[4, 4], [2, 3], [4, 4]], dtype=torch.int32, device=dev)
+    one = x.clone()
+    one[0, 1, 2, 5] = float("nan")
+    for y in (one, torch.full_like(x, float("nan"))):
+        for got, want in ((gem_l2n_fused(y, 3.0), gem_l2n_plain(y, 3.0)),
+                          (gem_l2n_fused_rect(y, 3.0, sizes), gem_l2n_plain(y, 3.0, sizes))):
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert int(torch.isnan(want).sum()) >= 2048
+            ok = ~torch.isnan(want)
+            torch.testing.assert_close(got[ok], want[ok], rtol=0, atol=1e-5)
+
+
+def test_bf16_train_step_trains_every_conv_weight(dev):
+    """A bf16 train step on the card (resnet18 + the GeM kernel head, masked
+    u8 tuples): every conv weight gets a nonzero gradient through the bf16
+    cast in the graph, and moves; the parameters and the optimizer state
+    stay f32."""
+    from image_retrieval_for_image_based_localization_tpu_torch.models import RetrievalNet
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        TrainConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(n_neg=1, batch_tuples=2, lr=1e-3)
+    model = RetrievalNet("resnet18", "gem", use_kernel=True, dtype="bfloat16")
+    state = create_train_state(model, cfg, seed=0, device=dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g = torch.Generator().manual_seed(3)
+    px = torch.randint(0, 256, (2, 3, 96, 96, 3), generator=g, dtype=torch.uint8)
+    sizes = torch.tensor([[96, 96], [64, 96], [96, 40]], dtype=torch.int32).expand(2, 3, 2)
+    labels = torch.tensor([[0, 1, -1]] * 2, dtype=torch.int32)
+    launches = gem_l2n_fused_rect.launches
+    state, loss = make_train_step(model, cfg, from_u8=True)(state, px, sizes.contiguous(),
+                                                            labels)
+    assert gem_l2n_fused_rect.launches == launches + 1 and math.isfinite(float(loss))
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, n
+        if p.dim() == 4:
+            assert float(p.grad.abs().max()) > 0 and not torch.equal(p, before[n]), n
+    for st in state.optimizer.state.values():
+        assert all(v.dtype == torch.float32 for v in st.values() if v.dim() > 0)
 
 
 def _grads_close(got, want, rel=1e-5, atol=0.0):

@@ -27,6 +27,8 @@ JAX package's references, while the workers run:
       process's half of an untied batch against ``F.batch_norm``'s
       autograd on the whole batch (output and the input, weight and bias
       gradients within 1e-5 of max, running statistics within 1e-6);
+      The same for a bf16 trunk (its gradient bound is BF16_GRAD_REL's) and
+      for densenet121, each through the float64-summed BatchNorm;
   (b) the data-parallel loss against the JAX package's
       ``make_train_step(mesh=create_mesh([2, 1]))`` loss, in float64 as
       tests/test_torch_training.py holds one device (ROADMAP C9): 1e-5;
@@ -62,15 +64,31 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, H, W = 4, 3, 64, 96
 LOSS_REL, GRAD_REL, GRAD_ATOL, STATS_REL, PARAM_REL = 1e-5, 1e-4, 1e-6, 1e-6, 1e-6
 EXTRACT_ONE_TOL, EXTRACT_JAX_TOL = 1e-6, 2e-5
-# (name, use_kernel, masked u8 input, update_every): each micro-batch is its
-# own global batch of B tuples
-TRAIN_CASES = [("u8-kernel", True, True, 1), ("f32-plain", False, False, 1),
-               ("u8-kernel-update-every-2", True, True, 2)]
+# (name, arch, dtype, use_kernel, masked u8 input, update_every): each
+# micro-batch is its own global batch of B tuples
+TRAIN_CASES = [("u8-kernel", "resnet18", "float32", True, True, 1),
+               ("f32-plain", "resnet18", "float32", False, False, 1),
+               ("u8-kernel-update-every-2", "resnet18", "float32", True, True, 2),
+               ("u8-kernel-bf16", "resnet18", "bfloat16", True, True, 1),
+               ("u8-kernel-densenet121", "densenet121", "float32", True, True, 1)]
+# a bf16 trunk: the conv weights' gradients are rounded to bf16 where the
+# cast to bf16 sits in the graph, in each process on its half of the batch
+# and in one process on the whole batch, so the two sides' gradients lie up
+# to two bf16 roundings of max|g| apart (2^-7); everything else is as in f32,
+# and an SGD update (momentum 0.9, each side its own buffer) moves a
+# parameter by at most lr x 1.9 x that
+BF16_GRAD_REL = 2.0 ** -7
+# the step without a mesh takes F.batch_norm's statistics, whose last f32 bits
+# differ (see below): in bf16 that flips roundings of the normalized maps by
+# one bf16 ulp and the flips carry through the trunk, so the loss is held
+# within one bf16 rounding (2^-8) there (measured: 3.5e-4)
+BF16_LOSS_NO_MESH_REL = 2.0 ** -8
 EXTRACT_SCALES = (1.0, 2 ** -0.5)
 PROTOCOLS = ("easy", "medium", "hard")
 
@@ -127,11 +145,14 @@ def _worst(got, want, rel, atol=0.0):
     return worst
 
 
-def _train_case(name, use_kernel, u8, update_every, sd, mesh, alone, data_dir):
+def _train_case(name, arch, dtype, use_kernel, u8, update_every, sd, mesh, alone, data_dir):
     import torch
     import torch.distributed as dist
 
-    from image_retrieval_for_image_based_localization_tpu_torch.models import RetrievalNet
+    from image_retrieval_for_image_based_localization_tpu_torch.models import (
+        RetrievalNet,
+        init_random_,
+    )
     from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
         global_batch_stats,
     )
@@ -141,9 +162,13 @@ def _train_case(name, use_kernel, u8, update_every, sd, mesh, alone, data_dir):
     )
 
     cfg = _train_cfg(update_every)
+    if arch != "resnet18":
+        sd = init_random_(RetrievalNet(arch, "gem"), torch.Generator().manual_seed(0)
+                          ).state_dict()
+    grad_rel = BF16_GRAD_REL if dtype == "bfloat16" else GRAD_REL
     states, steps = [], []
     for m in (None, mesh, None):
-        model = RetrievalNet("resnet18", "gem", use_kernel=use_kernel)
+        model = RetrievalNet(arch, "gem", use_kernel=use_kernel, dtype=dtype)
         states.append(create_train_state(model, cfg, state_dict=sd, device="cpu", mesh=m))
         steps.append(make_train_step(model, cfg, mesh=m, from_u8=u8))
     one, dp, plain = states
@@ -167,7 +192,7 @@ def _train_case(name, use_kernel, u8, update_every, sd, mesh, alone, data_dir):
             gw = {n: p.grad for n, p in one.model.named_parameters() if p.grad is not None}
             gg = {n: p.grad for n, p in dp.model.named_parameters() if p.grad is not None}
             assert gw.keys() == gg.keys() and gw
-            rec["grad"].append(_worst(gg, gw, GRAD_REL, GRAD_ATOL))
+            rec["grad"].append(_worst(gg, gw, grad_rel, GRAD_ATOL))
             if i == 0 and update_every == 1:  # the first update, from sd: for JAX
                 torch.save({n: g.clone() for n, g in gg.items()},
                            os.path.join(data_dir, f"grads-{name}-{dist.get_rank()}.pt"))
@@ -177,9 +202,19 @@ def _train_case(name, use_kernel, u8, update_every, sd, mesh, alone, data_dir):
                                        STATS_REL))
             pw = {n: p.detach() for n, p in one.model.named_parameters()}
             pg = {n: p.detach() for n, p in dp.model.named_parameters()}
-            rec["params"].append(_worst(pg, pw, PARAM_REL))
+            if dtype == "bfloat16":  # PARAM_REL of max|p| plus the update's share
+                rec["params"].append(max(
+                    float((pg[n] - w).abs().max()) / (PARAM_REL * float(w.abs().max())
+                                                      + cfg.lr * 1.9 * grad_rel
+                                                      * float(gw[n].abs().max()))
+                    for n, w in pw.items()))
+            else:
+                rec["params"].append(_worst(pg, pw, PARAM_REL))
     rec["steps"] = (one.step, dp.step)
     assert torch.is_tensor(loss) and loss.dim() == 0
+    # every conv weight trained (a bf16 trunk through the cast in the graph)
+    rec["conv_grads"] = all(float(p.grad.abs().max()) > 0
+                            for p in dp.model.parameters() if p.dim() == 4)
     return rec
 
 
@@ -496,10 +531,12 @@ def test_data_parallel_train_step_matches_one_process(runs, case):
         assert r["applied"] == 2 and r["steps"][0] == r["steps"][1]
         np.testing.assert_allclose(r["loss_dp"], r["loss_one"], rtol=LOSS_REL)
         # the step without a mesh (F.batch_norm's statistics) gives the loss too
-        np.testing.assert_allclose(r["loss_no_mesh"], r["loss_one"], rtol=LOSS_REL)
+        np.testing.assert_allclose(r["loss_no_mesh"], r["loss_one"],
+                                   rtol=BF16_LOSS_NO_MESH_REL if "bf16" in case else LOSS_REL)
         assert max(r["grad"]) <= 1.0, r
         assert max(r["stats"]) <= 1.0, r
         assert max(r["params"]) <= 1.0, r
+        assert r["conv_grads"], r
     # both processes hold the same global loss
     assert recs[0]["train"][case]["loss_dp"] == recs[1]["train"][case]["loss_dp"]
 

@@ -12,6 +12,7 @@ import os
 import socket
 import subprocess
 import sys
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

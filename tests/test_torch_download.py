@@ -42,6 +42,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.download import
     fetch,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.zoo import load_pretrained
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 @pytest.fixture()

@@ -21,6 +21,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import
     knn_search,
     score_matrix,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _both(g, q, k, ch=256):

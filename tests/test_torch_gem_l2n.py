@@ -15,6 +15,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     gem_l2n_fused_rect,
     gem_l2n_plain,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 TOL = 1e-6
 

@@ -29,6 +29,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     netvlad_fused,
     netvlad_fused_rect,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 REL = 1e-5
 DP_ATOL = 1e-7

@@ -16,6 +16,7 @@ import image_retrieval_for_image_based_localization_tpu_torch as port
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval import ivf as ivf_mod
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
 from image_retrieval_for_image_based_localization_tpu_torch.training import netvlad_init
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 C = 16
 

@@ -19,6 +19,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import
     rank_candidates,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import IndexConfig
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _setup(seed=0, n_db=60, nq=7, d=16):

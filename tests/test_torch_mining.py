@@ -19,6 +19,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.data.train_dataset i
     cid_to_filename,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.training import mining
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _pool(seed, n=60, d=16, n_clusters=12):

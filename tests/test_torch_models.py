@@ -28,6 +28,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net
     feature_mask,
     rect_sizes,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _x(shape, seed=0):

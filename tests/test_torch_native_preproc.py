@@ -34,6 +34,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import (
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import (
     check_supported,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 # (h, w) of each file: larger and smaller than the 64 px target, three aspects
 SHAPES = [(120, 160), (160, 120), (90, 90), (200, 150), (40, 56), (75, 100)]

@@ -26,6 +26,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad 
     prepare_operands,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops.netvlad import netvlad_aggregate
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 RTOL, ATOL = 1e-4, 1e-5
 B, H, W, C, K = 3, 5, 7, 32, 8

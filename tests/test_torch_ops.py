@@ -15,6 +15,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops import (
     pooling as tpool,
     whitening as twhiten,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _x(shape, seed=0):

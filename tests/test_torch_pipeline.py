@@ -29,6 +29,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import (
     init_random_,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.index import Index
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 SCALES = (1.0, 2 ** -0.5, 0.5)
 

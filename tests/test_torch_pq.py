@@ -20,6 +20,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval import pq 
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
 
 from test_torch_ivf import clustered, jax_init_kmeans
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 C = 16
 

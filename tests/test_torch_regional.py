@@ -31,6 +31,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import (
 from image_retrieval_for_image_based_localization_tpu_torch.ops.normalization import l2n
 from image_retrieval_for_image_based_localization_tpu_torch.ops.pooling import rmac_regions
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import DEFAULT_SCALES
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 TOL = 1e-5
 

@@ -42,6 +42,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.retrieval.query_expa
 from image_retrieval_for_image_based_localization_tpu_torch.utils.config import IndexConfig
 
 from test_query_expansion import _clustered
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 @pytest.fixture(scope="module")

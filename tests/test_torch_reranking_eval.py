@@ -34,6 +34,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.config import 
     ExtractConfig,
     IndexConfig,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 N_SCENES, VIEWS, N_DISTRACT, D = 6, 8, 20, 48
 

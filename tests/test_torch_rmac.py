@@ -17,6 +17,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import (
     init_random_,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.ops import pooling as pp
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 TOL = 1e-6
 

@@ -24,6 +24,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_to
     NEG_INF,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _case(name, seed=0):

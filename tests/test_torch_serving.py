@@ -44,6 +44,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.serving import (
     ServiceTimeout,
     serve,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 SCORE_TOL = 1e-5
 

@@ -47,6 +47,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.config import 
     IndexConfig,
     ModelConfig,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 @pytest.fixture(autouse=True, scope="module")

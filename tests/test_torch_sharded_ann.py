@@ -27,6 +27,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.parallel.sharded_pq 
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.ivf import IVFIndex
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.knn import knn_search
 from image_retrieval_for_image_based_localization_tpu_torch.retrieval.pq import PQIndex
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 @pytest.fixture(scope="module")

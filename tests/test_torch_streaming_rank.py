@@ -32,6 +32,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.config import 
     ModelConfig,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import MetricsLogger
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def _np_ranks_of(gallery, queries, cand):

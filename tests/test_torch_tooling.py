@@ -41,6 +41,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.debug import (
     debug_checks,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import profile_trace
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 @pytest.fixture(scope="module")

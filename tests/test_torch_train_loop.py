@@ -41,6 +41,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint imp
     load_checkpoint,
     save_checkpoint,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 SIZE = 64
 

@@ -64,6 +64,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.training.trainer imp
     tuples_to_batch,
     validate,
 )
+from torch_threads import parity_threads  # noqa: F401  (a module fixture: torch's threads)
 
 HW = 64      # resnet18, stride 32: a 2 x 2 feature map
 VGG_HW = 32  # vgg16, stride 16: a 2 x 2 feature map
@@ -374,25 +375,36 @@ def test_train_epoch_validate_and_eval_step_run():
 
 
 def test_what_the_port_does_not_train_raises():
+    """What stays refused raises; bf16 training, remat and a bf16 map through
+    train-mode ``conv_bn``, refused until the port trained them, now build a
+    train state and take a step (tests/test_torch_train_rest.py holds them
+    against the JAX package)."""
     cfg = TrainConfig()
     # a data-parallel train mesh holds one card a process: shards of one
     # process on two devices are refused before anything reaches them
     two_cards = Mesh({"data": 2, "gallery": 1}, [torch.device("cuda", 0), torch.device("cuda", 1)])
     with pytest.raises(NotImplementedError, match="one process per card"):
         make_train_step(RetrievalNet(arch="resnet18"), cfg, mesh=two_cards)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        create_train_state(RetrievalNet(arch="resnet18", dtype="bfloat16"), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_train_state(RetrievalNet(arch="resnet18"), dataclasses.replace(cfg, remat=True),
-                           device="cpu")
+    rng = np.random.RandomState(8)
+    pixels, labels = tuples_to_batch(rng.rand(B, T, 32, 32, 3).astype(np.float32), 1)
+    small = dataclasses.replace(cfg, n_neg=1, batch_tuples=B, lr=1e-3)
+    for m, c in ((RetrievalNet(arch="resnet18", dtype="bfloat16"), small),
+                 (RetrievalNet(arch="resnet18"), dataclasses.replace(small, remat=True))):
+        state = create_train_state(m, c, seed=1, device="cpu")
+        state, loss = make_train_step(m, c)(state, pixels, labels)
+        assert state.step == 1 and np.isfinite(float(loss))
+        assert all(p.grad is not None and p.dtype == torch.float32 for p in m.parameters())
     with pytest.raises(ValueError, match="GeM and NetVLAD"):
         make_train_step(RetrievalNet(arch="resnet18", pooling="mac", use_kernel=True), cfg)
     with pytest.raises(RuntimeError, match="fuse_blocks"):
         fold_trunk(ResNetTrunk("resnet50").train())
     bn = torch.nn.BatchNorm2d(4).train()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        conv_bn(torch.nn.Conv2d(4, 4, 1, bias=False), bn, torch.zeros((1, 4, 2, 2),
-                                                                       dtype=torch.bfloat16))
+    conv = torch.nn.Conv2d(4, 4, 1, bias=False)
+    x = torch.from_numpy(rng.randn(2, 4, 3, 3).astype(np.float32)).to(torch.bfloat16)
+    out = conv_bn(conv, bn, x)
+    assert out.dtype == torch.bfloat16 and bn.running_var.dtype == torch.float32
+    out.float().square().sum().backward()
+    assert float(conv.weight.grad.abs().max()) > 0 and float(bn.weight.grad.abs().max()) > 0
 
 
 def test_u8_input_matches_the_jax_step_preprocessing():

@@ -33,6 +33,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net
     OUTPUT_DIM,
     feature_mask,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 TOL = 2e-5  # the JAX suite's bound between two f32 trunks (tests/test_models.py)
 # bf16 trunks (test_torch_bf16.py's bounds): the map within 2e-2 of max|want|

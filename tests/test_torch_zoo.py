@@ -19,6 +19,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.models import zoo
 from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
+from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's threads)
 
 
 def test_zoo_has_the_jax_presets():
