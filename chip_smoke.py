@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card:
      - gem_l2n at the GeM head's widths (B=16, 32x32 map, C=2048, and the
        other trunks' 256, 1024, 1664 and 2208; f32 and bf16, ragged
-       extents), and a second call bit for bit; a map holding one NaN and
+       extents), and a second call bit for bit; past one cluster's 8,192
+       channels at C = 8,200, 12,288 and 16,384 (chunks of channels and a
+       second launch for the L2N), f32 and bf16, the same checks and the
+       launch plan the built kernel reports; a map holding one NaN and
        an all-NaN map through both, f32 and bf16, with the plain version's
        NaN pattern (ROADMAP C15);
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
@@ -38,7 +41,7 @@ Phases (any failure exits non-zero):
        5 % of the values not equal bit for bit, a second call bit for bit;
        the launch plan the built library reports held against the
        wrapper's);
-  4. fifteen paths at full width, each with the launch counts set to 0 just
+  4. sixteen paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
      queries, random weights from a seeded torch.Generator:
@@ -190,12 +193,24 @@ Phases (any failure exits non-zero):
        its CPU run, stress cos_min >= 0.99; the CLI on the card (fullsystem,
        parity, download and extract --network from a localhost HTTP server);
        debug_checks and assert_deterministic on the card;
+     - path M, a JAX package's run directory (after path K): the port's
+       zstd decoder (csrc/zstd_decode.cpp) built with the host compiler,
+       the committed Orbax checkpoint of squeezenet1_1 + GeM at full width
+       (tests/fixtures/jax_orbax_squeezenet1_1, written by
+       tools/make_jax_orbax_fixture.py) read without orbax, every leaf bit
+       for bit against tree.npz, timed; then cli evaluate --checkpoint
+       <fixture> --arch squeezenet1_1 --pallas --device cuda on a seeded
+       PNG corpus (48 images, 8 queries, 640 x 480) in a temporary
+       directory: rc 0, kernel B1 launched, descriptors within 1e-4 of the
+       JAX CLI's (jax_descriptors.npz), ranks equal outside ties within
+       1e-5, the mAPs beside the JAX package's;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
      on a log line the launch plan the built kernel reports) beside each
-     kernel's bound (gem_l2n also at densenet169's C = 1,664, and at 1,666,
-     whose C % 4 != 0 takes the kernel's scalar path), and
+     kernel's bound (gem_l2n also at densenet169's C = 1,664, at 1,666,
+     whose C % 4 != 0 takes the kernel's scalar path, and at C = 16,384,
+     two chunks of channels, with its plain version's time), and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
      the bottleneck at each block shape and summed over resnet50's 12
      stride-1 blocks at the 1024 px bucket, beside three cuDNN convs; its
@@ -270,7 +285,7 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 def device_ms(fn, prefix: str):
     """Device ms per call of the kernels launched by ``fn`` whose names start
-    with ``prefix``, summed, from tools/search_kernel_bench.py's
+    with ``prefix`` (a string or a tuple of them), summed, from tools/search_kernel_bench.py's
     ``kernel_ms`` (torch.profiler), or None if the profiler recorded none.
     Taken in phase 3: on an H100 with torch 2.11, profiler sessions after
     phase 4's profiled extractions recorded no kernel."""
@@ -369,6 +384,24 @@ def build_phase():
 # densenet161 (2,208)
 GEM_WIDTHS = (2048, 256, 1024, 1664, 2208)
 GEM_TIMED_WIDTH = 1664  # densenet169's: a second timing point for rows 1-2
+# past one cluster's 8,192 channels: chunks of channels and a second launch
+# for the L2N (8,200: a ragged second chunk's width; 16,384 is also timed)
+GEM_CHUNKED_WIDTHS = (8200, 12288, 16384)
+GEM_WIDE_TIMED = 16384
+
+# path M: the JAX package's Orbax checkpoint of squeezenet1_1 + GeM at full
+# width (tools/make_jax_orbax_fixture.py wrote it, with the tree's arrays and
+# the JAX CLI's descriptors of this corpus beside it)
+ORBAX_FIXTURE = os.path.join("tests", "fixtures", "jax_orbax_squeezenet1_1")
+# make_synthetic_dataset's arguments: PNG (lossless), so this host decodes
+# the pixels the JAX package decoded; 640 x 480 is below --image-size, so no
+# resize
+PATH_M_CORPUS = dict(name="pathm", n_scenes=8, views_per_scene=4, n_distractors=8,
+                     image_hw=(480, 640), seed=0, image_format="png")
+PATH_M_ARGS = ["--arch", "squeezenet1_1", "--pooling", "gem", "--image-size", "1024",
+               "--batch-size", "16"]
+PATH_M_DESC_TOL = 1e-4  # the port on the card against the JAX package on the CPU
+RANK_TIE = 1e-5  # ranks may differ only between items this close in score
 
 
 def _gem_inputs(C, B=16, H=32, W=32, seed=1):
@@ -387,22 +420,28 @@ def _gem_inputs(C, B=16, H=32, W=32, seed=1):
 
 def check_gem(dev):
     """Both GeM+L2N kernels against the plain version at every width of
-    GEM_WIDTHS, f32 and bf16, ragged extents, a second call bit for bit;
-    returns the inputs at C = 2,048 and C = 1,664 and the stats."""
+    GEM_WIDTHS and GEM_CHUNKED_WIDTHS (past one cluster: chunks of channels,
+    with the launch plan the built kernel reports), f32 and bf16, ragged
+    extents, a second call bit for bit; returns the inputs at C = 2,048,
+    1,664 and (on the host) 16,384, with the kernels' device time there,
+    and the stats."""
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         gem_l2n_fused,
         gem_l2n_fused_rect,
         gem_l2n_plain,
     )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        gem_l2n as gem_mod,
+    )
 
     p = torch.tensor([3.0], device=dev)
     err = {"gem_l2n_fused_rect": 0.0, "gem_l2n_fused": 0.0}
     kept = {}
-    for C in GEM_WIDTHS:
-        x32, hs, ws = _gem_inputs(C)
-        B, H, W, _ = x32.shape
-        x32 = x32.to(dev)
+    for C in GEM_WIDTHS + GEM_CHUNKED_WIDTHS:
+        x_host, hs, ws = _gem_inputs(C)
+        B, H, W, _ = x_host.shape
+        x32 = x_host.to(dev)
         sizes = torch.stack([hs, ws], 1).to(torch.int32).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype).contiguous()
@@ -414,8 +453,10 @@ def check_gem(dev):
             same = (torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
                     and torch.equal(got_u, gem_l2n_fused(x, p)))
             torch.cuda.synchronize()
+            plan = (f"; plan {json.dumps(gem_mod.launch_plan(C, dtype == torch.bfloat16))}"
+                    if C in GEM_CHUNKED_WIDTHS else "")
             log(f"[check] gem_l2n C={C} {dtype}: rect max|err| {e_rect:.3e}, unmasked "
-                f"{e_un:.3e}, second call bit-equal {same}")
+                f"{e_un:.3e}, second call bit-equal {same}{plan}")
             if not (e_rect <= GEM_TOL and e_un <= GEM_TOL):
                 raise AssertionError(f"gem_l2n C={C} {dtype} disagrees with its plain version")
             if not same:
@@ -424,7 +465,20 @@ def check_gem(dev):
                 raise AssertionError("a (0, 0) row must give a zero descriptor")
             err["gem_l2n_fused_rect"] = max(err["gem_l2n_fused_rect"], e_rect)
             err["gem_l2n_fused"] = max(err["gem_l2n_fused"], e_un)
-        if C in (GEM_WIDTHS[0], GEM_TIMED_WIDTH):
+            del x, got, got_u, want
+        if C == GEM_WIDE_TIMED:
+            # a chunked call launches gem_l2n_kernel and gem_l2n_finish: both
+            # (not the range the wrapper names after its entry point)
+            both = ("gem_l2n_kernel", "gem_l2n_finish")
+            kept[C] = {"x": x_host, "p": p, "sizes": sizes,
+                       "valid_positions": int((hs * ws).sum()),
+                       "device_ms": {
+                           "gem_l2n_fused_rect": device_ms(
+                               lambda: gem_l2n_fused_rect(x32, p, sizes), both),
+                           "gem_l2n_fused": device_ms(lambda: gem_l2n_fused(x32, p), both)}}
+            del x32
+            torch.cuda.empty_cache()
+        elif C in (GEM_WIDTHS[0], GEM_TIMED_WIDTH):
             valid = int((hs * ws).sum())
             dev_ms = {"gem_l2n_fused_rect": device_ms(
                           lambda: gem_l2n_fused_rect(x32, p, sizes), "gem_l2n_kernel"),
@@ -445,7 +499,8 @@ def check_gem(dev):
     log(f"[check] gem_l2n extents: {kept[GEM_WIDTHS[0]]['valid_positions']} of "
         f"{B * H * W} positions valid")
     check_gem_nan(dev, kept[GEM_WIDTHS[0]]["x"], p, kept[GEM_WIDTHS[0]]["sizes"])
-    return dict(kept[GEM_WIDTHS[0]], err=err, at_timed_width=kept[GEM_TIMED_WIDTH])
+    return dict(kept[GEM_WIDTHS[0]], err=err, at_timed_width=kept[GEM_TIMED_WIDTH],
+                at_wide=kept[GEM_WIDE_TIMED])
 
 
 def check_gem_nan(dev, x32, p, sizes):
@@ -4768,6 +4823,130 @@ def tooling_phase(dev, smi):
     return launches, out
 
 
+def flat_tree(tree, prefix=""):
+    """``{"a/b/0": array}`` for every array leaf of a nested dict/list tree:
+    the keys of the fixture's tree.npz (tools/make_jax_orbax_fixture.py)."""
+    import numpy as np
+
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def orbax_phase(dev):
+    """Path M: a JAX package's run directory on the card, where neither JAX,
+    orbax, tensorstore, zstandard nor msgpack is installed. M1 builds the
+    port's zstd decoder (host C++) and reads the committed Orbax checkpoint,
+    every leaf bit for bit against tree.npz, timed (median of 5 reads). M2
+    runs ``cli evaluate --checkpoint <fixture> --arch squeezenet1_1 --pallas
+    --device cuda`` at full width on PATH_M_CORPUS in a temporary
+    directory: rc 0, B1 launched, the descriptors within PATH_M_DESC_TOL of
+    the JAX CLI's (jax_descriptors.npz, the JAX package on the CPU), ranks
+    equal except between items within RANK_TIE in score, and the mAPs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import image_retrieval_for_image_based_localization_tpu_torch.evaluation.harness as harness
+    from image_retrieval_for_image_based_localization_tpu_torch import cli
+    from image_retrieval_for_image_based_localization_tpu_torch.data.test_datasets import (
+        make_synthetic_dataset,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.utils import orbax
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    ckpt = os.path.join(fixture, "best")
+    t0 = time.perf_counter()
+    orbax._lib()  # built with the host compiler at first use
+    build_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs)
+    reads = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tree = orbax.read_orbax(ckpt)
+        reads.append(time.perf_counter() - t0)
+    read_s = statistics.median(reads)
+    got = flat_tree(tree)
+    want = np.load(os.path.join(fixture, "tree.npz"))
+    bad = sorted(k for k in want.files if k not in got or got[k].dtype != want[k].dtype
+                 or got[k].shape != want[k].shape or got[k].tobytes() != want[k].tobytes())
+    bad += sorted(set(got) - set(want.files))
+    out = {"decoder_build_s": build_s, "checkpoint_bytes": nbytes, "leaves": len(got),
+           "read_ms": read_s * 1e3, "read_mb_s": nbytes / read_s / 1e6,
+           "leaves_bit_equal": not bad}
+    log(f"[orbax M1] decoder built in {build_s:.2f} s; {len(got)} leaves, {nbytes} bytes of "
+        f"checkpoint read in {read_s * 1e3:.3f} ms (median of 5): {nbytes / read_s / 1e6:.1f} "
+        f"MB/s")
+    log(f"[orbax M1] every leaf bit-equal to tree.npz: {not bad}")
+    if bad:
+        raise AssertionError(f"path M: leaves differ from tree.npz: {bad[:10]}")
+
+    seen = {}
+    orig = harness.evaluate_dataset
+
+    def spy(*a, **k):
+        r = orig(*a, **k)
+        seen.update(r)
+        return r
+
+    with tempfile.TemporaryDirectory() as data:
+        make_synthetic_dataset(data, **PATH_M_CORPUS)
+        metrics = os.path.join(data, "metrics.jsonl")
+        harness.evaluate_dataset = spy
+        kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["evaluate", "--dataset", PATH_M_CORPUS["name"], "--data-root", data,
+                           "--checkpoint", fixture, *PATH_M_ARGS, "--pallas",
+                           "--device", "cuda", "--metrics-out", metrics])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            harness.evaluate_dataset = orig
+        launches = kernels.launch_counts()  # this phase's counting window
+        with open(metrics) as f:
+            rec = next(r for r in map(json.loads, f) if r.get("event") == "map")
+    jd = np.load(os.path.join(fixture, "jax_descriptors.npz"))
+    db, qd = np.asarray(seen["db"], np.float32), np.asarray(seen["queries"], np.float32)
+    err = max(float(np.abs(db - jd["db"]).max()), float(np.abs(qd - jd["queries"]).max()))
+    sj = jd["db"].astype(np.float64) @ jd["queries"].astype(np.float64).T
+    rj = np.argsort(-sj, axis=0, kind="stable")
+    rp = np.argsort(-(db.astype(np.float64) @ qd.astype(np.float64).T), axis=0, kind="stable")
+    moved = untied = 0
+    for r, q in zip(*np.nonzero(rp != rj)):
+        moved += 1
+        untied += abs(sj[rp[r, q], q] - sj[rj[r, q], q]) > RANK_TIE
+    maps = {pr: (rec[f"map_{pr}"], float(jd[f"map_{pr}"])) for pr in ("easy", "medium", "hard")}
+    out.update(rc=rc, wall_s=wall_s, db=list(db.shape), queries=list(qd.shape),
+               desc_max_abs_diff=err, rank_places_moved=moved, rank_places_untied=int(untied),
+               maps_port_jax=maps)
+    log(f"[orbax M2] cli evaluate --checkpoint {ORBAX_FIXTURE} {' '.join(PATH_M_ARGS)} --pallas "
+        f"--device cuda: rc {rc}, {wall_s:.2f} s, B1 launches "
+        f"{launches['gem_l2n_fused_rect']}, db {list(db.shape)}, queries {list(qd.shape)}")
+    log(f"[orbax M2] descriptors max|diff| against the JAX package's: {err:.3e} "
+        f"(bound {PATH_M_DESC_TOL})")
+    log(f"[orbax M2] ranks: {moved} places differ, {int(untied)} of them outside ties within "
+        f"{RANK_TIE}; mAP (port, JAX): {json.dumps(maps)}")
+    if rc != 0:
+        raise AssertionError(f"path M: cli evaluate returned {rc}")
+    if launches["gem_l2n_fused_rect"] < 1:
+        raise AssertionError("path M: kernel B1 was not launched")
+    if not err <= PATH_M_DESC_TOL:
+        raise AssertionError(f"path M: descriptors {err:.3e} from the JAX package's")
+    if untied:
+        raise AssertionError(f"path M: {untied} ranks differ outside ties")
+    if not moved and any(abs(a - b) > 1e-12 for a, b in maps.values()):
+        raise AssertionError(f"path M: equal ranks but mAPs differ: {maps}")
+    return launches, out
+
+
 def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """The bf16 bottleneck's library yardstick: a function running cuDNN's
     three bf16 convolutions (channels_last) with bias and ReLU and the skip
@@ -4876,18 +5055,39 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
         f"{width_extra['gem_l2n_fused_rect']['ms']:.4f} ms (device "
         f"{at['device_ms']['gem_l2n_fused_rect']} ms)")
     del xs
+    # past one cluster: [16, 32 x 32, 16,384] f32, chunks of channels and the
+    # L2N launch (device_ms: both kernels, from phase 3)
+    wd = gem_in["at_wide"]
+    xv, sv = wd["x"].to(dev), wd["sizes"]
+    wide_extra = {}
+    for name, fn, plain, rect in (
+            ("gem_l2n_fused_rect", lambda: gem_l2n_fused_rect(xv, p, sv),
+             lambda: gem_l2n_plain(xv, p, sv), True),
+            ("gem_l2n_fused", lambda: gem_l2n_fused(xv, p), lambda: gem_l2n_plain(xv, p), False)):
+        byts, flops = gem_bytes(xv, wd["valid_positions"], rect)
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        wide_extra[name] = {
+            "shape": list(xv.shape), "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "device_ms": wd["device_ms"][name], "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations", "bytes": byts,
+            "plan": gem_mod.launch_plan(xv.shape[-1])}
+        log(f"[timing] {name} at {list(xv.shape)} f32: {json.dumps(wide_extra[name])}")
+    del xv
+    torch.cuda.empty_cache()
 
     byts, flops = gem_bytes(x, valid, True)
     row("gem_l2n_fused_rect", src_gem, PALLAS + "gem_l2n.py:238",
         time_ms(lambda: gem_l2n_fused_rect(x, p, sizes)),
         time_ms(lambda: gem_l2n_plain(x, p, sizes)), byts, flops, None,
         device_ms=gem_in["device_ms"]["gem_l2n_fused_rect"],
-        at_c1664=width_extra["gem_l2n_fused_rect"])
+        at_c1664=width_extra["gem_l2n_fused_rect"],
+        at_c16384=wide_extra["gem_l2n_fused_rect"])
     byts, flops = gem_bytes(x, valid, False)
     row("gem_l2n_fused", src_gem, PALLAS + "gem_l2n.py:218",
         time_ms(lambda: gem_l2n_fused(x, p)),
         time_ms(lambda: gem_l2n_plain(x, p)), byts, flops, None,
-        device_ms=gem_in["device_ms"]["gem_l2n_fused"], at_c1664=width_extra["gem_l2n_fused"])
+        device_ms=gem_in["device_ms"]["gem_l2n_fused"], at_c1664=width_extra["gem_l2n_fused"],
+        at_c16384=wide_extra["gem_l2n_fused"])
     # the plan as the built kernel reports it, with how many clusters the
     # card holds at once: images past that run in a second wave
     log(f"[timing] gem_l2n launch plan at C={C} f32: {json.dumps(gem_mod.launch_plan(C))}")
@@ -5117,12 +5317,14 @@ def main() -> int:
     launches_j, main_j = data_parallel_phase(dev, smi, c2, main_d)
     del c2
     launches_k, main_k = tooling_phase(dev, smi)
+    launches_m, main_m = orbax_phase(dev)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config5_fused_trunk": launches_i,
                "config4": launches_e, "rerank": launches_f,
                "serving": launches_g, "other_trunks": launches_h, "training": launches_d,
-               "training_l": launches_l, "data_parallel": launches_j, "tooling": launches_k}
+               "training_l": launches_l, "data_parallel": launches_j, "tooling": launches_k,
+               "orbax": launches_m}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -5161,6 +5363,7 @@ def main() -> int:
                                   "training": main_d, "training_l": main_l,
                                   "data_parallel": main_j,
                                   "tooling": main_k,
+                                  "orbax": main_m,
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,
                                   "bottleneck_bf16_not_bit_equal_share": bn16_neq,

@@ -14,8 +14,11 @@ Usage:
 Every command that computes runs on the card (``--device cuda``, the
 default, raises without one); ``--device cpu`` runs the plain PyTorch
 versions (``synth`` and ``download`` only write files and take no
-device). An Orbax ``--checkpoint`` directory of the JAX package is not
-read yet: it says so and returns 2, as a usage error does.
+device). ``--checkpoint`` takes this package's run directory, a torch
+``.pth``/``.pt`` state dict, or a run directory of the JAX package (its
+Orbax ``best`` checkpoint, read without Orbax by ``utils/orbax.py``);
+``train --resume`` of a JAX run directory is not ported yet (ROADMAP C3):
+it says so and returns 2, as a usage error does.
 """
 
 from __future__ import annotations
@@ -71,8 +74,8 @@ def _model_args(p: argparse.ArgumentParser):
     p.add_argument("--pallas", action="store_true",
                    help="the hand-written CUDA head kernel (the JAX flag's name)")
     p.add_argument("--checkpoint", default=None,
-                   help="this package's checkpoint directory (its 'best') or a torch "
-                        "state_dict .pth/.pt")
+                   help="a run directory (its 'best') of this package or of the JAX package "
+                        "(Orbax), or a torch state_dict .pth/.pt")
     p.add_argument("--network", default=None,
                    help="pretrained zoo network name: verify or fetch its .pth under "
                         "--data-root, rebuild the model from its meta (arch, pooling, "
@@ -120,17 +123,18 @@ def _load_state_dict(args):
     if path.endswith((".pth", ".pt")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         return cirtorch_to_torchvision_keys(sd.get("state_dict", sd), args.arch)
+    from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+        variables_to_state_dict,
+    )
     from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
-        STATE_FILE,
+        is_jax_checkpoint,
         load_checkpoint,
     )
 
-    if not any(os.path.exists(os.path.join(d, STATE_FILE))
-               for d in (os.path.join(path, "best"), path)):
-        raise NotPorted(f"--checkpoint {path}: not a checkpoint of this package; Orbax "
-                        f"checkpoint directories of the JAX package are not yet ported "
-                        f"(ROADMAP C3)")
     tree, _ = load_checkpoint(path, name="best")
+    if is_jax_checkpoint(path, "best"):
+        variables = {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+        return variables_to_state_dict(variables, args.arch)
     return tree["model"]
 
 
@@ -335,6 +339,14 @@ def cmd_train(argv):
         # own init); the port refuses it rather than copy a silent no-op
         raise NotPorted("--network: training does not start from a zoo network; pass its "
                         ".pth as --checkpoint to evaluate it, or train from scratch")
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
+        is_jax_checkpoint,
+    )
+
+    if args.resume is not None and is_jax_checkpoint(args.resume, "latest"):
+        raise NotPorted(f"--resume {args.resume}: resuming a JAX package's run is not yet "
+                        f"ported: its optimizer state is optax's chained state (ROADMAP C3); "
+                        f"its weights load through --checkpoint")
 
     from image_retrieval_for_image_based_localization_tpu_torch.training.loop import (
         run_training,
@@ -394,8 +406,9 @@ def cmd_parity(argv):
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--synth-root", default=os.path.join(tempfile.gettempdir(), "irtpu_synth"))
     p.add_argument("--checkpoint", default=None,
-                   help="this package's checkpoint directory or a torch state_dict .pth/.pt "
-                        "(random weights without it: noisy deltas)")
+                   help="a run directory of this package or of the JAX package (Orbax), or "
+                        "a torch state_dict .pth/.pt (random weights without it: noisy "
+                        "deltas)")
     args = p.parse_args(argv)
 
     from image_retrieval_for_image_based_localization_tpu_torch.benchmarks import (

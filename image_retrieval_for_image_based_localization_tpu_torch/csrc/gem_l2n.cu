@@ -32,6 +32,14 @@
 //      memory; then the mean, the 1/p power and its share of sum pooled^2.
 //   4. After a second barrier each CTA adds the eight shares in rank order,
 //      so every CTA has the same norm, and writes its slice normalized.
+// Wider maps (C > MAX_C = 8,192, the channels one cluster holds) are cut into
+// equal chunks of at most MAX_C channels, a multiple of 8 wide (so every
+// chunk's first channel keeps the vector loads 16-byte aligned): one cluster
+// per (image, chunk), blockIdx.z the chunk, each writing its chunk's pooled
+// values unnormalized; then gem_l2n_finish, one CTA an image, sums pooled^2
+// over all C in a fixed order and scales the row. C <= MAX_C keeps the one
+// launch above unchanged. More than 65,535 images (the grid's y limit) run
+// as consecutive launches of at most 65,535.
 // Every sum runs in a fixed order, so two calls give the same bits. p is read
 // from device memory (it is a learnable parameter; reading it on the host
 // would force a sync per batch). Inputs are f32 or bf16, accumulated in f32.
@@ -130,16 +138,23 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// x and out rows are `ld` channels apart; chunk blockIdx.z covers channels
+// [z CW, min(ld, (z + 1) CW)). With one chunk (CW = ld = C) the row is
+// normalized here; with several each chunk writes its pooled values.
 template <typename T, int VEC>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 gem_l2n_kernel(const T* __restrict__ x, const float* __restrict__ p_ptr,
                const int32_t* __restrict__ sizes,  // null: unmasked
-               float* __restrict__ out, int N, int W, int C) {
+               float* __restrict__ out, int N, int W, int CW, int ld) {
   typedef Chan<T, VEC> Ch;
   constexpr int E = CPT / Ch::L;  // channels a raw load
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
+  const int cz = (int)blockIdx.z * CW;
+  const int C = min(CW, ld - cz);  // this chunk's channels
+  x += cz;
+  out += cz;
   const int GT = (C + CPT - 1) / CPT;  // threads across the channels
   const int RL = NT / GT;              // row lanes
   const int lr = threadIdx.x / GT;
@@ -174,13 +189,13 @@ gem_l2n_kernel(const T* __restrict__ x, const float* __restrict__ p_ptr,
       int r = pos / wc;
       int col = pos - r * wc;
       const int nch = min(CPT, C - c0);  // < CPT only in the scalar tail
-      const T* xb = x + (size_t)b * N * C + c0;
+      const T* xb = x + (size_t)b * N * ld + c0;
       for (; pos < end; pos += U) {
         typename Ch::R raw[U][Ch::L];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (pos + u < end) {
-            const T* xr = xb + (size_t)(r * W + col) * C;
+            const T* xr = xb + (size_t)(r * W + col) * ld;
 #pragma unroll
             for (int i = 0; i < Ch::L; ++i) {
               if (i * E < nch) raw[u][i] = Ch::load(xr, i);
@@ -241,12 +256,22 @@ gem_l2n_kernel(const T* __restrict__ x, const float* __restrict__ p_ptr,
     float total = 0.f;
 #pragma unroll
     for (int k = 0; k < CS; ++k) total += cluster.map_shared_rank(share, k)[0];
-    share[1] = 1.0f / (sqrtf(total) + L2N_EPS);
+    share[1] = gridDim.z == 1 ? 1.0f / (sqrtf(total) + L2N_EPS) : 1.0f;
   }
   __syncthreads();
   const float scale = share[1];
-  for (int c = s0 + threadIdx.x; c < s1; c += NT) out[(size_t)b * C + c] = pool[c - s0] * scale;
+  for (int c = s0 + threadIdx.x; c < s1; c += NT) out[(size_t)b * ld + c] = pool[c - s0] * scale;
   cluster.sync();  // no CTA leaves while another may still read its shared memory
+}
+
+// The L2N of chunked rows: one CTA an image, sum pooled^2 in a fixed order.
+__global__ void __launch_bounds__(NT) gem_l2n_finish(float* __restrict__ out, int C) {
+  __shared__ float red[NT / 32];
+  float* o = out + (size_t)blockIdx.x * C;
+  float sq = 0.f;
+  for (int c = threadIdx.x; c < C; c += NT) sq += o[c] * o[c];
+  const float scale = 1.0f / (sqrtf(block_sum(sq, red)) + L2N_EPS);
+  for (int c = threadIdx.x; c < C; c += NT) o[c] *= scale;
 }
 
 // dynamic shared memory: part [RL][C], pool [slice], red [NT / 32], share [2]
@@ -255,32 +280,57 @@ static int smem_bytes(int C) {
   return (RL * C + (C + CS - 1) / CS + NT / 32 + 2) * (int)sizeof(float);
 }
 
+// channels a chunk: C itself up to MAX_C, else equal chunks, a multiple of 8
+static int chunk_width(int C) {
+  if (C <= MAX_C) return C;
+  const int n = (C + MAX_C - 1) / MAX_C;
+  return ((C + n - 1) / n + 7) / 8 * 8;
+}
+
+// shared memory for chunks of CW channels, the last one narrower
+static int chunked_smem_bytes(int C, int CW) {
+  const int last = C - (C - 1) / CW * CW;
+  return max(smem_bytes(CW), smem_bytes(last));
+}
+
 template <typename T, int VEC>
 static int max_clusters(int C, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CS, 1);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes(C);
+  cfg.dynamicSmemBytes = chunked_smem_bytes(C, chunk_width(C));
   return (int)cudaOccupancyMaxActiveClusters(out, gem_l2n_kernel<T, VEC>, &cfg);
 }
+
+#define MAX_GRID_Y 65535
 
 template <typename T, int VEC>
 static int launch(const void* x, const void* p, const void* sizes, void* out, int B, int N,
                   int W, int C, cudaStream_t stream) {
-  dim3 grid(CS, B);
-  gem_l2n_kernel<T, VEC><<<grid, NT, smem_bytes(C), stream>>>(
-      (const T*)x, (const float*)p, (const int32_t*)sizes, (float*)out, N, W, C);
-  return (int)cudaGetLastError();
+  const int CW = chunk_width(C);
+  const int chunks = (C + CW - 1) / CW;
+  const int smem = chunked_smem_bytes(C, CW);
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const int nb = min(MAX_GRID_Y, B - b0);
+    float* o = (float*)out + (size_t)b0 * C;
+    gem_l2n_kernel<T, VEC><<<dim3(CS, nb, chunks), NT, smem, stream>>>(
+        (const T*)x + (size_t)b0 * N * C, (const float*)p,
+        sizes ? (const int32_t*)sizes + 2 * (size_t)b0 : nullptr, o, N, W, CW, C);
+    if (chunks > 1) gem_l2n_finish<<<nb, NT, 0, stream>>>(o, C);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
 }
 
 extern "C" {
 
 // x: [B, N, C] (f32 if is_bf16 == 0, else bf16), p: [1] f32 on device,
 // sizes: [B, 2] int32 (h, w) of an [N / W, W] map, or null for the unmasked
-// mean over N (W = 1), out: [B, C] f32. C <= MAX_C (8,192).
+// mean over N (W = 1), out: [B, C] f32. Any B and C.
 int gem_l2n_forward(const void* x, const void* p, const void* sizes, void* out, int B, int N,
                     int W, int C, int is_bf16, void* stream) {
-  if (B < 1 || N < 1 || W < 1 || N % W != 0 || C < 1 || C > MAX_C || B > 65535) {
+  if (B < 1 || N < 1 || W < 1 || N % W != 0 || C < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -294,16 +344,21 @@ int gem_l2n_forward(const void* x, const void* p, const void* sizes, void* out, 
 }
 
 // The launch plan for an aligned map of C channels, for the record:
-// out[0..5] = CTAs a cluster (one image), threads a CTA, threads across the
-// channels, row lanes, channels each CTA finishes, and how many clusters the
-// card holds at once (CUDA's occupancy query; images past that wait).
+// out[0..7] = CTAs a cluster (one image and chunk), threads a CTA, threads
+// across a chunk's channels, row lanes, channels each CTA finishes, how many
+// clusters the card holds at once (CUDA's occupancy query; clusters past
+// that wait), the chunks of channels (1 up to MAX_C; more add the
+// gem_l2n_finish launch) and the channels a chunk.
 int gem_l2n_plan(int C, int is_bf16, int* out) {
-  if (C < 1 || C > MAX_C) return (int)cudaErrorInvalidValue;
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  const int CW = chunk_width(C);
   out[0] = CS;
   out[1] = NT;
-  out[2] = (C + CPT - 1) / CPT;
+  out[2] = (CW + CPT - 1) / CPT;
   out[3] = NT / out[2];
-  out[4] = (C + CS - 1) / CS;
+  out[4] = (CW + CS - 1) / CS;
+  out[6] = (C + CW - 1) / CW;
+  out[7] = CW;
   if (is_bf16) {
     return C % 8 == 0 ? max_clusters<__nv_bfloat16, 8>(C, out + 5)
                       : max_clusters<__nv_bfloat16, 1>(C, out + 5);

@@ -98,6 +98,7 @@ def make_synthetic_dataset(
     revisited: bool = True,
     seed: int = 0,
     jitter_strengths=(0.5, 1.5),
+    image_format: str = "jpeg",
 ) -> TestDataset:
     """Create an on-disk synthetic retrieval dataset with the gnd contract.
 
@@ -105,7 +106,13 @@ def make_synthetic_dataset(
     + geometric jitters of a scene; queries are fresh jitters with a bbx.
     Half of each scene's views are labeled 'easy', half 'hard' (stronger
     jitter); one extra near-duplicate per scene is labeled 'junk'.
+
+    ``image_format="png"`` stores each image losslessly (under the layout's
+    ``.jpg`` names; decoders read the format from the data), so every host
+    decodes the same pixels from the same seed, whatever its JPEG codec.
     """
+    if image_format not in ("jpeg", "png"):
+        raise ValueError(f"image_format must be 'jpeg' or 'png', got {image_format!r}")
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -115,9 +122,11 @@ def make_synthetic_dataset(
     os.makedirs(jpg, exist_ok=True)
 
     def save(img: np.ndarray, stem: str):
-        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
-            os.path.join(jpg, stem + ".jpg"), quality=95
-        )
+        im = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        if image_format == "png":
+            im.save(os.path.join(jpg, stem + ".jpg"), format="PNG")
+        else:
+            im.save(os.path.join(jpg, stem + ".jpg"), quality=95)
 
     def jitter(proto, strength):
         img = proto + rng.randn(*proto.shape) * 0.05 * strength

@@ -299,12 +299,17 @@ def create_model(
     """Factory mirroring the reference's ``init_network(params)``, with the
     JAX package's keywords: ``use_pallas`` is ``use_kernel`` here; ``dtype``
     may be a name ("float32", "bfloat16"), a torch dtype or a numpy-style
-    scalar type such as the JAX package passes; ``s2d_stem=True`` is not
-    ported (``utils.config`` refuses it too)."""
+    scalar type such as the JAX package passes; ``s2d_stem`` is taken and
+    changes nothing (see below)."""
     if "use_pallas" in kw:
         kw["use_kernel"] = kw.pop("use_pallas")
-    if kw.pop("s2d_stem", False):
-        raise ValueError("s2d_stem is not supported by the port")
+    # The JAX package's s2d_stem computes the resnet stem's 7x7/stride-2
+    # convolution as space-to-depth(2) + a 4x4/stride-1 convolution, a layout
+    # for the TPU's matrix unit. It is exact and keeps the standard [7, 7,
+    # Cin, F] kernel at the standard tree path, so it is the same function of
+    # the same parameter: the port runs its standard stem (cuDNN picks its
+    # own algorithm for a 3-channel 7x7 convolution on the card).
+    kw.pop("s2d_stem", None)
     dtype = kw.get("dtype")
     if isinstance(dtype, torch.dtype):
         kw["dtype"] = next((n for n, d in DTYPES.items() if d == dtype), str(dtype))

@@ -7,7 +7,10 @@ thread-block cluster of eight CTAs per image that sum ``clamp(x, 1e-6)^p``
 over equal runs of the image's valid positions (the invalid rows of a padded
 rectangle are never read) and reduce their sums in a fixed order through
 distributed shared memory, then the mean, the ``1/p`` power and the L2 norm.
-No scratch, no atomics: two calls give the same bits.
+No scratch, no atomics: two calls give the same bits. Maps wider than one
+cluster holds (C > 8,192) run in chunks of channels, one cluster per image
+and chunk, and a second small launch normalizes each row; more than 65,535
+images run as consecutive launches. Any B and C run on the card.
 
 Both entry points keep the TPU kernel's L2N exactly: ``pooled / (sqrt(sum
 pooled^2) + 1e-6)`` with no 1e-24 floor (unlike ``ops.normalization.l2n``).
@@ -39,11 +42,11 @@ L2N_EPS = 1e-6
 
 def launch_plan(C: int, bf16: bool = False) -> dict:
     """The kernel's launch plan for a 16-byte-aligned map of C channels, as
-    ``csrc/gem_l2n.cu`` computes it, and how many of its clusters the current
-    CUDA device holds at once. For the record only: the launch needs none of
-    it."""
+    ``csrc/gem_l2n.cu`` computes it: how many of its clusters the current
+    CUDA device holds at once, and the chunks of channels (one up to 8,192)
+    and their width. For the record only: the launch needs none of it."""
     keys = ("cluster", "threads", "threads_across_channels", "row_lanes", "finish_slice",
-            "clusters_at_once")
+            "clusters_at_once", "chunks", "chunk_channels")
     out = (ctypes.c_int * len(keys))()
     _build.check(_build.load("gem_l2n").gem_l2n_plan(C, int(bf16), out), "gem_l2n_plan")
     return dict(zip(keys, out))

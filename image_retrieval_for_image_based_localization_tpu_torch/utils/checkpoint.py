@@ -5,8 +5,13 @@ directory with one ``state.pt``: ``torch.save`` of the train state as
 ``{model, optimizer, scheduler, step}`` state dicts. Beside each sits
 ``<name>.meta.json``, the model's hyperparameters (cirtorch's checkpoint
 ``meta``). ``load_checkpoint`` takes the run directory or the checkpoint
-directory itself, as the JAX package's does. The JAX package writes Orbax
-trees; reading those here is not supported.
+directory itself, as the JAX package's does.
+
+It also reads the JAX package's run directories: there each checkpoint is
+an Orbax directory (it holds ``_CHECKPOINT_METADATA``), read by
+``utils/orbax.py`` without Orbax into the tree the JAX loader restores,
+as numpy arrays. Such a tree cannot be loaded into a ``TrainState``: the
+optimizer state is optax's chained state (ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -17,6 +22,11 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from image_retrieval_for_image_based_localization_tpu_torch.utils.orbax import (
+    is_orbax_checkpoint,
+    read_orbax,
+)
 
 STATE_FILE = "state.pt"
 
@@ -55,19 +65,43 @@ def save_checkpoint(directory: str, state: Any, meta: Optional[Dict] = None,
     return path
 
 
+def _is_checkpoint(path: str) -> bool:
+    return os.path.exists(os.path.join(path, STATE_FILE)) or is_orbax_checkpoint(path)
+
+
+def resolve_checkpoint(directory: str, name: str = "latest") -> Tuple[str, str, str]:
+    """``(path, run_directory, name)`` of ``directory/name``, or of
+    ``directory`` itself when that is the checkpoint."""
+    directory = os.path.abspath(directory)
+    path = os.path.join(directory, name)
+    if not _is_checkpoint(path) and _is_checkpoint(directory):
+        path = directory
+        directory, name = os.path.split(directory)
+    return path, directory, name
+
+
+def is_jax_checkpoint(directory: str, name: str = "latest") -> bool:
+    """True where ``directory/name`` (or ``directory``) is the JAX
+    package's Orbax checkpoint."""
+    return is_orbax_checkpoint(resolve_checkpoint(directory, name)[0])
+
+
 def load_checkpoint(directory: str, name: str = "latest", target: Any = None
                     ) -> Tuple[Any, Optional[Dict]]:
     """Load ``directory/name`` (or ``directory`` itself when it is the
     checkpoint) and its meta. With ``target`` (a ``TrainState``) the state
     dicts are loaded into it and it is returned; else the dict of state
-    dicts, its tensors on the CPU."""
-    directory = os.path.abspath(directory)
-    path = os.path.join(directory, name)
-    if not os.path.exists(os.path.join(path, STATE_FILE)) and \
-            os.path.exists(os.path.join(directory, STATE_FILE)):
-        path = directory
-        directory, name = os.path.split(directory)
-    tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    dicts, its tensors on the CPU. A JAX package's Orbax checkpoint gives
+    its tree of numpy arrays, and refuses a ``target``."""
+    path, directory, name = resolve_checkpoint(directory, name)
+    if is_orbax_checkpoint(path):
+        if target is not None:
+            raise ValueError(f"{path}: a JAX package's checkpoint does not load into a "
+                             f"TrainState (optax's optimizer state; ROADMAP C3)")
+        tree = read_orbax(path)
+    else:
+        tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                          weights_only=True)
     meta = None
     meta_path = os.path.join(directory, f"{name}.meta.json")
     if os.path.exists(meta_path):

@@ -3,8 +3,9 @@
 Copied from the JAX package's ``utils/config.py`` (same fields, defaults and
 graded configs), so a config written for one package means the same thing in
 the other. Every arch, pooling and ``regional`` of the JAX package is taken.
-A field that selects TPU-only machinery (``s2d_stem``) is kept for
-compatibility and rejected by :func:`check_supported` when set;
+``s2d_stem`` (the JAX package's space-to-depth form of the resnet stem,
+the same function of the same parameter) is taken and runs the standard
+stem;
 ``fuse_blocks`` is taken for bottleneck resnets in f32 and bf16,
 ``dtype="bfloat16"`` runs every trunk in bf16 (graded configs 4 and 5), and
 ``native_preproc`` selects the native C++ decoder for path inputs as in the
@@ -35,7 +36,7 @@ class ModelConfig:
     # the JAX package's fused Pallas head; the port reads it as "use the
     # hand-written CUDA head" (RetrievalNet.use_kernel)
     use_pallas: bool = False
-    s2d_stem: Optional[bool] = None  # TPU stem layout rewrite: not ported
+    s2d_stem: Optional[bool] = None  # TPU stem layout: the standard stem here
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +137,6 @@ def check_supported(cfg: ExtractConfig) -> None:
     ``regional`` without ``exact`` is taken: the Extractor switches to
     exact shapes."""
     mc = cfg.model
-    if mc.s2d_stem:
-        raise ValueError("s2d_stem is a TPU layout rewrite; not supported")
     if cfg.fuse_blocks and mc.arch not in _BOTTLENECK_ARCHS:
         raise ValueError(f"fuse_blocks (fused bottleneck trunk) needs a bottleneck resnet "
                          f"{_BOTTLENECK_ARCHS}, not {mc.arch!r}")

@@ -19,8 +19,11 @@ from torch_threads import one_thread  # noqa: F401  (a module fixture: torch's t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "image_retrieval_for_image_based_localization_tpu_torch")
+# the JAX package and its stack; the port reads Orbax checkpoints with its own
+# decoder, so orbax's storage stack is forbidden too
 FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "optax", "orbax", "irtpu",
-             "image_retrieval_for_image_based_localization_tpu")
+             "image_retrieval_for_image_based_localization_tpu", "tensorstore", "zstandard",
+             "msgpack")
 
 
 def _port_files():
@@ -89,9 +92,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
 
 
 def test_unported_options_raise():
-    for mc in (port.ModelConfig(dtype="float16"), port.ModelConfig(s2d_stem=True)):
-        with pytest.raises(ValueError):
-            port.Extractor(port.ExtractConfig(model=mc), device="cpu")
+    with pytest.raises(ValueError):
+        port.Extractor(port.ExtractConfig(model=port.ModelConfig(dtype="float16")), device="cpu")
+    # s2d_stem is taken (the JAX package's stem layout: the same function);
+    # tests/test_torch_s2d_stem.py holds it against the JAX extractor
+    assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(s2d_stem=True)),
+                          device="cpu").model.arch == "resnet50"
     # every trunk runs in bf16, densenet121 included
     assert port.Extractor(port.ExtractConfig(model=port.ModelConfig(
         arch="densenet121", dtype="bfloat16")), device="cpu").model.compute_dtype == torch.bfloat16
@@ -238,8 +244,12 @@ def test_create_model_matches_the_jax_factory():
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jm.apply(v, jnp.asarray(x))), rtol=0, atol=2e-5)
-    with pytest.raises(ValueError, match="s2d_stem"):
-        create_model("resnet18", s2d_stem=True)
+    # s2d_stem builds the same model (the JAX stem layout computes the same
+    # function of the same parameter)
+    s2d = create_model(**kw, dtype=jnp.float32, s2d_stem=True)
+    s2d.load_state_dict(variables_to_state_dict(v, "resnet18"))
+    with torch.no_grad():
+        assert torch.equal(s2d.eval()(torch.from_numpy(x)), torch.from_numpy(got))
 
 
 def test_normalize_images_matches_the_jax_package():

@@ -7,9 +7,9 @@ give the same descriptors, indices, mAP and pairs. ``--network`` loads a
 cirtorch-layout checkpoint from a zoo served on localhost and matches
 ``--checkpoint`` on the same weights (and the JAX CLI's ``--network``).
 The benches, ``fullsystem`` and ``parity`` run at toy sizes, ``download``
-verifies or fetches, ``serve`` runs as a subprocess, and an Orbax
-checkpoint, which the port does not read yet, returns 2 with its ROADMAP
-label.
+verifies or fetches, ``serve`` runs as a subprocess, and ``train
+--resume`` of a JAX run directory (an Orbax checkpoint), which the port does
+not resume yet, returns 2 with its ROADMAP label.
 """
 
 import ast
@@ -249,13 +249,14 @@ def test_bench_train_tiny(capsys):
 
 
 @pytest.mark.parametrize("argv,label", [
-    (["extract", "--images", "x.jpg", "--out", "x.npy", "--checkpoint", "{orbax}"],
-     "ROADMAP C3"),
+    (["train", "--resume", "{orbax}", "--out-dir", "{out}", "--synthetic"], "ROADMAP C3"),
 ], ids=["orbax"])
 def test_not_yet_ported_returns_2(argv, label, tmp_path, capsys):
     orbax = tmp_path / "orbax_ckpt"
-    (orbax / "best").mkdir(parents=True)  # an Orbax directory holds no state.pt
-    argv = [a.replace("{orbax}", str(orbax)) for a in argv]
+    (orbax / "latest").mkdir(parents=True)
+    (orbax / "latest" / "_CHECKPOINT_METADATA").write_text("{}")  # marks an Orbax directory
+    argv = [a.replace("{orbax}", str(orbax)).replace("{out}", str(tmp_path / "out"))
+            for a in argv]
     assert main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and label in err

@@ -105,12 +105,43 @@ def test_other_trunks_reach_the_gem_kernels(dev, arch):
             torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-def test_gem_kernel_refuses_more_channels_than_a_cluster_holds(dev):
-    """C > 8,192 (8 channels x 1,024 threads) is refused by the C entry, not
-    computed wrong (ROADMAP C3)."""
-    x = _rand((1, 2, 2, 8200), 1, dev)
-    with pytest.raises(RuntimeError, match="gem_l2n_forward"):
-        gem_l2n_fused(x, 3.0)
+@pytest.mark.parametrize("C", [8200, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gem_kernels_match_plain_past_one_cluster(dev, dtype, C):
+    """C > 8,192 (8 channels x 1,024 threads, one cluster) runs in chunks of
+    channels with a second launch for the L2N: within 1e-5 of plain, the
+    same bits on a second call, a (0, 0) row zero, and the plan's chunks."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.gem_l2n import (
+        launch_plan,
+    )
+
+    x = _rand((3, 4, 5, C), 3, dev, dtype)
+    sizes = torch.tensor([[4, 5], [0, 0], [2, 3]], dtype=torch.int32, device=dev)
+    p = torch.tensor([3.0], device=dev)
+    got = gem_l2n_fused_rect(x, p, sizes)
+    torch.testing.assert_close(got, gem_l2n_plain(x, p, sizes), rtol=0, atol=1e-5)
+    assert torch.all(got[1] == 0)
+    assert torch.equal(got, gem_l2n_fused_rect(x, p, sizes))
+    got = gem_l2n_fused(x, p)
+    torch.testing.assert_close(got, gem_l2n_plain(x, p), rtol=0, atol=1e-5)
+    assert torch.equal(got, gem_l2n_fused(x, p))
+    plan = launch_plan(C, dtype == torch.bfloat16)
+    assert plan["chunks"] == 2 and plan["chunk_channels"] * 2 >= C
+    assert plan["chunk_channels"] % 8 == 0 and plan["chunk_channels"] <= 8192
+
+
+def test_gem_kernels_take_more_images_than_a_grid_row(dev):
+    """B = 70,000 > 65,535 (the grid's y limit) at C = 8: consecutive
+    launches, within 1e-5 of plain, rect and unmasked."""
+    B = 70_000
+    x = _rand((B, 2, 3, 8), 4, dev)
+    g = torch.Generator().manual_seed(5)
+    sizes = torch.stack([torch.randint(0, 3, (B,), generator=g),
+                         torch.randint(0, 4, (B,), generator=g)], 1).to(torch.int32).to(dev)
+    p = torch.tensor([3.0], device=dev)
+    torch.testing.assert_close(gem_l2n_fused_rect(x, p, sizes), gem_l2n_plain(x, p, sizes),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(gem_l2n_fused(x, p), gem_l2n_plain(x, p), rtol=0, atol=1e-5)
 
 
 def test_gem_launches_are_named_in_a_profile_trace(dev, tmp_path):
