@@ -204,6 +204,24 @@ Phases (any failure exits non-zero):
        directory: rc 0, kernel B1 launched, descriptors within 1e-4 of the
        JAX CLI's (jax_descriptors.npz), ranks equal outside ties within
        1e-5, the mAPs beside the JAX package's;
+     - path N, a JAX package's training run resumed (after path M): the
+       committed run directory tests/fixtures/jax_orbax_resume_squeezenet1_1
+       (the JAX CLI's first epoch of squeezenet1_1 + GeM at full width, Adam,
+       --update-every 2, one micro-batch pending; written by
+       tools/make_jax_resume_fixture.py); N1 loads its latest into a port
+       TrainState on the card through load_checkpoint(target=..., cfg=...)
+       and holds it bit for bit against the tree read from it (weights,
+       Adam's count, mu and nu, the schedule's count and lr, step, micro 1,
+       .grad equal to acc_grads); N2 runs three micro-steps of seeded u8
+       tuples through the kernel head (B1) against the JAX step's float64
+       run (jax_steps.npz): the losses, the parameters within 1e-2 of the
+       JAX update as a whole, and three mutations logged (a fresh
+       optimizer and the pending micro-batch dropped must land beyond
+       it); N3 runs cli train --resume on a copy of the fixture for one
+       epoch with --pallas on the card and resumes that directory once
+       more: rc 0 twice, resumed at epoch 1, B1 and B3 launched, a
+       port-format latest whose step is the fixture's plus the epoch's
+       micro-batches, the train steps' p50 and the second run's idle share;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
@@ -4947,6 +4965,371 @@ def orbax_phase(dev):
     return launches, out
 
 
+# Path N: a JAX package's training run resumed by the port. The fixture is
+# the JAX CLI's first epoch of RESUME_RUN (tools/make_jax_resume_fixture.py):
+# squeezenet1_1 + GeM at full width, Adam, --update-every 2 over 5
+# micro-batches an epoch, so its latest holds one pending micro-batch
+RESUME_FIXTURE = os.path.join("tests", "fixtures", "jax_orbax_resume_squeezenet1_1")
+RESUME_RUN = dict(arch="squeezenet1_1", pooling="gem", optimizer="adam", update_every=2,
+                  lr=5e-4, image_size=256, synth_scenes=6, synth_views=4, qsize=10,
+                  batch_tuples=2, n_neg=5, batch_size=8)
+# N2: three micro-batches of seeded u8 tuples (_train_tuples, seeds 20-22) in
+# the run's 192 x 256 bucket: they complete the pending update, then one more
+RESUME_TUPLES = dict(n=2, H=192, W=256, seed=20)
+RESUME_STEPS = 3
+# N2 against jax_steps.npz, the JAX step in float64: the losses within
+# RESUME_LOSS_REL; the parameters as a whole within RESUME_UPDATE_REL of the
+# JAX update (||p - p_jax|| / ||p_jax - p_start||). Elementwise bounds cannot
+# hold across two implementations under Adam: a weight whose gradient is
+# below the f32 gradient's error takes a step of either sign, ~lr, whichever
+# package computes it (the port on the card: 1.2e-3 of the update as a
+# whole, its worst weight 0.41 lr, ~70 x the loosest elementwise bound).
+# RESUME_PARAM_REL of each tensor's max|p| is the bound the JAX updates must
+# dwarf (tools/make_jax_resume_fixture.py)
+RESUME_LOSS_REL = 1e-5
+RESUME_UPDATE_REL = 1e-2
+RESUME_PARAM_REL = 1e-6
+
+
+def resume_cli_args():
+    """``cli train`` arguments of RESUME_RUN (both packages' CLIs take them)."""
+    r = RESUME_RUN
+    return ["--arch", r["arch"], "--pooling", r["pooling"], "--optimizer", r["optimizer"],
+            "--update-every", str(r["update_every"]), "--lr", str(r["lr"]),
+            "--image-size", str(r["image_size"]), "--synthetic",
+            "--synth-scenes", str(r["synth_scenes"]), "--synth-views", str(r["synth_views"]),
+            "--qsize", str(r["qsize"]), "--batch-tuples", str(r["batch_tuples"]),
+            "--n-neg", str(r["n_neg"]), "--batch-size", str(r["batch_size"])]
+
+
+def resume_train_cfg():
+    """The TrainConfig fields ``run_training`` derives from RESUME_RUN (the
+    CLI's defaults for the rest): the lr decays per epoch of applied updates."""
+    r = RESUME_RUN
+    return dict(lr=r["lr"], n_neg=r["n_neg"], batch_tuples=r["batch_tuples"],
+                optimizer=r["optimizer"], update_every=r["update_every"],
+                steps_per_epoch=max(r["qsize"] // (r["batch_tuples"] * r["update_every"]), 1))
+
+
+def resume_tuples(i):
+    """N2's i-th micro-batch: (pixels_u8, sizes, labels)."""
+    t = RESUME_TUPLES
+    return _train_tuples(t["n"], 2 + RESUME_RUN["n_neg"], t["H"], t["W"], seed=t["seed"] + i)
+
+
+def unflat_tree(flat):
+    """The nested dict of a ``flat_tree`` of dicts (its keys joined by ``/``)."""
+    out = {}
+    for key, v in flat.items():
+        *head, last = key.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def resume_state(dev):
+    """A fresh port TrainState for RESUME_RUN (the kernel head) on ``dev``
+    and its TrainConfig."""
+    from image_retrieval_for_image_based_localization_tpu_torch.models.retrieval_net import (
+        RetrievalNet,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        TrainConfig,
+        create_train_state,
+    )
+
+    cfg = TrainConfig(**resume_train_cfg())
+    model = RetrievalNet(arch=RESUME_RUN["arch"], pooling=RESUME_RUN["pooling"],
+                         use_kernel=True)
+    return create_train_state(model, cfg, device=dev), cfg
+
+
+def resume_n1(dev):
+    """N1: the fixture's latest loaded into a port TrainState on ``dev``
+    (``load_checkpoint(target=..., cfg=...)``) and held bit for bit, after
+    the layout maps, against the tree read from it: the weights, Adam's
+    count, mu and nu per parameter, the schedule's count and the lr it
+    gives, ``step``, ``micro`` = mini_step = 1 and each ``.grad`` equal to
+    acc_grads. Returns the loaded state, its config, the tree and a summary."""
+    import math
+
+    import torch
+
+    from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+        params_to_state_dict,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.orbax import read_orbax
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), RESUME_FIXTURE)
+    tree = read_orbax(os.path.join(fixture, "latest"))
+    state, cfg = resume_state(dev)
+    t0 = time.perf_counter()
+    state, meta = load_checkpoint(fixture, target=state, cfg=cfg)
+    load_s = time.perf_counter() - t0
+    ms = tree["opt_state"]
+    adam, sched_state = ms["inner_opt_state"][1], ms["inner_opt_state"][2]
+    count, mini = int(adam["count"]), int(ms["mini_step"])
+    named = dict(state.model.named_parameters())
+    names = list(named)
+
+    def mapped(t):
+        return params_to_state_dict(t, RESUME_RUN["arch"], names)
+
+    bad = []
+    for tag, want, get in (
+            ("params", mapped(tree["params"]), lambda n: named[n].detach()),
+            ("mu", mapped(adam["mu"]), lambda n: state.optimizer.state[named[n]]["exp_avg"]),
+            ("nu", mapped(adam["nu"]), lambda n: state.optimizer.state[named[n]]["exp_avg_sq"]),
+            ("acc_grads", mapped(ms["acc_grads"]), lambda n: named[n].grad)):
+        for n in names:
+            got = get(n)
+            if got is None or got.device != named[n].device or \
+                    not torch.equal(got.cpu(), want[n]):
+                bad.append(f"{tag}:{n}")
+    steps = {float(st["step"]) for st in state.optimizer.state.values()}
+    lr = state.optimizer.param_groups[0]["lr"]
+    want_lr = cfg.lr * cfg.lr_decay ** math.floor(count / cfg.steps_per_epoch)
+    checks = {
+        "leaves_bit_equal": not bad, "adam_count": sorted(steps) == [float(count)],
+        "schedule_count": state.scheduler.last_epoch == int(sched_state["count"]) == count,
+        "lr": lr == want_lr,
+        "step": state.step == int(tree["step"]), "micro": state.micro == mini == 1,
+        "epoch": meta["epoch"] == 0}
+    out = {"load_s": load_s, "count": count, "mini_step": mini, "step": state.step, "lr": lr,
+           "checks": checks, "mismatched": bad[:10]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"path N1: {failed} ({bad[:10]})")
+    return state, cfg, tree, out
+
+
+def _resume_steps(state, cfg):
+    """N2's micro-steps from ``state``: the losses and each parameter after
+    them."""
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        make_train_step,
+    )
+
+    step = make_train_step(state.model, cfg, from_u8=True)
+    losses = []
+    for i in range(RESUME_STEPS):
+        state, loss = step(state, *resume_tuples(i))
+        losses.append(float(loss))
+    return losses, {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+
+def resume_phase(dev, smi, main_d=None):
+    """Path N: the JAX package's run directory RESUME_FIXTURE resumed by the
+    port on the card. N1 (:func:`resume_n1`) loads its latest bit for bit.
+    N2 runs the JAX step's three micro-batches from it through the kernel
+    head (B1) against jax_steps.npz (the JAX package's step in float64 on
+    the CPU): the losses within RESUME_LOSS_REL and the parameters within
+    RESUME_UPDATE_REL of the JAX update; then, logged, how
+    far three mutations land (a fresh optimizer, the pending micro-batch
+    dropped, the schedule's count at 0), the first two required beyond
+    that bound. N3 runs
+    ``cli train --resume <a copy> --epochs 2 --pallas --device cuda`` on
+    RESUME_RUN's pool: rc 0, ``resumed`` at epoch 1, B1 and B3 launched, a
+    port-format latest at epoch 1 whose step is the fixture's plus the
+    epoch's micro-batches, and a second --resume of that directory for one
+    more epoch (profiled: its idle share), rc 0; the train steps' p50."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from image_retrieval_for_image_based_localization_tpu_torch import cli
+    from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+        params_to_state_dict,
+        variables_to_state_dict,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.training import loop
+    from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+        create_train_state,
+        set_pending_gradients,
+    )
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
+        is_jax_checkpoint,
+        load_checkpoint,
+    )
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), RESUME_FIXTURE)
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kernels.reset_launch_counts()
+    try:
+        # N1 and N2's run: the main path's window
+        state, cfg, tree, n1 = resume_n1(dev)
+        log(f"[resume N1] {RESUME_FIXTURE}/latest into a TrainState on {dev} in "
+            f"{n1['load_s'] * 1e3:.1f} ms: Adam count {n1['count']}, mini_step "
+            f"{n1['mini_step']}, step {n1['step']}, lr {n1['lr']!r}; bit for bit "
+            f"{json.dumps(n1['checks'])}")
+        names = [n for n, _ in state.model.named_parameters()]
+        losses, got = _resume_steps(state, cfg)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        del state
+
+        # N3: the CLI, its own counting window (B1 in training and mining's
+        # extraction, B3 in mining's search)
+        step_ms = []
+        real_step = loop.make_train_step
+
+        def timed_make_train_step(*a, **k):
+            step = real_step(*a, **k)
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return timed
+
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "run")
+            shutil.copytree(fixture, run)
+            argv = ["train", *resume_cli_args(), "--data-root", os.path.join(tmp, "data"),
+                    "--out-dir", run, "--resume", run, "--pallas",
+                    "--device", torch.device(dev).type]
+            kernels.reset_launch_counts()
+            loop.make_train_step = timed_make_train_step
+            try:
+                t0 = time.perf_counter()
+                rc1 = cli.main(argv + ["--epochs", "2"])
+                torch.cuda.synchronize()
+                n3_s = time.perf_counter() - t0
+                launches_n3 = kernels.launch_counts()
+                ckpt, meta = load_checkpoint(run)
+                jax_format = is_jax_checkpoint(run)
+                with open(os.path.join(run, "metrics.jsonl")) as f:
+                    recs = [json.loads(line) for line in f]
+                rc2 = []
+                prof = profile_window(lambda: rc2.append(cli.main(argv + ["--epochs", "3"])))
+                ckpt2, meta2 = load_checkpoint(run)
+            finally:
+                loop.make_train_step = real_step
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    for k, v in launches_n3.items():
+        launches[k] += v
+
+    # N2's gate, from the JAX package's three micro-steps
+    jd = np.load(os.path.join(fixture, "jax_steps.npz"))
+    want = params_to_state_dict(unflat_tree({k[len("params/"):]: jd[k] for k in jd.files
+                                             if k.startswith("params/")}),
+                                RESUME_RUN["arch"], names)
+    jloss = [float(v) for v in jd["losses"]]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, jloss)]
+    start = variables_to_state_dict({"params": tree["params"], "batch_stats": {}},
+                                    RESUME_RUN["arch"])
+    jax_update = math.sqrt(sum(float(((want[n] - start[n]).double() ** 2).sum())
+                               for n in names))
+
+    def update_rel(params):
+        """||p - p_jax|| / ||p_jax - p_start|| over every parameter, and the
+        worst element's error in units of the lr."""
+        err = math.sqrt(sum(float(((params[n].cpu() - want[n]).double() ** 2).sum())
+                            for n in names))
+        worst = max(float((params[n].cpu() - want[n]).abs().max()) for n in names)
+        return err / jax_update, worst / cfg.lr
+
+    n2_rel, n2_worst_lr = update_rel(got)
+    moved = min(float((want[n] - start[n]).abs().max()) / (RESUME_PARAM_REL *
+                                                          float(want[n].abs().max()))
+                for n in names)
+
+    def mutated(kind):
+        st, c, _, _ = resume_n1(dev)
+        if kind == "fresh optimizer":
+            pending = {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()}
+            st = create_train_state(st.model, c, state_dict=st.model.state_dict(), device=dev)
+            set_pending_gradients(st, pending, 1)
+        elif kind == "pending dropped":
+            set_pending_gradients(st, {}, 0)
+        else:  # the schedule's count at 0
+            sd = st.scheduler.state_dict()
+            sd.update(last_epoch=0, _step_count=1, _last_lr=list(st.scheduler.base_lrs))
+            st.scheduler.load_state_dict(sd)
+            for g, lr in zip(st.optimizer.param_groups, st.scheduler.base_lrs):
+                g["lr"] = lr
+        mlosses, params = _resume_steps(st, c)
+        return update_rel(params)[0], mlosses
+
+    mutations = {k: mutated(k) for k in ("fresh optimizer", "pending dropped",
+                                         "schedule count 0")}
+    torch.cuda.empty_cache()
+    jax_step = int(np.asarray(tree["step"]))
+    epoch_steps = [r["steps"] for r in recs if "train_loss" in r]
+    resumed = [r["start_epoch"] for r in recs if r.get("event") == "resumed"]
+    p50 = statistics.median(step_ms) if step_ms else None
+    d_p50 = None if main_d is None else main_d["bench"]["lat_p50_ms"]
+    d_idle = None if main_d is None else main_d["bench"]["profile"]["idle_share"]
+    out = {"n1": n1, "n2": {"losses": losses, "jax_losses": jloss, "loss_rel": loss_rel,
+                            "update_rel": n2_rel, "worst_element_over_lr": n2_worst_lr,
+                            "jax_update_over_fixed_bound_min": moved,
+                            "mutations_update_rel": {k: v[0] for k, v in mutations.items()},
+                            "mutations_losses": {k: v[1] for k, v in mutations.items()}},
+           "n3": {"rc": [rc1, rc2[0] if rc2 else None], "seconds": n3_s,
+                  "resumed_start_epoch": resumed, "epoch_steps": epoch_steps,
+                  "step": [jax_step, ckpt["step"], ckpt2["step"]],
+                  "epoch": [meta["epoch"], meta2["epoch"]], "latest_port_format": not jax_format,
+                  "step_ms_p50": p50, "steps_timed": len(step_ms),
+                  "idle_share_second_resume": prof["idle_share"], "launches": launches_n3,
+                  "path_d_step_p50_ms": d_p50, "path_d_idle_share": d_idle}}
+    log(f"[resume N2] 3 micro-steps from the JAX state through the kernel head on the card: "
+        f"losses {losses} against the JAX package's float64 step's {jloss} (rel "
+        f"{[float(f'{v:.3e}') for v in loss_rel]}, bound {RESUME_LOSS_REL}); parameters "
+        f"{n2_rel:.3e} of the JAX update "
+        f"off (bound {RESUME_UPDATE_REL}), worst element {n2_worst_lr:.3f} lr; the JAX updates "
+        f"moved every tensor >= {moved:.1f} x {RESUME_PARAM_REL} of its max|p| | {smi}")
+    log(f"[resume N2] mutations, parameters off the JAX update: "
+        f"{json.dumps({k: round(v[0], 6) for k, v in mutations.items()})}; their losses "
+        f"{json.dumps({k: v[1] for k, v in mutations.items()})}")
+    log(f"[resume N3] cli train --resume <copy of {RESUME_FIXTURE}> --epochs 2 --pallas "
+        f"--device cuda: rc {rc1}, {n3_s:.2f} s, resumed at epoch {resumed}, micro-batches an "
+        f"epoch {epoch_steps}, step {jax_step} -> {ckpt['step']} (epoch {meta['epoch']}, "
+        f"this package's format: {not jax_format}), B1 {launches_n3['gem_l2n_fused_rect']} "
+        f"B3 {launches_n3['scores_blockmax']} launches; a second --resume to 3 epochs: rc "
+        f"{rc2}, step {ckpt2['step']}; train step p50 {p50 if p50 is None else round(p50, 3)} "
+        f"ms over {len(step_ms)} steps ({RESUME_RUN['batch_tuples']} tuples x "
+        f"{2 + RESUME_RUN['n_neg']} images at {RESUME_RUN['image_size']} px), idle share "
+        f"{prof['idle_share']} over the second resume's whole run; path D: step p50 {d_p50} "
+        f"ms, idle share {d_idle} | {smi}")
+    failed = []
+    if not max(loss_rel) <= RESUME_LOSS_REL:
+        failed.append(f"N2 losses {loss_rel} from the JAX package's")
+    if not n2_rel <= RESUME_UPDATE_REL:
+        failed.append(f"N2 parameters {n2_rel:.3e} of the JAX update off")
+    for k in ("fresh optimizer", "pending dropped"):
+        if not mutations[k][0] > RESUME_UPDATE_REL:
+            failed.append(f"N2 cannot tell a {k} ({mutations[k][0]:.3e} of the update off)")
+    if rc1 != 0 or rc2 != [0]:
+        failed.append(f"N3 cli train returned {rc1}, {rc2}")
+    if resumed[:1] != [1] or meta["epoch"] != 1 or meta2["epoch"] != 2 or jax_format:
+        failed.append(f"N3 resumed {resumed}, epochs {meta['epoch']}, {meta2['epoch']}, "
+                      f"JAX format {jax_format}")
+    if ckpt["step"] != jax_step + epoch_steps[0]:
+        failed.append(f"N3 step {ckpt['step']} != {jax_step} + {epoch_steps[0]}")
+    if launches_n3["gem_l2n_fused_rect"] < 1 or launches_n3["scores_blockmax"] < 1:
+        failed.append(f"N3 launches {launches_n3}")
+    if launches["gem_l2n_fused_rect"] < 1:
+        failed.append("N2 B1 was not launched")
+    if failed:
+        raise AssertionError(f"path N: {failed}")
+    return launches, out
+
+
 def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
     """The bf16 bottleneck's library yardstick: a function running cuDNN's
     three bf16 convolutions (channels_last) with bias and ReLU and the skip
@@ -5318,13 +5701,14 @@ def main() -> int:
     del c2
     launches_k, main_k = tooling_phase(dev, smi)
     launches_m, main_m = orbax_phase(dev)
+    launches_n, main_n = resume_phase(dev, smi, main_d)
     by_path = {"config2": launches2, "config3": launches3, "long_search": launches_long,
                "ann": launches_ann, "config2_fused_trunk": launches_b,
                "config5": launches_c5, "config5_fused_trunk": launches_i,
                "config4": launches_e, "rerank": launches_f,
                "serving": launches_g, "other_trunks": launches_h, "training": launches_d,
                "training_l": launches_l, "data_parallel": launches_j, "tooling": launches_k,
-               "orbax": launches_m}
+               "orbax": launches_m, "resume": launches_n}
     # each kernel's launches, summed over the paths' own counting windows
     launches = {n: sum(lp[n] for lp in by_path.values()) for n in launches2}
     errs = dict(gem_in["err"], **nv_in["err"],
@@ -5364,6 +5748,7 @@ def main() -> int:
                                   "data_parallel": main_j,
                                   "tooling": main_k,
                                   "orbax": main_m,
+                                  "resume": main_n,
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,
                                   "bottleneck_bf16_not_bit_equal_share": bn16_neq,

@@ -16,9 +16,9 @@ default, raises without one); ``--device cpu`` runs the plain PyTorch
 versions (``synth`` and ``download`` only write files and take no
 device). ``--checkpoint`` takes this package's run directory, a torch
 ``.pth``/``.pt`` state dict, or a run directory of the JAX package (its
-Orbax ``best`` checkpoint, read without Orbax by ``utils/orbax.py``);
-``train --resume`` of a JAX run directory is not ported yet (ROADMAP C3):
-it says so and returns 2, as a usage error does.
+Orbax ``best`` checkpoint, read without Orbax by ``utils/orbax.py``), and
+``train --resume`` takes this package's run directory or the JAX
+package's (its Orbax ``latest``, optimizer state included).
 """
 
 from __future__ import annotations
@@ -325,7 +325,9 @@ def cmd_train(argv):
     p.add_argument("--poolsize", type=int, default=None,
                    help="negative-pool images sampled per epoch (reference: 20000)")
     p.add_argument("--out-dir", required=True)
-    p.add_argument("--resume", default=None, help="checkpoint dir to resume from ('latest')")
+    p.add_argument("--resume", default=None,
+                   help="run directory to resume from ('latest'): this package's or the JAX "
+                        "package's")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize trunk activations in the backward (lower peak memory)")
     p.add_argument("--synthetic", action="store_true",
@@ -339,15 +341,6 @@ def cmd_train(argv):
         # own init); the port refuses it rather than copy a silent no-op
         raise NotPorted("--network: training does not start from a zoo network; pass its "
                         ".pth as --checkpoint to evaluate it, or train from scratch")
-    from image_retrieval_for_image_based_localization_tpu_torch.utils.checkpoint import (
-        is_jax_checkpoint,
-    )
-
-    if args.resume is not None and is_jax_checkpoint(args.resume, "latest"):
-        raise NotPorted(f"--resume {args.resume}: resuming a JAX package's run is not yet "
-                        f"ported: its optimizer state is optax's chained state (ROADMAP C3); "
-                        f"its weights load through --checkpoint")
-
     from image_retrieval_for_image_based_localization_tpu_torch.training.loop import (
         run_training,
     )

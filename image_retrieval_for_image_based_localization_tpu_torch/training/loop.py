@@ -15,7 +15,9 @@ checkpoints and post-training Lw whitening (cirtorch's ``train.py``).
   * the lr decays per epoch (``TrainConfig.steps_per_epoch``).
 
 Without retrieval-SfM-120k on disk it trains on the synthetic scene corpus
-(``data.test_datasets.make_synthetic_dataset``). ``dtype`` (bf16 training),
+(``data.test_datasets.make_synthetic_dataset``). ``resume`` takes this
+package's run directory or the JAX package's; either way the checkpoints
+written after it are this package's. ``dtype`` (bf16 training),
 ``remat``, ``regional`` and ``whiten_dim`` reach the train step and the
 checkpoints' meta. Three deliberate differences from the JAX loop (ROADMAP
 C): a resumed run never re-initializes NetVLAD's centroids, and ``pallas``
@@ -234,7 +236,9 @@ def run_training(args, device: DeviceLike = "cuda") -> dict:
     start_epoch = 0
     resumed = bool(getattr(args, "resume", None))
     if resumed:
-        state, meta = load_checkpoint(args.resume, name="latest", target=state)
+        # this package's run directory or the JAX package's (its Orbax
+        # latest, optax's state carried into torch.optim)
+        state, meta = load_checkpoint(args.resume, name="latest", target=state, cfg=cfg)
         start_epoch = int(meta.get("epoch", -1)) + 1 if meta else 0
         logger.log(event="resumed", from_dir=args.resume, start_epoch=start_epoch)
     train_step = make_train_step(model, cfg, from_u8=True)

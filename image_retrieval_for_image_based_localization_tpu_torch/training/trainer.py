@@ -35,6 +35,12 @@ step's ``jax.checkpoint`` of the forward, checkpoints each trunk segment
 (``models.resnet.remat``): the same loss, gradients and running statistics
 as without it, at a lower peak memory.
 
+A JAX package's train state (its Orbax ``latest``, read by
+``utils/orbax.py``) loads into a ``TrainState`` through
+:func:`load_jax_train_state`: the weights, optax's Adam moments or SGD
+trace, the schedule's count and a pending ``MultiSteps`` accumulation, so a
+JAX run carries on here as it would there.
+
 Not here (each raises): several devices in one process (ROADMAP C14: one
 process per card) and a kernel head on a pooling other than GeM or NetVLAD
 (as the JAX ``make_train_step`` refuses it).
@@ -45,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +59,10 @@ import torch
 from image_retrieval_for_image_based_localization_tpu_torch.data.images import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+)
+from image_retrieval_for_image_based_localization_tpu_torch.models.flax_port import (
+    params_to_state_dict,
+    variables_to_state_dict,
 )
 from image_retrieval_for_image_based_localization_tpu_torch.models.init import init_random_
 from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
@@ -225,6 +235,142 @@ def apply_micro_step(state: TrainState, update_every: int, group=None,
     state.optimizer.step()
     state.scheduler.step()
     state.micro = 0
+
+
+def pending_gradients(state: TrainState, mesh=None) -> Dict[str, torch.Tensor]:
+    """The summed gradients of the ``state.micro`` micro-batches a pending
+    update holds, by parameter name, on the CPU (empty where none is
+    pending). With a ``mesh`` (the train step's; every process of its data
+    group calls this) it is the data group's mean of the processes' sums:
+    loaded back into every process, ``apply_micro_step``'s all-reduce over
+    the group and its division by the group's size give that sum again."""
+    if not state.micro:
+        return {}
+    named = [(n, p.grad) for n, p in state.model.named_parameters() if p.grad is not None]
+    group = None if mesh is None else mesh.data_group
+    n_proc = 1 if mesh is None else group_size(group)
+    if n_proc > 1 and named:
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for _, g in named]), group) / n_proc
+        parts = flat.split([g.numel() for _, g in named])
+        grads = [v.view_as(g) for (_, g), v in zip(named, parts)]
+    else:
+        grads = [g for _, g in named]
+    return {n: g.detach().cpu().clone() for (n, _), g in zip(named, grads)}
+
+
+def set_pending_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
+                          micro: int) -> None:
+    """Put a pending update of ``micro`` micro-batches, whose summed
+    gradients are ``grads`` (by parameter name), into ``state``: the next
+    micro-batch's ``backward`` adds to them."""
+    state.micro = int(micro)
+    state.optimizer.zero_grad(set_to_none=True)
+    if not state.micro:
+        return
+    named = dict(state.model.named_parameters())
+    unknown = sorted(set(grads) - set(named))
+    if unknown:
+        raise ValueError(f"pending gradients of parameters the model lacks: {unknown}")
+    for n, g in grads.items():
+        p = named[n]
+        p.grad = g.to(device=p.device, dtype=p.dtype).clone()
+
+
+# optax's state of each core transform of the JAX trainer's chain
+# (``make_optimizer`` there): scale_by_adam's and trace's fields
+OPTAX_CORE = {"adam": ("count", "mu", "nu"), "sgd": ("trace",)}
+
+
+def _optax_parts(opt_state: Any, cfg: TrainConfig) -> Tuple[Mapping, int, int, Any]:
+    """The JAX trainer's optax state, ``[add_decayed_weights, scale_by_adam
+    | trace, scale_by_schedule]``, inside ``MultiSteps`` where
+    ``update_every > 1``, as ``(core state, applied updates, pending
+    micro-batches, acc_grads)``. Raises naming what does not match ``cfg``
+    and where the update counts disagree."""
+    k = max(int(cfg.update_every), 1)
+    multi = isinstance(opt_state, Mapping) and "inner_opt_state" in opt_state
+    if multi != (k > 1):
+        kind = "optax.MultiSteps (update_every > 1)" if multi else "a chain without " \
+            "optax.MultiSteps (update_every 1)"
+        raise ValueError(f"the checkpoint's optimizer state is {kind}; the run asks "
+                         f"update_every {k}")
+    chain, mini, acc, counts = opt_state, 0, None, {}
+    if multi:
+        chain, acc = opt_state["inner_opt_state"], opt_state["acc_grads"]
+        mini = int(opt_state["mini_step"])
+        counts["gradient_step"] = int(opt_state["gradient_step"])
+        if not 0 <= mini < k:
+            raise ValueError(f"the checkpoint holds {mini} pending micro-batches; the run "
+                             f"asks update_every {k}")
+    if not (isinstance(chain, (list, tuple)) and len(chain) == 3 and chain[0] is None
+            and all(isinstance(c, Mapping) for c in chain[1:]) and "count" in chain[2]):
+        raise ValueError("the checkpoint's optimizer state is not the JAX trainer's chain "
+                         "add_decayed_weights -> scale_by_adam | trace -> scale_by_schedule")
+    core = chain[1]
+    kind = next((name for name, keys in OPTAX_CORE.items() if set(core) == set(keys)), None)
+    if kind != cfg.optimizer:
+        raise ValueError(f"the checkpoint's optimizer state is {kind or 'unknown'} "
+                         f"({sorted(core)}); the run asks --optimizer {cfg.optimizer}")
+    counts["scale_by_schedule"] = int(chain[2]["count"])
+    if kind == "adam":
+        counts["scale_by_adam"] = int(core["count"])
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"the optimizer state's update counts disagree: {counts}")
+    return core, counts["scale_by_schedule"], mini, acc
+
+
+def load_jax_train_state(state: TrainState, tree: Mapping[str, Any],
+                         cfg: TrainConfig) -> TrainState:
+    """Load the JAX package's train state ``{params, batch_stats, opt_state,
+    step}`` (as ``utils.orbax.read_orbax`` gives it) into ``state``, made by
+    :func:`create_train_state` with the run's ``cfg``: the weights and BN
+    statistics; Adam's per-parameter ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` (optax's count, ``mu`` and ``nu``) or SGD's
+    ``momentum_buffer`` (``trace``); the schedule's count as ``LambdaLR``'s
+    ``last_epoch`` and the lr it gives; ``step``; and a pending
+    ``MultiSteps`` accumulation as ``micro = mini_step`` with each ``.grad``
+    ``acc_grads * mini_step`` (optax keeps the running mean, this package
+    the sum). The state's structure must match ``cfg``'s optimizer and
+    ``update_every``, as the JAX package's restore with ``target=state``
+    requires; else it raises naming what differs."""
+    model, opt, sched = state.model, state.optimizer, state.scheduler
+    core, count, mini, acc = _optax_parts(tree["opt_state"], cfg)
+    named = dict(model.named_parameters())
+    names = list(named)
+    variables = {"params": tree["params"], "batch_stats": tree.get("batch_stats") or {}}
+    model.load_state_dict(variables_to_state_dict(variables, model.arch))
+
+    def moments(key: str) -> Dict[str, torch.Tensor]:
+        return params_to_state_dict(core[key], model.arch, names)
+
+    index = {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
+    if cfg.optimizer == "adam":
+        mu, nu = moments("mu"), moments("nu")
+
+        def param_state(n):
+            return {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    else:
+        trace = moments("trace")
+
+        def param_state(n):
+            return {"momentum_buffer": trace[n]}
+    # optax's zero moments before its first update are torch's empty state
+    per_param = {index[id(named[n])]: param_state(n) for n in names} if count else {}
+    osd = opt.state_dict()
+    osd["state"] = per_param
+    opt.load_state_dict(osd)  # to each parameter's device, "step" kept on the host
+    lrs = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+    for group, lr in zip(opt.param_groups, lrs):
+        group["lr"] = lr
+    ssd = sched.state_dict()  # a schedule stepped ``count`` times
+    ssd.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
+    sched.load_state_dict(ssd)
+    state.step = int(np.asarray(tree["step"]))
+    pending = {}
+    if mini:
+        pending = {n: g * mini for n, g in params_to_state_dict(acc, model.arch, names).items()}
+    set_pending_gradients(state, pending, mini)
+    return state
 
 
 def data_slice(mesh, batch: int) -> slice:

@@ -2,7 +2,12 @@
 
 A run directory holds ``latest`` (and ``best`` when ``is_best``), each a
 directory with one ``state.pt``: ``torch.save`` of the train state as
-``{model, optimizer, scheduler, step}`` state dicts. Beside each sits
+``{model, optimizer, scheduler, step, micro, pending}``: the state dicts,
+the micro-batch steps taken, and the micro-batches a pending gradient
+accumulation holds (``update_every > 1``) with their summed gradients by
+parameter name (empty where ``micro`` is 0), as the JAX package's
+checkpoint keeps ``optax.MultiSteps``' ``mini_step`` and ``acc_grads``.
+A checkpoint without ``micro`` loads with none pending. Beside each sits
 ``<name>.meta.json``, the model's hyperparameters (cirtorch's checkpoint
 ``meta``). ``load_checkpoint`` takes the run directory or the checkpoint
 directory itself, as the JAX package's does.
@@ -10,8 +15,10 @@ directory itself, as the JAX package's does.
 It also reads the JAX package's run directories: there each checkpoint is
 an Orbax directory (it holds ``_CHECKPOINT_METADATA``), read by
 ``utils/orbax.py`` without Orbax into the tree the JAX loader restores,
-as numpy arrays. Such a tree cannot be loaded into a ``TrainState``: the
-optimizer state is optax's chained state (ROADMAP C3).
+as numpy arrays. With a ``target`` such a tree loads into a ``TrainState``
+through ``training.trainer.load_jax_train_state`` (optax's state carried
+into ``torch.optim``), so ``train --resume`` carries on a JAX run; the
+next checkpoint written there is in this package's format.
 """
 
 from __future__ import annotations
@@ -23,6 +30,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
+    load_jax_train_state,
+    pending_gradients,
+    set_pending_gradients,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.utils.orbax import (
     is_orbax_checkpoint,
     read_orbax,
@@ -31,15 +43,19 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.orbax import (
 STATE_FILE = "state.pt"
 
 
-def _as_tree(state: Any) -> Dict[str, Any]:
-    """A ``TrainState`` as state dicts; a dict as it is."""
+def _as_tree(state: Any, mesh=None) -> Dict[str, Any]:
+    """A ``TrainState`` as state dicts, with its pending accumulation (over
+    the ``mesh``'s data group, ``pending_gradients``); a dict as it is."""
     if isinstance(state, dict):
         return state
     return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-            "scheduler": state.scheduler.state_dict(), "step": int(state.step)}
+            "scheduler": state.scheduler.state_dict(), "step": int(state.step),
+            "micro": int(state.micro), "pending": pending_gradients(state, mesh)}
 
 
 def _write(path: str, tree: Dict[str, Any], meta: Optional[Dict], meta_path: str) -> None:
+    if is_orbax_checkpoint(path):  # a JAX run's checkpoint, replaced by this package's
+        shutil.rmtree(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(tree, tmp)
@@ -50,12 +66,14 @@ def _write(path: str, tree: Dict[str, Any], meta: Optional[Dict], meta_path: str
 
 
 def save_checkpoint(directory: str, state: Any, meta: Optional[Dict] = None,
-                    name: str = "latest", is_best: bool = False) -> str:
+                    name: str = "latest", is_best: bool = False, mesh=None) -> str:
     """Save a train state (or a dict of state dicts) and its meta under
-    ``directory/name``; also as ``directory/best`` when ``is_best``.
-    Returns the checkpoint's path."""
+    ``directory/name``; also as ``directory/best`` when ``is_best``. In a
+    data-parallel run every process of the train ``mesh``'s data group
+    calls it (the pending gradients are the group's). Returns the
+    checkpoint's path."""
     directory = os.path.abspath(directory)
-    tree = _as_tree(state)
+    tree = _as_tree(state, mesh)
     path = os.path.join(directory, name)
     _write(path, tree, meta, os.path.join(directory, f"{name}.meta.json"))
     if is_best:
@@ -86,18 +104,21 @@ def is_jax_checkpoint(directory: str, name: str = "latest") -> bool:
     return is_orbax_checkpoint(resolve_checkpoint(directory, name)[0])
 
 
-def load_checkpoint(directory: str, name: str = "latest", target: Any = None
-                    ) -> Tuple[Any, Optional[Dict]]:
+def load_checkpoint(directory: str, name: str = "latest", target: Any = None,
+                    cfg: Any = None) -> Tuple[Any, Optional[Dict]]:
     """Load ``directory/name`` (or ``directory`` itself when it is the
     checkpoint) and its meta. With ``target`` (a ``TrainState``) the state
     dicts are loaded into it and it is returned; else the dict of state
     dicts, its tensors on the CPU. A JAX package's Orbax checkpoint gives
-    its tree of numpy arrays, and refuses a ``target``."""
+    its tree of numpy arrays; into a ``target`` it loads through
+    ``load_jax_train_state``, which needs the run's ``TrainConfig`` as
+    ``cfg`` (its optimizer and ``update_every`` must match the state's)."""
     path, directory, name = resolve_checkpoint(directory, name)
-    if is_orbax_checkpoint(path):
-        if target is not None:
-            raise ValueError(f"{path}: a JAX package's checkpoint does not load into a "
-                             f"TrainState (optax's optimizer state; ROADMAP C3)")
+    jax_tree = is_orbax_checkpoint(path)
+    if jax_tree:
+        if target is not None and cfg is None:
+            raise ValueError(f"{path}: a JAX package's train state loads into a TrainState "
+                             f"with the run's TrainConfig (cfg=)")
         tree = read_orbax(path)
     else:
         tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
@@ -109,8 +130,11 @@ def load_checkpoint(directory: str, name: str = "latest", target: Any = None
             meta = json.load(f)
     if target is None:
         return tree, meta
+    if jax_tree:
+        return load_jax_train_state(target, tree, cfg), meta
     target.model.load_state_dict(tree["model"])
     target.optimizer.load_state_dict(tree["optimizer"])
     target.scheduler.load_state_dict(tree["scheduler"])
     target.step = int(tree["step"])
+    set_pending_gradients(target, tree.get("pending", {}), tree.get("micro", 0))
     return target, meta

@@ -248,20 +248,6 @@ def test_bench_train_tiny(capsys):
     assert "tuples/s=" in out and "resnet18+gem" in out
 
 
-@pytest.mark.parametrize("argv,label", [
-    (["train", "--resume", "{orbax}", "--out-dir", "{out}", "--synthetic"], "ROADMAP C3"),
-], ids=["orbax"])
-def test_not_yet_ported_returns_2(argv, label, tmp_path, capsys):
-    orbax = tmp_path / "orbax_ckpt"
-    (orbax / "latest").mkdir(parents=True)
-    (orbax / "latest" / "_CHECKPOINT_METADATA").write_text("{}")  # marks an Orbax directory
-    argv = [a.replace("{orbax}", str(orbax)).replace("{out}", str(tmp_path / "out"))
-            for a in argv]
-    assert main(argv + ["--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and label in err
-
-
 def test_train_refuses_network(tmp_path, capsys):
     """The JAX trainer takes --network and ignores it; the port refuses it."""
     assert main(["train", "--network", "fake-net", "--out-dir", str(tmp_path), "--synthetic",

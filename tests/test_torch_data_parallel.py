@@ -14,7 +14,12 @@ JAX package's references, while the workers run:
       tensor's max and the parameters after the update within 1e-6 of max;
       masked u8 tuples with the kernel head, unmasked f32 with the plain
       head, and ``update_every=2``; and the loss of the step without a mesh
-      (``F.batch_norm``) within 1e-5. Each update starts from the
+      (``F.batch_norm``) within 1e-5. With ``update_every=2`` each pending
+      micro-batch is saved and loaded back as a resumed run does
+      (``pending_gradients`` over the mesh's data group, ``set_pending_gradients``
+      in every process): the group's values within the gradient bound of
+      the one-process pending sum, and the update it completes held as
+      above. Each update starts from the
       one-process weights (and statistics), each side keeping its own
       optimizer state: after one update the two sides' weights differ in
       their last bits (the gradients are summed in another order), and at
@@ -159,6 +164,8 @@ def _train_case(name, arch, dtype, use_kernel, u8, update_every, sd, mesh, alone
     from image_retrieval_for_image_based_localization_tpu_torch.training.trainer import (
         create_train_state,
         make_train_step,
+        pending_gradients,
+        set_pending_gradients,
     )
 
     cfg = _train_cfg(update_every)
@@ -173,7 +180,7 @@ def _train_case(name, arch, dtype, use_kernel, u8, update_every, sd, mesh, alone
         steps.append(make_train_step(model, cfg, mesh=m, from_u8=u8))
     one, dp, plain = states
     rec = {"loss_one": [], "loss_dp": [], "loss_no_mesh": [], "grad": [], "stats": [],
-           "params": [], "applied": 0}
+           "params": [], "pending": [], "applied": 0}
     for i in range(2 * update_every):
         if dp.micro == 0:  # each update starts from the one-process weights
             dp.model.load_state_dict(one.model.state_dict())
@@ -187,6 +194,10 @@ def _train_case(name, arch, dtype, use_kernel, u8, update_every, sd, mesh, alone
         rec["loss_dp"].append(float(steps[1](dp, *args)[1]))
         _, loss = steps[2](plain, *args)
         rec["loss_no_mesh"].append(float(loss))
+        if dp.micro:  # a pending update, saved and loaded back as a resumed run does
+            pending = pending_gradients(dp, mesh)
+            rec["pending"].append(_worst(pending, pending_gradients(one), grad_rel, GRAD_ATOL))
+            set_pending_gradients(dp, pending, dp.micro)
         if dp.micro == 0:  # an applied update: its gradients, statistics, weights
             rec["applied"] += 1
             gw = {n: p.grad for n, p in one.model.named_parameters() if p.grad is not None}
@@ -529,6 +540,8 @@ def test_data_parallel_train_step_matches_one_process(runs, case):
     for rec in recs:
         r = rec["train"][case]
         assert r["applied"] == 2 and r["steps"][0] == r["steps"][1]
+        assert len(r["pending"]) == (2 if "update-every-2" in case else 0)
+        assert max(r["pending"], default=0.0) <= 1.0, r
         np.testing.assert_allclose(r["loss_dp"], r["loss_one"], rtol=LOSS_REL)
         # the step without a mesh (F.batch_norm's statistics) gives the loss too
         np.testing.assert_allclose(r["loss_no_mesh"], r["loss_one"],

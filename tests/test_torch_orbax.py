@@ -21,7 +21,8 @@ Held here:
   type, a failed build of the decoder;
 - the CLI: ``extract`` and ``evaluate --checkpoint <JAX run dir>`` against
   the JAX CLI on the same directory, and ``train --resume <JAX run dir>``
-  returning 2.
+  training on from the JAX run's epoch (tests/test_torch_resume.py holds
+  that resume against the JAX package's own).
 """
 
 import json
@@ -460,12 +461,18 @@ def test_cli_evaluate_from_a_jax_run_matches_the_jax_cli(small_ds, tmp_path):
         assert p["results"][proto]["map"] == pytest.approx(j["results"][proto]["map"], abs=1e-12)
 
 
-def test_train_resume_of_a_jax_run_returns_2(ckpts, tmp_path, capsys):
+def test_train_resume_of_a_jax_run_trains(ckpts, tmp_path):
     run, _ = ckpts["train_state"]
-    assert main(["train", "--resume", run, "--out-dir", str(tmp_path / "out"), "--synthetic",
-                 "--arch", "squeezenet1_1", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP C3" in err
-    # the run's tree itself reads (its weights serve --checkpoint)
-    tree, meta = load_checkpoint(run, name="latest")
-    assert meta["epoch"] == 0 and tree["opt_state"][0] is None
+    out = tmp_path / "out"
+    assert main(["train", "--resume", run, "--out-dir", str(out), "--synthetic",
+                 "--arch", "squeezenet1_1", "--image-size", "64", "--epochs", "2",
+                 "--synth-scenes", "4", "--synth-views", "3", "--qsize", "4", "--n-neg", "1",
+                 "--batch-tuples", "2", "--data-root", str(tmp_path / "data"),
+                 "--device", "cpu"]) == 0
+    with open(out / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["start_epoch"] for r in recs if r.get("event") == "resumed"] == [1]
+    assert [r["epoch"] for r in recs if "train_loss" in r] == [1]
+    # the run's own checkpoint is now this package's, two steps past the JAX state's
+    tree, meta = load_checkpoint(str(out), name="latest")
+    assert meta["epoch"] == 1 and tree["step"] == 2 and tree["micro"] == 0

@@ -125,7 +125,8 @@ def test_checkpoint_round_trip_best_and_checkpoint_dir(tmp_path):
             state.optimizer.state_dict()["state"].keys()
         assert got.scheduler.last_epoch == state.scheduler.last_epoch == 1
     tree, _ = load_checkpoint(str(tmp_path))
-    assert set(tree) == {"model", "optimizer", "scheduler", "step"}
+    assert set(tree) == {"model", "optimizer", "scheduler", "step", "micro", "pending"}
+    assert tree["micro"] == 0 and tree["pending"] == {}  # no accumulation pending
     assert not torch.equal(fresh.model.features.conv1.weight,
                            tree["model"]["features.conv1.weight"])
 
