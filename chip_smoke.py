@@ -25,9 +25,12 @@ Phases (any failure exits non-zero):
        100,000 x 2048, f32 and bf16), and the exact long-shortlist search
        (blockmax_topk_search, knn_search) at k=200 and 1000, with planted
        duplicate rows; the two kernels' scores bit for bit against each
-       other (they share one mainloop), and both at ragged shapes (Nq 1,
-       20, 257 x Ng 1, 63, 65, 100,003 x D 2048, 4096, 100, 37, f32 and
-       bf16, plus galleries that are not 16-byte aligned);
+       other (they share one mainloop), 20 queries alone (the small-batch
+       form, csrc/narrow_tile.cuh) bit for bit against the same queries in
+       the 256-query batch (the 128-row form), and both kernels at ragged
+       shapes (Nq 1, 2, 7, 8, 9, 16, 17, 20, 24, 31, 32, 33, 64, 65, 257 x Ng 1, 63,
+       65, 100,003 x D 2048, 4096, 100, 37, f32 and bf16, plus galleries
+       that are not 16-byte aligned);
      - adc_scores bit for bit at 256 queries x 100,000 codes x M=64, 64 x
        10,000 x M=256 (many LUT slices) and 33 x 5,003 x M=16 (queries and
        rows ragged against the kernel's groups), planted duplicate code
@@ -221,7 +224,9 @@ Phases (any failure exits non-zero):
        epoch with --pallas on the card and resumes that directory once
        more: rc 0 twice, resumed at epoch 1, B1 and B3 launched, a
        port-format latest whose step is the fixture's plus the epoch's
-       micro-batches, the train steps' p50 and the second run's idle share;
+       micro-batches, the fixture's Orbax latest kept as latest.orbax after
+       each resume (leaf for leaf, with its meta: ROADMAP C17), the train
+       steps' p50 and the second run's idle share;
   5. timings (CUDA events, median of 20, through the wrapper; for gem_l2n,
      netvlad and adc_scores also the kernel's device time from torch.profiler
      (netvlad: the kernels its entry launches, summed), and
@@ -230,6 +235,11 @@ Phases (any failure exits non-zero):
      whose C % 4 != 0 takes the kernel's scalar path, and at C = 16,384,
      two chunks of channels, with its plain version's time), and
      fused_topk's q/s at 1, 32 and 256 queries beside torch.topk(q @ g.T);
+     the two exact-search kernels also at path E's 20 x 100k f32, at path
+     C's 20 x 1M bf16 (after path C) and fused_topk at path G's one query
+     (in path G), each with the 128-row form's time on the same inputs
+     beside the small-batch form's (``wide_ms``), and the small-batch
+     launches in the kernels line (``narrow_launches``);
      the bottleneck at each block shape and summed over resnet50's 12
      stride-1 blocks at the 1024 px bucket, beside three cuDNN convs; its
      bf16 form at the same shapes and summed over resnet101's 29 stride-1
@@ -762,6 +772,21 @@ def _plain_topk(g, q, k):
     return top[:, :k], idx[:, :k].to(torch.int32)
 
 
+@contextlib.contextmanager
+def search_form(max_nq):
+    """Both exact-search kernels take the small-batch form up to ``max_nq``
+    queries inside (0: the 128-row form always); for timing the two forms
+    on the same inputs."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import fused_topk
+
+    saved = fused_topk.NARROW_MAX_NQ
+    fused_topk.NARROW_MAX_NQ = max_nq
+    try:
+        yield
+    finally:
+        fused_topk.NARROW_MAX_NQ = saved
+
+
 def check_long_topk(dev):
     """Exact search with k > 128 against the plain stable sort."""
     import torch
@@ -793,27 +818,50 @@ def check_long_topk(dev):
 def check_search_bitwise(dev):
     """Both exact-search kernels run one mainloop (csrc/sgemm_tile.cuh): at
     the search shape every score fused_topk_search returns must equal
-    scores_blockmax's at the same (query, row) bit for bit."""
+    scores_blockmax's at the same (query, row) bit for bit. The small-batch
+    form (csrc/narrow_tile.cuh) keeps the same fmaf chain: the first 20
+    queries alone (a 24-row tile) give, in both kernels, the bits they get
+    inside the 256-query batch (128-row tiles), indices included."""
     import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         fused_topk_search,
         scores_blockmax,
     )
 
+    def narrow_launch_counts():
+        c = kernels.launch_counts()
+        return {n: c[f"{n}_narrow"] for n in ("fused_topk_search", "scores_blockmax")}
+
     for dtype in (torch.float32, torch.bfloat16):
         g, q, _ = _topk_inputs(dev, dtype)
         s, i = fused_topk_search(g, q, 100)
-        full, _ = scores_blockmax(g, q.to(dtype).float())
+        qr = q.to(dtype).float()
+        full, _ = scores_blockmax(g, qr)
         same = torch.equal(s, torch.gather(full, 1, i.long()))
+        before = narrow_launch_counts()
+        s20, i20 = fused_topk_search(g, q[:20].contiguous(), 100)
+        full20, _ = scores_blockmax(g, qr[:20].contiguous())
+        after = narrow_launch_counts()
+        narrow = all(after[n] == before[n] + 1 for n in after)
+        same20 = (torch.equal(s20, s[:20]) and torch.equal(i20, i[:20])
+                  and torch.equal(full20, full[:20]))
         log(f"[check] fused_topk vs scores_blockmax {dtype} {tuple(q.shape)} x {tuple(g.shape)} "
-            f"k=100: scores bit-equal {same}")
+            f"k=100: scores bit-equal {same}; 20 queries alone (small-batch form {narrow}) vs "
+            f"the same in the 256-query batch (128-row form): scores, indices and score "
+            f"matrix bit-equal {same20}")
         if not same:
             raise AssertionError(f"fused_topk and scores_blockmax disagree in bits ({dtype})")
-        del full
+        if not (narrow and same20):
+            raise AssertionError(f"the small-batch form disagrees in bits with the 128-row "
+                                 f"form ({dtype}; small-batch launched {narrow})")
+        del full, full20
 
 
-# ragged search shapes; every combination runs in f32 and bf16
-RAGGED_NQ = (1, 20, 257)
+# ragged search shapes; every combination runs in f32 and bf16 (Nq up to
+# NARROW_MAX_NQ in the small-batch form: each of its widths, and either side
+# of each step of 8)
+RAGGED_NQ = (1, 20, 257, 2, 7, 8, 9, 16, 17, 24, 31, 32, 33, 64, 65)
 RAGGED_NG = (1, 63, 65, 100_003)
 RAGGED_D = (2048, 4096, 100, 37)
 
@@ -1564,14 +1612,16 @@ BF16_BYTES = 2
 RANK_TIE_TOL = 1e-6  # scores this close may order differently in two GEMM shapes
 
 
-def _bf16_row(name, ms, plain_ms, byts, flops, library_ms, err, shape):
+def _bf16_row(name, ms, plain_ms, byts, flops, library_ms, err, shape, **extra):
     """A bf16 timing at path C's own shape: bound from the bf16 bytes (HBM)
-    and the flop at the f32 FMA rate, as the f32 rows count them."""
+    and the flop at the f32 FMA rate, as the f32 rows count them; ``extra``
+    (the exact-search kernels: ``wide_ms``, the 128-row form's time on the
+    same inputs) goes into the row."""
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     r = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
-         "max_abs_err": err}
+         "max_abs_err": err, **extra}
     log(json.dumps({"kernel_timing_bf16": dict(r, name=name)}))
     return r
 
@@ -1643,12 +1693,16 @@ def _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store):
         raise AssertionError("scores_blockmax bf16 disagrees with its plain version on path C")
     del s, ps, bmax
     ng_pad = -(-Ng // 64) * 64
+    with search_form(0):  # the 128-row form on the same inputs: the earlier time
+        wide_sb = time_ms(lambda: scores_blockmax(gallery, q), reps=5)
+        wide_ft = time_ms(lambda: fused_topk_search(gallery, q, 20), reps=5)
     out["scores_blockmax"] = _bf16_row(
         "scores_blockmax", time_ms(lambda: scores_blockmax(gallery, q), reps=10),
         time_ms(lambda: scores_blockmax_plain(gallery, q), reps=5),
         Ng * D * BF16_BYTES + Nq * D * 4 + Nq * ng_pad * 4 + Nq * (ng_pad // 64) * 4,
         2 * Nq * Ng * D, time_ms(lambda: q_store @ gallery.T, reps=10), e_sb,
-        f"{Nq} x {Ng} x {D} bf16 (library: q @ g.T in bf16, bf16 out)")
+        f"{Nq} x {Ng} x {D} bf16 (library: q @ g.T in bf16, bf16 out)",
+        wide_ms=wide_sb)
     torch.cuda.empty_cache()
     errs = []
     for k in (20, 100):
@@ -1667,7 +1721,7 @@ def _check_kernels_bf16(dev, ex, images, q_pixels, gallery, q_store):
         Ng * D * BF16_BYTES + Nq * D * 4 + Nq * 20 * 8, 2 * Nq * Ng * D,
         time_ms(lambda: torch.topk(q_store @ gallery.T, 20, dim=1), reps=10), max(errs),
         f"{Nq} x {Ng} x {D} bf16, k=20 (checked at k=20 and 100; library: "
-        f"torch.topk(q @ g.T) in bf16)")
+        f"torch.topk(q @ g.T) in bf16)", wide_ms=wide_ft)
     torch.cuda.empty_cache()
     return out
 
@@ -1790,6 +1844,9 @@ def config5_phase(dev):
                      "fused_topk_search"):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the config 5 path")
+        if launches["fused_topk_search_narrow"] <= 0:
+            raise AssertionError("config 5's 20-query search did not take fused_topk's "
+                                 "small-batch form")
         recs = [json.loads(line) for line in open(os.path.join(tmp, "config5.jsonl"))]
         timed = next(r for r in recs if "queries_per_sec" in r)
         art = next(r for r in recs if r.get("event") == "index_artifact")
@@ -2614,11 +2671,14 @@ def _uncounted():
     from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
 
     saved = {fn: fn.launches for fn in kernels.KERNELS}
+    narrow = {fn: fn.narrow_launches for fn in kernels.SEARCH_KERNELS}
     try:
         yield
     finally:
         for fn, n in saved.items():
             fn.launches = n
+        for fn, n in narrow.items():
+            fn.narrow_launches = n
 
 
 def serving_phase(dev, e, ann, qd, q_u8):
@@ -2934,6 +2994,9 @@ def serving_phase(dev, e, ann, qd, q_u8):
     for name in ("gem_l2n_fused_rect", "scores_blockmax", "fused_topk_search", "adc_scores"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
+    if launches["fused_topk_search_narrow"] <= 0:
+        raise AssertionError("serving's one-query /query did not take fused_topk's "
+                             "small-batch form")
 
     # where one /extract_query's time goes: its stages on one image, each
     # ended by a synchronize, host clock, median of 5
@@ -2972,7 +3035,9 @@ def serving_phase(dev, e, ann, qd, q_u8):
                                     bi.cpu().numpy())
     t_bytes = (g.numel() + q1.numel() + 2 * 128) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * g.numel() / F32_FLOP_PER_S * 1e3
-    nq1 = {"ms": time_ms(lambda: fused_topk_search(g, q1, 128)),
+    with search_form(0):  # the 128-row form on the same query: the earlier time
+        wide_ms = time_ms(lambda: fused_topk_search(g, q1, 128))
+    nq1 = {"ms": time_ms(lambda: fused_topk_search(g, q1, 128)), "wide_ms": wide_ms,
            "plain_ms": time_ms(lambda: fused_topk_plain(g, q1, 128)),
            "library_ms": time_ms(lambda: torch.topk(q1 @ g.T, 128, dim=1)),
            "bound_ms": max(t_bytes, t_ops),
@@ -2996,7 +3061,8 @@ def serving_phase(dev, e, ann, qd, q_u8):
         e_gem = (gem_l2n_fused_rect(feats, pgem, fsz)
                  - gem_l2n_plain(feats, pgem, fsz)).abs().max().item()
     log(f"[serving] kernels at path G's shapes: fused_topk {nq1['shape']} max|err| {e_topk:.3e}"
-        f" (indices agree {same_i}), kernel {nq1['ms']:.4f} ms, plain {nq1['plain_ms']:.4f} ms,"
+        f" (indices agree {same_i}), kernel {nq1['ms']:.4f} ms (128-row form "
+        f"{nq1['wide_ms']:.4f} ms), plain {nq1['plain_ms']:.4f} ms,"
         f" torch.topk(q @ g.T) {nq1['library_ms']:.4f} ms, bound {nq1['bound_ms']:.4f} ms; "
         f"scores_blockmax {tuple(q20.shape)} x {tuple(g.shape)} max|err| {e_sb:.3e}; "
         f"adc_scores {tuple(lut.shape)} x {tuple(codes.shape)} bit-equal {adc_same}; "
@@ -5123,6 +5189,31 @@ def _resume_steps(state, cfg):
     return losses, {n: p.detach().clone() for n, p in state.model.named_parameters()}
 
 
+def _jax_state_kept(fixture, run):
+    """After an in-place ``train --resume`` of the JAX run ``fixture`` in
+    ``run``: ``run/latest.orbax`` is the fixture's Orbax ``latest``, every
+    leaf bit for bit as the port's reader reads both, and its meta is the
+    fixture's (ROADMAP C17: the JAX package restores it by that name)."""
+    from image_retrieval_for_image_based_localization_tpu_torch.utils.orbax import (
+        is_orbax_checkpoint,
+        read_orbax,
+    )
+
+    aside = os.path.join(run, "latest.orbax")
+    if not is_orbax_checkpoint(aside):
+        return False
+    got = flat_tree(read_orbax(aside))
+    want = flat_tree(read_orbax(os.path.join(fixture, "latest")))
+    with open(os.path.join(fixture, "latest.meta.json")) as f, \
+            open(aside + ".meta.json") as g:
+        same_meta = json.load(f) == json.load(g)
+    return same_meta and set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and (got[k].dtype == object and repr(got[k]) == repr(want[k])
+             or got[k].dtype != object and got[k].tobytes() == want[k].tobytes())
+        for k in want)
+
+
 def resume_phase(dev, smi, main_d=None):
     """Path N: the JAX package's run directory RESUME_FIXTURE resumed by the
     port on the card. N1 (:func:`resume_n1`) loads its latest bit for bit.
@@ -5136,8 +5227,10 @@ def resume_phase(dev, smi, main_d=None):
     ``cli train --resume <a copy> --epochs 2 --pallas --device cuda`` on
     RESUME_RUN's pool: rc 0, ``resumed`` at epoch 1, B1 and B3 launched, a
     port-format latest at epoch 1 whose step is the fixture's plus the
-    epoch's micro-batches, and a second --resume of that directory for one
-    more epoch (profiled: its idle share), rc 0; the train steps' p50."""
+    epoch's micro-batches, the fixture's Orbax latest kept beside it as
+    latest.orbax (leaf for leaf, with its meta), and a second --resume of
+    that directory for one more epoch (profiled: its idle share), rc 0,
+    latest.orbax still the fixture's; the train steps' p50."""
     import math
     import shutil
     import tempfile
@@ -5212,11 +5305,13 @@ def resume_phase(dev, smi, main_d=None):
                 launches_n3 = kernels.launch_counts()
                 ckpt, meta = load_checkpoint(run)
                 jax_format = is_jax_checkpoint(run)
+                kept = [_jax_state_kept(fixture, run)]  # C17: latest.orbax
                 with open(os.path.join(run, "metrics.jsonl")) as f:
                     recs = [json.loads(line) for line in f]
                 rc2 = []
                 prof = profile_window(lambda: rc2.append(cli.main(argv + ["--epochs", "3"])))
                 ckpt2, meta2 = load_checkpoint(run)
+                kept.append(_jax_state_kept(fixture, run))
             finally:
                 loop.make_train_step = real_step
     finally:
@@ -5284,6 +5379,7 @@ def resume_phase(dev, smi, main_d=None):
                   "resumed_start_epoch": resumed, "epoch_steps": epoch_steps,
                   "step": [jax_step, ckpt["step"], ckpt2["step"]],
                   "epoch": [meta["epoch"], meta2["epoch"]], "latest_port_format": not jax_format,
+                  "jax_latest_kept_as_latest_orbax": kept,
                   "step_ms_p50": p50, "steps_timed": len(step_ms),
                   "idle_share_second_resume": prof["idle_share"], "launches": launches_n3,
                   "path_d_step_p50_ms": d_p50, "path_d_idle_share": d_idle}}
@@ -5299,7 +5395,9 @@ def resume_phase(dev, smi, main_d=None):
     log(f"[resume N3] cli train --resume <copy of {RESUME_FIXTURE}> --epochs 2 --pallas "
         f"--device cuda: rc {rc1}, {n3_s:.2f} s, resumed at epoch {resumed}, micro-batches an "
         f"epoch {epoch_steps}, step {jax_step} -> {ckpt['step']} (epoch {meta['epoch']}, "
-        f"this package's format: {not jax_format}), B1 {launches_n3['gem_l2n_fused_rect']} "
+        f"this package's format: {not jax_format}; the JAX latest kept as latest.orbax, "
+        f"leaf for leaf with its meta, after each resume: {kept}), "
+        f"B1 {launches_n3['gem_l2n_fused_rect']} "
         f"B3 {launches_n3['scores_blockmax']} launches; a second --resume to 3 epochs: rc "
         f"{rc2}, step {ckpt2['step']}; train step p50 {p50 if p50 is None else round(p50, 3)} "
         f"ms over {len(step_ms)} steps ({RESUME_RUN['batch_tuples']} tuples x "
@@ -5319,6 +5417,8 @@ def resume_phase(dev, smi, main_d=None):
     if resumed[:1] != [1] or meta["epoch"] != 1 or meta2["epoch"] != 2 or jax_format:
         failed.append(f"N3 resumed {resumed}, epochs {meta['epoch']}, {meta2['epoch']}, "
                       f"JAX format {jax_format}")
+    if kept != [True, True]:
+        failed.append(f"N3 the JAX latest not kept as latest.orbax after each resume: {kept}")
     if ckpt["step"] != jax_step + epoch_steps[0]:
         failed.append(f"N3 step {ckpt['step']} != {jax_step} + {epoch_steps[0]}")
     if launches_n3["gem_l2n_fused_rect"] < 1 or launches_n3["scores_blockmax"] < 1:
@@ -5348,6 +5448,48 @@ def cudnn_bf16_bottleneck(x, w1, b1, w2, b2, w3, b3):
         return torch.relu(torch.nn.functional.conv2d(y, lw[2], lb[2]) + xc)
 
     return library
+
+
+def _nq20_cells(g, q, k):
+    """Rows 3-4 at path E's shape (20 queries over the 100k x 2048 f32
+    gallery): the small-batch form, the 128-row form on the same inputs, the
+    plain version, the one-call library yardstick, and the bound (f32 FMA
+    work or bytes), each kernel checked against its plain version first."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        fused_topk_plain,
+        fused_topk_search,
+        scores_blockmax,
+        scores_blockmax_plain,
+    )
+
+    Nq, D = q.shape
+    Ng = g.shape[0]
+    ng_pad = -(-Ng // 64) * 64
+    s, _ = scores_blockmax(g, q)
+    e_sb = (s[:, :Ng] - scores_blockmax_plain(g, q)[0][:, :Ng]).abs().max().item()
+    ok_ft, e_ft = _check_search_case(*fused_topk_search(g, q, k), *fused_topk_plain(g, q, k))
+    if e_sb > TOPK_TOL or not ok_ft:
+        raise AssertionError(f"a search kernel disagrees with its plain version at {Nq} x "
+                             f"{Ng} x {D} f32 (scores_blockmax {e_sb:.3e}, fused_topk {e_ft:.3e})")
+    out = {}
+    for name, fn, plain, lib, byts in (
+            ("scores_blockmax", lambda: scores_blockmax(g, q), lambda: scores_blockmax_plain(g, q),
+             lambda: q @ g.T, Ng * D * 4 + Nq * D * 4 + Nq * ng_pad * 4 + Nq * ng_pad // 64 * 4),
+            ("fused_topk_search", lambda: fused_topk_search(g, q, k),
+             lambda: fused_topk_plain(g, q, k), lambda: torch.topk(q @ g.T, k, dim=1),
+             Ng * D * 4 + Nq * D * 4 + Nq * k * 8)):
+        t_bytes = byts / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * Nq * Ng * D / F32_FLOP_PER_S * 1e3
+        with search_form(0):
+            wide = time_ms(fn)
+        out[name] = {"shape": f"{Nq} x {Ng} x {D} f32" + (f", k={k}" if "topk" in name else ""),
+                     "ms": time_ms(fn), "wide_ms": wide, "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(lib), "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "max_abs_err": e_sb if name == "scores_blockmax" else e_ft}
+        log(f"[timing] {name} at path E's shape: {json.dumps(out[name])}")
+    return out
 
 
 def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
@@ -5390,6 +5532,8 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
                     3 * tf32x3_flops / TF32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S) * 1e3
         r = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
              "launches": launches[name],
+             **({"narrow_launches": launches[f"{name}_narrow"]}
+                if f"{name}_narrow" in launches else {}),
              "max_abs_err": errs[name], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -5485,6 +5629,8 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
         Ng * D * 4 + Nq * D * 4 + Nq * k * 8, 2 * Nq * Ng * D, lib_ms)
     log(f"[timing] fused_topk at {Nq} x {Ng} x {D} f32 k={k}: "
         f"{Nq / rows[-1]['ms'] * 1e3:.1f} q/s")
+    nq20 = _nq20_cells(g, q[:20].contiguous(), k)
+    rows[-1]["nq20_f32"] = nq20["fused_topk_search"]
     # serving batches are small: q/s at a few batch sizes, the kernel beside
     # its one-call yardstick
     for nq in (1, 32, 256):
@@ -5527,6 +5673,7 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
         time_ms(lambda: scores_blockmax_plain(g, q)),
         Ng * D * 4 + Nq * D * 4 + Nq * ng_pad * 4 + Nq * (ng_pad // 64) * 4,
         2 * Nq * Ng * D, time_ms(lambda: q @ g.T))
+    rows[-1]["nq20_f32"] = nq20["scores_blockmax"]
     search_ms = time_ms(lambda: blockmax_topk_search(g, q, 1000))
     log(f"[timing] blockmax_topk_search at {Nq} x {Ng} x {D} f32 k=1000: {search_ms:.3f} ms "
         f"({Nq / search_ms * 1e3:.1f} q/s), of which scores_blockmax {rows[-1]['ms']:.3f} ms "

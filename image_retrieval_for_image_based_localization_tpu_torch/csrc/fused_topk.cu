@@ -64,11 +64,33 @@
 // log): 127-128 a thread under the cap of __launch_bounds__(512, 1), no
 // spills; pass 2 48.
 //
+// The small-batch form (topk_split_narrow), pass 1 for query tiles of 8,
+// 16, 24 or 32 rows (the wrapper's plan, ops/kernels/fused_topk.py::_plan):
+// at serving's one query 127 of the 128-row tile's rows were zero fill, at
+// config 5's 20 queries 108, and their FMAs still ran. Its mainloop is
+// csrc/narrow_tile.cuh (1,024-row gallery tiles streamed by TMA, every score
+// the same fmaf chain as above, so the forms give the same bits). There a
+// warp holds 128 rows of a tile against every query of the tile, so a
+// query's scores lie in all eight consumer warps and the half-warp rule
+// above does not hold. Selection stays within each warp and off the block's
+// barriers all the same: the block keeps one sorted list a query in shared
+// memory, and a warp merges its own candidates for query q (those that beat
+// q's k-th entry) into q's list under a lock of that list, packed into its
+// low lanes 32 at a time through warp_merge, or, when there are a few, one
+// insertion each (after a split's first tile nearly every merge is so);
+// warps that meet at a list wait for it alone, and a
+// warp whose rows hold no candidate for q never takes q's lock. A warp
+// reads q's k-th entry for its filter as one 64-bit word that the list's
+// last writer stores, so the filter never sees half of an update; entries
+// only improve, so a stale one filters less, never wrongly. Pass 2 is the
+// same merge of the splits' lists.
+//
 // Each entry returns cudaGetLastError() after its launches.
 
 #include <float.h>
 #include <stdint.h>
 
+#include "narrow_tile.cuh"
 #include "sgemm_tile.cuh"
 
 #define KMAX 128       // largest k
@@ -347,6 +369,178 @@ topk_split_kernel(const float* __restrict__ Q, const T* __restrict__ G,
   }
 }
 
+// (score, index) as one 64-bit word: the filter of the small-batch form
+// reads a list's k-th entry in one load
+__device__ __forceinline__ unsigned long long pack_entry(float v, int i) {
+  return (unsigned long long)__float_as_uint(v) | ((unsigned long long)(unsigned)i << 32);
+}
+
+// Insert one candidate (v, i), which beats the list's k-th entry, into the
+// sorted list (lv, li) of length k: the entries that beat it are a prefix,
+// the rest move down one place. The whole warp calls it.
+__device__ __forceinline__ void insert_one(float* lv, int* li, int k, float v, int i,
+                                           int lane) {
+  float tv[KMAX / 32];
+  int ti[KMAX / 32];
+  int pos = 0;
+#pragma unroll
+  for (int r = 0; r < KMAX / 32; ++r) {
+    const int s = lane + 32 * r;
+    tv[r] = s < k ? lv[s] : -FLT_MAX;
+    ti[r] = s < k ? li[s] : INT32_MAX;
+    pos += __popc(__ballot_sync(FULL, s < k && beats(tv[r], ti[r], v, i)));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < KMAX / 32; ++r) {
+    const int s = lane + 32 * r;
+    if (s >= pos && s + 1 < k) {
+      lv[s + 1] = tv[r];
+      li[s + 1] = ti[r];
+    }
+  }
+  if (lane == 0) {
+    lv[pos] = v;
+    li[pos] = i;
+  }
+  __syncwarp();
+}
+
+#define FEW 8  // up to this many candidates are inserted one by one
+
+// Merge a warp's candidates for one query into its list (lv, li) under the
+// list's lock: lane l offers row g + 32 j with score v_j where bit j of
+// `want` is set (want is 0 where the lane has none). Of the candidates that
+// still beat the list's k-th entry, of all four rows, a few (at most FEW:
+// the usual case once a split's first tile is in) are inserted one by one
+// without a sort; more are packed into the low lanes 32 at a time (row by
+// row, lane by lane), so warp_merge sorts only as many lanes as there are
+// candidates. Then the list's k-th entry goes to *thr in one store. Not inlined:
+// the caller unrolls its loop over the queries, and a copy of warp_merge a
+// query and a row would make the kernel many times larger.
+__device__ __noinline__ void merge_query(float* lv, int* li, int k, unsigned long long* thr,
+                                         int* lock, float v0, float v1, float v2, float v3,
+                                         int g, unsigned want, int lane) {
+  if (lane == 0) {
+    while (atomicCAS(lock, 0, 1) != 0) {
+    }
+  }
+  __syncwarp();
+  __threadfence_block();
+  const float kv = lv[k - 1];
+  const int ki = li[k - 1];
+  const float v[4] = {v0, v1, v2, v3};
+  unsigned m[4];
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m[j] = __ballot_sync(FULL, ((want >> j) & 1u) && beats(v[j], g + 32 * j, kv, ki));
+    n += __popc(m[j]);
+  }
+  // candidate c (0 <= c < n): its row j, the lane holding it, its score
+  auto fetch = [&](int c, float& pv, int& pi) {
+    int j = 0;
+    while (c >= __popc(m[j])) c -= __popc(m[j++]);
+    const int src = (int)__fns(m[j], 0, c + 1);
+    const float s0 = __shfl_sync(FULL, v[0], src), s1 = __shfl_sync(FULL, v[1], src);
+    const float s2 = __shfl_sync(FULL, v[2], src), s3 = __shfl_sync(FULL, v[3], src);
+    pv = j == 0 ? s0 : j == 1 ? s1 : j == 2 ? s2 : s3;
+    pi = g - lane + src + 32 * j;  // g is this lane's row of j = 0
+  };
+  if (n <= FEW) {  // one insertion each, while it still beats the k-th entry
+#pragma unroll 1
+    for (int c = 0; c < n; ++c) {
+      float pv;
+      int pi;
+      fetch(c, pv, pi);
+      if (beats(pv, pi, lv[k - 1], li[k - 1])) insert_one(lv, li, k, pv, pi, lane);
+    }
+  } else {  // lane l takes candidate b + l
+#pragma unroll 1
+    for (int b = 0; b < n; b += 32) {
+      float pv;
+      int pi;
+      fetch(min(b + lane, n - 1), pv, pi);
+      warp_merge(lv, li, k, pv, pi, b + lane < n, lane);
+    }
+  }
+  if (lane == 0) {
+    *reinterpret_cast<volatile unsigned long long*>(thr) = pack_entry(lv[k - 1], li[k - 1]);
+  }
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) atomicExch(lock, 0);
+}
+
+// Pass 1 of the small-batch form: the tiles of one split against a query
+// tile of NQ rows, each query's running top-k in shared memory (see the
+// header). Warps 0-7 compute and select, warpgroup 2 streams the gallery.
+template <typename T, int NQ>
+__global__ void __launch_bounds__(narrow::THREADS, 1)
+topk_split_narrow(const __grid_constant__ CUtensorMap mg, const __grid_constant__ CUtensorMap mq,
+                  const float* __restrict__ Q, const T* __restrict__ G,
+                  float* __restrict__ part_v, int* __restrict__ part_i, int Nq, int Ng, int D,
+                  int k, int tma) {
+  extern __shared__ unsigned char dyn[];
+  const narrow::Ring ring(dyn);
+  float* lv = reinterpret_cast<float*>(ring.after());                    // [NQ][k]
+  int* li = reinterpret_cast<int*>(lv + NQ * k);                          // [NQ][k]
+  unsigned long long* thr = reinterpret_cast<unsigned long long*>(
+      (reinterpret_cast<uintptr_t>(li + NQ * k) + 7) & ~(uintptr_t)7);    // [NQ]: k-th entry
+  int* lock = reinterpret_cast<int*>(thr + NQ);                           // [NQ]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * NQ;
+  const int split = blockIdx.y;
+  int r0, r1;
+  narrow::split_rows(split, gridDim.y, Ng, r0, r1);
+  const int g_end = min(Ng, r1);
+  if (threadIdx.x == 0) ring.init(tma ? 1 : narrow::PRODUCERS);
+  if (warp < narrow::WARPS) {
+    for (int q = warp; q < NQ; q += narrow::WARPS) {
+      init_list(lv + q * k, li + q * k, k, lane);
+      if (lane == 0) {
+        thr[q] = pack_entry(lv[q * k + k - 1], li[q * k + k - 1]);
+        lock[q] = 0;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp >= narrow::WARPS) {
+    narrow::regs_dealloc<narrow::PRODUCER_REGS>();
+    narrow::produce<T, NQ>(tma, ring, &mg, &mq, Q, G, q0, r0, r1, Nq, Ng, D,
+                           threadIdx.x - narrow::WARPS * 32);
+    return;
+  }
+  narrow::regs_alloc<narrow::CONSUMER_REGS>();
+  narrow::consume<T, NQ>(ring, r0, r1, D, warp, lane, [&](int g0, float(&acc)[narrow::ROWS][NQ]) {
+    const int gw = g0 + narrow::tile_row(0, warp, lane);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (q0 + q >= Nq) break;
+      const unsigned long long th = *reinterpret_cast<volatile unsigned long long*>(thr + q);
+      const float thv = __uint_as_float((unsigned)th);
+      const int thi = (int)(th >> 32);
+      unsigned want = 0;
+#pragma unroll
+      for (int j = 0; j < narrow::ROWS; ++j) {
+        const int g = gw + j * 32;
+        if (g < g_end && beats(acc[j][q], g, thv, thi)) want |= 1u << j;
+      }
+      if (!__any_sync(FULL, want != 0)) continue;
+      merge_query(lv + q * k, li + q * k, k, thr + q, lock + q, acc[0][q], acc[1][q],
+                  acc[2][q], acc[3][q], gw, want, lane);
+    }
+  });
+  narrow::consumers_sync();
+  for (int q = warp; q < NQ && q0 + q < Nq; q += narrow::WARPS) {
+    const size_t base = ((size_t)(q0 + q) * gridDim.y + split) * k;
+    for (int e = lane; e < k; e += 32) {
+      part_v[base + e] = lv[q * k + e];
+      part_i[base + e] = li[q * k + e];
+    }
+  }
+}
+
 // Merge the sorted list (sv, si) of length k, best first, into the running
 // list (lv, li). A split with fewer than k rows left sentinels, which are
 // never results. Once no entry of a run of 32 beats the running k-th entry,
@@ -400,16 +594,50 @@ static int split_launch(dim3 grid, size_t smem, cudaStream_t s, const void* q, c
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of the small-batch pass 1: the ring, the lists,
+// the k-th entries (8-byte aligned) and the locks.
+static size_t narrow_smem_bytes(int nq, int k) {
+  return narrow::RING_BYTES + (size_t)nq * k * 8 + 8 + (size_t)nq * 12;
+}
+
+template <typename T, int NQ>
+static int narrow_launch(int n_splits, cudaStream_t s, const void* q, const void* g,
+                         void* part_v, void* part_i, int Nq, int Ng, int D, int k) {
+  const bool tma = narrow_host::tma_ok<T>(q, g, D);
+  CUtensorMap mg, mq;
+  if (!narrow_host::make_maps<T>(&mg, &mq, tma, q, g, Nq, Ng, D, NQ))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};  // set for the largest k
+  const cudaError_t err = narrow_host::allow_smem(
+      topk_split_narrow<T, NQ>, (int)narrow_smem_bytes(NQ, KMAX), smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = narrow_smem_bytes(NQ, k);
+  const dim3 grid((Nq + NQ - 1) / NQ, n_splits);
+  topk_split_narrow<T, NQ><<<grid, narrow::THREADS, smem, s>>>(
+      mg, mq, (const float*)q, (const T*)g, (float*)part_v, (int*)part_i, Nq, Ng, D, k,
+      (int)tma);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const void* q, const void* g, void* part_v, void* part_i,
                   void* out_v, void* out_i, int Nq, int Ng, int D, int k,
-                  int n_splits, void* stream) {
+                  int width, int n_splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((Nq + BM - 1) / BM, n_splits);
-  const size_t smem = split_smem_bytes(k);
-  const int err = sgemm::vec_ok<T>(q, g, D)
-      ? split_launch<T, true>(grid, smem, s, q, g, part_v, part_i, Nq, Ng, D, k)
-      : split_launch<T, false>(grid, smem, s, q, g, part_v, part_i, Nq, Ng, D, k);
+  int err;
+  switch (width) {
+    case 8: err = narrow_launch<T, 8>(n_splits, s, q, g, part_v, part_i, Nq, Ng, D, k); break;
+    case 16: err = narrow_launch<T, 16>(n_splits, s, q, g, part_v, part_i, Nq, Ng, D, k); break;
+    case 24: err = narrow_launch<T, 24>(n_splits, s, q, g, part_v, part_i, Nq, Ng, D, k); break;
+    case 32: err = narrow_launch<T, 32>(n_splits, s, q, g, part_v, part_i, Nq, Ng, D, k); break;
+    default: {
+      const dim3 grid((Nq + BM - 1) / BM, n_splits);
+      const size_t smem = split_smem_bytes(k);
+      err = sgemm::vec_ok<T>(q, g, D)
+          ? split_launch<T, true>(grid, smem, s, q, g, part_v, part_i, Nq, Ng, D, k)
+          : split_launch<T, false>(grid, smem, s, q, g, part_v, part_i, Nq, Ng, D, k);
+    }
+  }
   if (err != 0) return err;
   topk_merge_kernel<<<Nq, MERGE_WARPS * 32, 0, s>>>((const float*)part_v, (const int*)part_i,
                                                     (float*)out_v, (int*)out_i, n_splits, k);
@@ -419,22 +647,26 @@ static int launch(const void* q, const void* g, void* part_v, void* part_i,
 extern "C" {
 
 // queries: [Nq, D] f32 (already rounded to the gallery dtype),
-// gallery: [Ng, D] f32 (is_bf16 == 0) or bf16, 1 <= k <= min(128, Ng),
-// 1 <= n_splits <= ceil(Ng / 128), part_v/part_i: [Nq, n_splits, k] scratch,
-// out_v/out_i: [Nq, k].
+// gallery: [Ng, D] f32 (is_bf16 == 0) or bf16, 1 <= k <= min(128, Ng);
+// width: the query tile, 128 (the 128 x 128 form, 1 <= n_splits <=
+// ceil(Ng / 128)) or 8, 16, 24, 32 (the small-batch form, 1 <= n_splits <=
+// ceil(Ng / 256)); part_v/part_i: [Nq, n_splits, k] scratch, out_v/out_i:
+// [Nq, k].
 int fused_topk_forward(const void* queries, const void* gallery, void* part_v,
                        void* part_i, void* out_v, void* out_i, int Nq, int Ng,
-                       int D, int k, int n_splits, int is_bf16, void* stream) {
+                       int D, int k, int width, int n_splits, int is_bf16, void* stream) {
+  const bool narrow_w = width % 8 == 0 && width >= 8 && width <= narrow::MAX_NQ;
+  const int rows = narrow_w ? narrow::BOX_ROWS : BN;  // a split's unit
   if (Nq < 1 || Ng < 1 || D < 1 || k < 1 || k > KMAX || k > Ng || n_splits < 1 ||
-      n_splits > (Ng + BN - 1) / BN) {
+      n_splits > (Ng + rows - 1) / rows || !(width == BM || narrow_w)) {
     return (int)cudaErrorInvalidValue;
   }
   if (is_bf16) {
     return launch<__nv_bfloat16>(queries, gallery, part_v, part_i, out_v, out_i,
-                                 Nq, Ng, D, k, n_splits, stream);
+                                 Nq, Ng, D, k, width, n_splits, stream);
   }
   return launch<float>(queries, gallery, part_v, part_i, out_v, out_i, Nq, Ng, D,
-                       k, n_splits, stream);
+                       k, width, n_splits, stream);
 }
 
 }  // extern "C"

@@ -41,10 +41,19 @@ KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search, netvlad_fused_r
            netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused, bottleneck_fused_bf16)
 
 
+SEARCH_KERNELS = (fused_topk_search, scores_blockmax)  # also count their small-batch form
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in SEARCH_KERNELS:
+        fn.narrow_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Each kernel's launches by name, and for the exact-search kernels, as
+    ``<name>_narrow``, how many of them took the small-batch form."""
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts.update({f"{fn.__name__}_narrow": fn.narrow_launches for fn in SEARCH_KERNELS})
+    return counts

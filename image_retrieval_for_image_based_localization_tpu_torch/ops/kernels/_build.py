@@ -40,8 +40,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "fused_topk": {
         # queries, gallery, part_v, part_i, out_v, out_i, Nq, Ng, D, k,
-        # n_splits, is_bf16, stream
-        "fused_topk_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # width, n_splits, is_bf16, stream
+        "fused_topk_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "netvlad": {
         # x, w, bias, centroids, sizes, wt_hi, wt_lo, logits, a_hi, a_lo,
@@ -50,8 +50,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                             _I, _I, _I, _P),
     },
     "score_topk": {
-        # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, stream
-        "scores_blockmax_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, width,
+        # n_splits, stream
+        "scores_blockmax_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "adc": {
         # lut, codes, scores, bmax, nq, n, n_valid, M, n_pad, stream

@@ -5,10 +5,15 @@ The kernel is ``csrc/fused_topk.cu``: bound by its f32 FMA work, it scores
 128-row gallery tiles against a tile of 128 queries on the register-blocked
 mainloop of ``csrc/sgemm_tile.cuh`` and keeps each query's running top-k
 sorted in shared memory, taking only the scores that beat a query's k-th
-entry out of registers. The gallery is split into runs of whole tiles
-across blocks to fill the card (:func:`_plan`), and a second pass merges the
-splits' lists. Results follow the strict order (score desc, index asc),
-so ties go to the lower gallery index, as ``retrieval.knn`` promises.
+entry out of registers. Small batches (Nq up to :data:`NARROW_MAX_NQ`) take
+its small-batch form instead: a query tile of Nq rounded up to 8 (at most
+32) against 1,024-row gallery tiles streamed by TMA
+(``csrc/narrow_tile.cuh``), every score the same ``fmaf`` chain, so a query
+gets the same bits in either form. The gallery is split into runs of whole
+tiles (the small-batch form: of 256 rows) across blocks to fill the card
+(:func:`_plan`), and a second pass merges the splits' lists. Results follow the strict order (score desc,
+index asc), so ties go to the lower gallery index, as ``retrieval.knn``
+promises.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -17,7 +22,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,29 +31,61 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _
 LANES = 128   # largest k, as on the TPU
 _BM = 128     # queries per block of the first pass, csrc/sgemm_tile.cuh BM
 _BN = 128     # gallery rows per tile, csrc/sgemm_tile.cuh BN
+NARROW_WIDTHS = (8, 16, 24, 32)  # small-batch query tiles, csrc/narrow_tile.cuh MAX_NQ
+_NARROW_UNIT = 256  # gallery rows of a small-batch split's unit, csrc/narrow_tile.cuh BOX_ROWS
+# The cutover: up to this many queries take the small-batch form (query
+# tiles of min(32, Nq rounded up to 8)), above it the 128-row form. Where
+# it lies was measured (``tools/search_kernel_bench.py --small-batch``, an
+# H100 80GB HBM3 at 700 W, ms through the wrapper, small-batch against
+# 128-row): at 33 and 64 queries over 1M x 2048 bf16, scores_blockmax 6.02
+# and 5.95 against 11.47 and 11.29, fused_topk_search (k=100) 7.28 and 7.49
+# against 12.22 and 12.26; over 100k x 2048 f32, 0.954 and 0.990 against
+# 1.205 and 1.185, and 1.403 and 1.353 against 1.440 and 1.460. At 96 the
+# 100k f32 gallery went the other way (1.426 against 1.202, 1.901 against
+# 1.610), so the cutover stays at 64.
+NARROW_MAX_NQ = 64
 
 
-def _plan(nq: int, ng: int, sms: int) -> Tuple[int, int]:
-    """Grid of the first pass: ``(q_tiles, n_splits)``.
+class Plan(NamedTuple):
+    """A launch of either exact-search kernel: the query tile's rows
+    (``width``: 8, 16, 24, 32 for the small-batch form, 128 for the 128-row
+    form), query tiles, the gallery rows a split is made of whole runs of
+    (``split_rows``: 256, or the 128-row form's tile), and gallery splits."""
 
-    A first-pass block fills an SM (512 threads at 128 registers each), so
-    query tiles times gallery splits fill the ``sms`` SMs where the shape
-    allows it; a split is never empty, so there are at most as many splits
-    as gallery tiles. :func:`_split_rows` gives each split's rows, the same
-    formula as the kernel's ``split_tiles``."""
-    q_tiles = -(-nq // _BM)
-    g_tiles = -(-ng // _BN)
-    n_splits = max(1, min(g_tiles, -(-sms // q_tiles)))
-    return q_tiles, n_splits
+    width: int
+    q_tiles: int
+    split_rows: int
+    n_splits: int
 
 
-def _split_rows(split: int, n_splits: int, ng: int) -> Tuple[int, int]:
+def _plan(nq: int, ng: int, sms: int) -> Plan:
+    """The query tile and the grid of both exact-search kernels.
+
+    Up to :data:`NARROW_MAX_NQ` queries the query tile is Nq rounded up to
+    8, at most 32 (the TPU kernel's rule, ``-(-Nq // 8) * 8``), and a split
+    is whole runs of 256 rows, walked in 1,024-row tiles; above it 128
+    queries against 128-row tiles, a split whole tiles. A block fills an
+    SM, so query tiles times gallery splits fill the ``sms`` SMs where the
+    shape allows it; a split is never empty, so there are at most as many
+    splits as runs. :func:`_split_rows` gives each split's rows, the same
+    formula as the kernels' ``split_rows`` and ``split_tiles``."""
+    if nq <= NARROW_MAX_NQ:
+        width, split_rows = min(NARROW_WIDTHS[-1], -(-nq // 8) * 8), _NARROW_UNIT
+    else:
+        width, split_rows = _BM, _BN
+    q_tiles = -(-nq // width)
+    units = -(-ng // split_rows)
+    n_splits = max(1, min(units, -(-sms // q_tiles)))
+    return Plan(width, q_tiles, split_rows, n_splits)
+
+
+def _split_rows(split: int, n_splits: int, ng: int, split_rows: int = _BN) -> Tuple[int, int]:
     """Gallery rows ``[start, end)`` of a split: a balanced partition of the
-    ``ceil(ng / 128)`` whole tiles, so every split starts on a tile."""
-    g_tiles = -(-ng // _BN)
-    t0 = split * g_tiles // n_splits
-    t1 = (split + 1) * g_tiles // n_splits
-    return t0 * _BN, min(ng, t1 * _BN)
+    ``ceil(ng / split_rows)`` whole runs, so every split starts on a run."""
+    units = -(-ng // split_rows)
+    u0 = split * units // n_splits
+    u1 = (split + 1) * units // n_splits
+    return u0 * split_rows, min(ng, u1 * split_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,7 +153,8 @@ def fused_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
     if Nq == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
-    _, n_splits = _plan(Nq, Ng, _sms(dev.index))
+    plan = _plan(Nq, Ng, _sms(dev.index))
+    n_splits = plan.n_splits
     part_v = torch.empty((Nq, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Nq, n_splits, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((Nq, k), dtype=torch.float32, device=dev)
@@ -126,11 +164,13 @@ def fused_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_topk_forward(
             q.data_ptr(), gallery.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), Nq, Ng, D, k, n_splits,
+            out_v.data_ptr(), out_i.data_ptr(), Nq, Ng, D, k, plan.width, n_splits,
             int(gallery.dtype == torch.bfloat16), stream)
     _build.check(err, "fused_topk_forward")
     fused_topk_search.launches += 1
+    fused_topk_search.narrow_launches += plan.width < _BM
     return out_v, out_i
 
 
 fused_topk_search.launches = 0
+fused_topk_search.narrow_launches = 0  # of them, the small-batch form

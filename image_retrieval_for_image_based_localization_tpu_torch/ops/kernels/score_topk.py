@@ -5,7 +5,9 @@ Replaces the JAX package's ``ops/pallas/score_topk.py::scores_blockmax``
 (and ``pallas_topk_search``). The kernel is ``csrc/score_topk.cu``: bound by
 its f32 FMA work, a tiled ``Q @ G.T`` whose epilogue sets the pad columns to
 NEG_INF and takes the per-64-column block maxima while the tile is still in
-registers (the fusion Mosaic refused on the TPU).
+registers (the fusion Mosaic refused on the TPU). Small batches take its
+small-batch form, with the query tile and gallery splits of the fused top-k's
+plan (``ops.kernels.fused_topk._plan``): the same scores bit for bit.
 
 :func:`blockmax_topk_search` is the exact top-k on top of it, as
 ``pallas_topk_search``: the kernel is stage 1; stages 2-3
@@ -29,6 +31,11 @@ from typing import Tuple
 import torch
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (
+    _BM,
+    _plan,
+    _sms,
+)
 
 BLOCK = 64  # columns per block maximum, csrc/score_topk.cu BLOCK
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -84,14 +91,16 @@ def scores_blockmax(gallery: torch.Tensor,
     bmax = torch.empty((Nq, ng_pad // BLOCK), dtype=torch.float32, device=dev)
     if Nq == 0:
         return scores, bmax
+    plan = _plan(Nq, Ng, _sms(dev.index))
     lib = _build.load("score_topk")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.scores_blockmax_forward(
             q.data_ptr(), gallery.data_ptr(), scores.data_ptr(), bmax.data_ptr(), Nq, Ng, D,
-            ng_pad, int(gallery.dtype == torch.bfloat16), stream)
+            ng_pad, int(gallery.dtype == torch.bfloat16), plan.width, plan.n_splits, stream)
     _build.check(err, "scores_blockmax_forward")
     scores_blockmax.launches += 1
+    scores_blockmax.narrow_launches += plan.width < _BM
     return scores, bmax
 
 
@@ -127,3 +136,4 @@ def blockmax_topk_search(gallery: torch.Tensor, queries: torch.Tensor,
 
 
 scores_blockmax.launches = 0
+scores_blockmax.narrow_launches = 0  # of them, the small-batch form

@@ -17,8 +17,14 @@ an Orbax directory (it holds ``_CHECKPOINT_METADATA``), read by
 ``utils/orbax.py`` without Orbax into the tree the JAX loader restores,
 as numpy arrays. With a ``target`` such a tree loads into a ``TrainState``
 through ``training.trainer.load_jax_train_state`` (optax's state carried
-into ``torch.optim``), so ``train --resume`` carries on a JAX run; the
-next checkpoint written there is in this package's format.
+into ``torch.optim``), so ``train --resume`` carries on a JAX run. The
+next checkpoint written there is in this package's format, and the JAX
+checkpoint it replaces is moved aside, not deleted: an Orbax ``latest``
+(or ``best``) becomes ``latest.orbax`` (``best.orbax``), its meta is copied
+to ``latest.orbax.meta.json``, and the JAX package's
+``load_checkpoint(run, name="latest.orbax")`` restores it as it was. A
+later move replaces an older ``<name>.orbax``, so the newest JAX state is
+the one kept.
 """
 
 from __future__ import annotations
@@ -53,9 +59,26 @@ def _as_tree(state: Any, mesh=None) -> Dict[str, Any]:
             "micro": int(state.micro), "pending": pending_gradients(state, mesh)}
 
 
+ORBAX_SUFFIX = ".orbax"
+
+
+def _move_orbax_aside(path: str) -> None:
+    """Move a JAX run's Orbax checkpoint at ``path`` to ``path.orbax`` (an
+    older one there is replaced) and copy its meta beside it, so the JAX
+    package still restores it once this package's checkpoint takes the
+    name."""
+    if not is_orbax_checkpoint(path):
+        return
+    aside = path + ORBAX_SUFFIX
+    shutil.rmtree(aside, ignore_errors=True)
+    os.replace(path, aside)
+    meta = path + ".meta.json"
+    if os.path.exists(meta):
+        shutil.copyfile(meta, aside + ".meta.json")
+
+
 def _write(path: str, tree: Dict[str, Any], meta: Optional[Dict], meta_path: str) -> None:
-    if is_orbax_checkpoint(path):  # a JAX run's checkpoint, replaced by this package's
-        shutil.rmtree(path)
+    _move_orbax_aside(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(tree, tmp)
@@ -78,7 +101,8 @@ def save_checkpoint(directory: str, state: Any, meta: Optional[Dict] = None,
     _write(path, tree, meta, os.path.join(directory, f"{name}.meta.json"))
     if is_best:
         best = os.path.join(directory, "best")
-        shutil.rmtree(best, ignore_errors=True)
+        if not is_orbax_checkpoint(best):  # a JAX run's best is moved aside by _write
+            shutil.rmtree(best, ignore_errors=True)
         _write(best, tree, meta, os.path.join(directory, "best.meta.json"))
     return path
 

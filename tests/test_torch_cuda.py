@@ -804,3 +804,54 @@ def test_exact_search_kernels_deterministic(dev, dtype):
     a = scores_blockmax(gallery, q)
     b = scores_blockmax(gallery, q)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+NARROW_SHAPES = [(1, 100_003, 2048, "rows"), (2, 1000, 37, "rows"), (7, 65, 4096, "rows"),
+                 (8, 5000, 100, "rows"), (9, 1025, 2048, "slice"), (16, 1, 2048, "rows"),
+                 (17, 3000, 2048, "offset"), (24, 2049, 64, "rows"), (31, 777, 37, "slice"),
+                 (32, 100_003, 2048, "rows")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+def test_small_batch_form_matches_plain(dev, dtype, shape):
+    """Each width of the small-batch form (Nq rounded up to 8: 8, 16, 24,
+    32) at ragged Ng and D and on galleries that are not 16-byte aligned
+    (its element-load path): scores_blockmax and fused_topk_search within
+    1e-5 of their plain versions, indices equal where the plain scores are
+    separated, and the small-batch form launched."""
+    gallery, q = _search_inputs(dev, dtype, *shape)
+    nq, ng = q.shape[0], gallery.shape[0]
+    nb = -(-ng // 64)
+    before = (scores_blockmax.narrow_launches, fused_topk_search.narrow_launches)
+    s, bmax = scores_blockmax(gallery, q)
+    ps, _ = scores_blockmax_plain(gallery, q)
+    torch.testing.assert_close(s[:, :ng], ps[:, :ng], rtol=0, atol=1e-5)
+    assert torch.all(s[:, ng:] == NEG_INF)
+    assert torch.equal(bmax, s.view(nq, nb, 64).amax(-1))
+    k = min(100, ng)
+    fs, fi = fused_topk_search(gallery, q, k)
+    pfs, pfi = fused_topk_plain(gallery, q, k)
+    torch.testing.assert_close(fs, pfs, rtol=0, atol=1e-5)
+    gap = torch.cat([pfs[:, :-1] - pfs[:, 1:], torch.full_like(pfs[:, :1], 1.0)], 1)
+    clear = (gap > 1e-5) & torch.cat([torch.ones_like(gap[:, :1], dtype=torch.bool),
+                                      gap[:, :-1] > 1e-5], 1)
+    assert torch.equal(fi[clear], pfi[clear])
+    assert (scores_blockmax.narrow_launches, fused_topk_search.narrow_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 8, 20, 32])
+def test_small_batch_form_bits_equal_the_128_row_form(dev, dtype, nq):
+    """The first Nq queries of a 256-query batch (128-row tiles) score the
+    same bits alone (the small-batch form), in both kernels, indices
+    included: one fmaf chain a score in either form."""
+    gallery, q = _search_inputs(dev, dtype, 256, 20_000, 2048, "rows")
+    sub = q[:nq].contiguous()
+    wide, _ = scores_blockmax(gallery, q)
+    alone, _ = scores_blockmax(gallery, sub)
+    assert torch.equal(alone, wide[:nq])
+    ws, wi = fused_topk_search(gallery, q, 128)
+    ns, ni = fused_topk_search(gallery, sub, 128)
+    assert torch.equal(ns, ws[:nq]) and torch.equal(ni, wi[:nq])

@@ -13,7 +13,10 @@ from irtpu.retrieval.knn import knn_search as j_knn
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
     fused_topk_search,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (
+    NARROW_MAX_NQ,
+    NARROW_WIDTHS,
     _plan,
     _split_rows,
 )
@@ -107,22 +110,63 @@ def test_chunked_knn_matches_jax(storage):
 
 
 @pytest.mark.parametrize("sms", [1, 132])
-@pytest.mark.parametrize("ng", [1, 63, 128, 129, 100_000])
-@pytest.mark.parametrize("nq", [1, 20, 256, 257])
+@pytest.mark.parametrize("ng", [1, 63, 128, 129, 100_000, 1_000_000])
+@pytest.mark.parametrize("nq", [1, 20, 256, 257, 2, 7, 8, 9, 16, 17, 24, 31, 32, 33, 64, 65, 127])
 def test_split_plan_covers_gallery_in_whole_tiles(nq, ng, sms):
-    """The first pass's grid: every gallery row in exactly one split, splits
-    start on 128-row tiles and are never empty, and the grid fills the card
-    where the shape allows."""
-    q_tiles, n_splits = _plan(nq, ng, sms)
-    g_tiles = -(-ng // 128)
-    assert q_tiles == -(-nq // 128)
+    """The grid of both exact-search kernels: the query tile is Nq rounded
+    up to 8 up to the cutover (small-batch form, splits of 256-row runs) and
+    128 above it (128-row tiles); every gallery row in exactly one split,
+    splits start on a run and are never empty, are balanced, and the grid
+    fills the card where the shape allows."""
+    plan = _plan(nq, ng, sms)
+    if nq <= NARROW_MAX_NQ:
+        assert plan.width == min(NARROW_WIDTHS[-1], -(-nq // 8) * 8)
+        assert plan.width in NARROW_WIDTHS and plan.split_rows == 256
+        if nq <= NARROW_WIDTHS[-1]:
+            assert plan.width - 8 < nq <= plan.width  # the TPU kernel's -(-Nq // 8) * 8
+    else:
+        assert (plan.width, plan.split_rows) == (128, 128)
+    q_tiles, n_splits, rows = plan.q_tiles, plan.n_splits, plan.split_rows
+    g_tiles = -(-ng // rows)
+    assert q_tiles == -(-nq // plan.width)
     assert 1 <= n_splits <= g_tiles
-    bounds = [_split_rows(s, n_splits, ng) for s in range(n_splits)]
+    bounds = [_split_rows(s, n_splits, ng, rows) for s in range(n_splits)]
     assert bounds[0][0] == 0 and bounds[-1][1] == ng
     for (s0, e0), (s1, _) in zip(bounds, bounds[1:]):
         assert e0 == s1  # contiguous: each row in exactly one split
     for start, end in bounds:
-        assert start % 128 == 0 and end > start
+        assert start % rows == 0 and end > start
     assert q_tiles * n_splits >= min(sms, q_tiles * g_tiles)
-    sizes = [-(-(e - s) // 128) for s, e in bounds]
+    sizes = [-(-(e - s) // rows) for s, e in bounds]
     assert max(sizes) - min(sizes) <= 1  # balanced: no split waits on another
+
+
+def test_plan_matches_the_kernel_source():
+    """The plan's tiles are the kernels': the 128-row form's BM x BN
+    (csrc/sgemm_tile.cuh), the small-batch form's widths up to MAX_NQ, its
+    split unit BOX_ROWS (a whole number of them a 1,024-row tile: WARPS x 32
+    lanes x ROWS, csrc/narrow_tile.cuh), and the kernels' split formulas are
+    _split_rows's."""
+    import re
+
+    def consts(name):
+        with open(f"{_build.CSRC_DIR}/{name}") as f:
+            src = f.read()
+        return src, {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+    _, wide = consts("sgemm_tile.cuh")
+    src, nar = consts("narrow_tile.cuh")
+    assert (wide["BM"], wide["BN"]) == (128, 128)
+    assert _plan(200, 1000, 132)[:3] == (wide["BM"], 2, wide["BN"])
+    assert NARROW_WIDTHS == tuple(range(8, nar["MAX_NQ"] + 1, 8))
+    assert nar["BOX_ROWS"] == 256 == _plan(1, 1, 1).split_rows
+    assert (nar["WARPS"] * 32 * nar["ROWS"]) % nar["BOX_ROWS"] == 0
+    assert "r0 = (int)((long long)s * units / n) * BOX_ROWS;" in src
+    with open(f"{_build.CSRC_DIR}/fused_topk.cu") as f:
+        assert "t0 = (int)((long long)s * g_tiles / n);" in f.read()  # the 128-row form
+    # a stage is 1,024 rows x ROW_BYTES plus MAX_NQ queries x the stage's
+    # dims in f32, and the ring beside the lists at NQ = 32, k = 128 fits a block
+    stage = 1024 * nar["ROW_BYTES"] + nar["MAX_NQ"] * nar["ROW_BYTES"] // 2 * 4
+    ring = 1024 + nar["STAGES"] * stage + 2 * nar["STAGES"] * 8
+    assert stage % 1024 == 0
+    assert ring + 32 * 128 * 8 + 8 + 32 * 12 <= 227 * 1024

@@ -476,3 +476,30 @@ def test_train_resume_of_a_jax_run_trains(ckpts, tmp_path):
     # the run's own checkpoint is now this package's, two steps past the JAX state's
     tree, meta = load_checkpoint(str(out), name="latest")
     assert meta["epoch"] == 1 and tree["step"] == 2 and tree["micro"] == 0
+
+
+def test_train_resume_in_place_keeps_the_jax_checkpoint(ckpts, tmp_path):
+    """``train --resume R --out-dir R`` of a JAX run: the port's ``latest``
+    takes the name and the JAX Orbax checkpoint moves to ``latest.orbax``,
+    which the JAX package restores leaf for leaf, meta included."""
+    src, _ = ckpts["train_state"]
+    run = str(tmp_path / "run")
+    shutil.copytree(src, run)
+    want, want_meta = j_load_checkpoint(src, name="latest")
+    assert main(["train", "--resume", run, "--out-dir", run, "--synthetic",
+                 "--arch", "squeezenet1_1", "--image-size", "64", "--epochs", "2",
+                 "--synth-scenes", "4", "--synth-views", "3", "--qsize", "4", "--n-neg", "1",
+                 "--batch-tuples", "2", "--data-root", str(tmp_path / "data"),
+                 "--device", "cpu"]) == 0
+    got, got_meta = j_load_checkpoint(run, name="latest.orbax")
+    assert got_meta == want_meta
+    got_leaves = jax.tree_util.tree_flatten_with_path(got)[0]
+    want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert g.tobytes() == w.tobytes(), path
+    tree, meta = load_checkpoint(run)
+    assert meta["epoch"] == 1 and tree["step"] == 2 and tree["micro"] == 0
+    assert set(tree) >= {"model", "optimizer", "scheduler"}

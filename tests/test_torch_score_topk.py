@@ -118,3 +118,34 @@ def test_bad_inputs_raise():
         scores_blockmax(g, torch.zeros((2, 7)))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         scores_blockmax(g.to(torch.int8), torch.zeros((2, 8)))
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("ng", [1, 63, 65, 1000, 100_003, 1_000_000])
+@pytest.mark.parametrize("nq", [1, 7, 8, 9, 20, 32, 33, 64, 65, 256])
+def test_blockmax_plan_covers_padded_columns_in_whole_tiles(nq, ng, sms):
+    """scores_blockmax launches on the fused top-k's plan: in the small-batch
+    form each split's 256-row runs hold whole 64-column blocks, the splits
+    cover the padded columns [0, 64 * ceil(Ng / 64)) once, and the last run
+    holds the pad; the 128-row form's grid covers them in 128-column tiles."""
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.fused_topk import (
+        NARROW_MAX_NQ,
+        _plan,
+        _split_rows,
+    )
+
+    plan = _plan(nq, ng, sms)
+    ng_pad = 64 * -(-ng // 64)
+    assert plan.split_rows % 64 == 0  # no 64-column block spans two splits
+    if nq > NARROW_MAX_NQ:
+        assert plan.width == 128 and -(-ng_pad // 128) * 128 >= ng_pad
+        return
+    assert plan.width == min(32, -(-nq // 8) * 8) and plan.q_tiles == -(-nq // plan.width)
+    covered = []
+    for s in range(plan.n_splits):
+        start, end = _split_rows(s, plan.n_splits, ng, plan.split_rows)
+        u0, u1 = start // plan.split_rows, -(-end // plan.split_rows)
+        covered.append((u0 * plan.split_rows, min(ng_pad, u1 * plan.split_rows)))
+    assert covered[0][0] == 0 and covered[-1][1] == ng_pad
+    assert all(e0 == s1 for (_, e0), (s1, _) in zip(covered, covered[1:]))
+    assert all(s % 64 == 0 and e % 64 == 0 for s, e in covered)

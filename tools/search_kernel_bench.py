@@ -15,6 +15,15 @@ calls through the public wrappers, host work included):
 - fused_topk_search at k = 1, 32, 100, 128 beside ``torch.topk(q @ g.T)``,
   with the device time of each kernel it launches (torch.profiler);
 - fused_topk_search at k = 100 at 1, 32 and 256 queries.
+With ``--small-batch`` it times instead the small-batch form
+(csrc/narrow_tile.cuh) against the 128-row form on the same inputs, at
+config 5's gallery (1,000,000 x 2048 bf16) and path E's (100,000 x 2048
+f32): both kernels at Nq = 1, 8, 20, 32, 33, 64 and 96 (fused_topk_search at
+k = 1, 20, 100 and 128 where Nq is 1 or 20), each kernel's device time
+(torch.profiler) beside the wrapper's, and the one-call library yardsticks;
+the forms are chosen through ``ops.kernels.fused_topk.NARROW_MAX_NQ`` (0:
+the 128-row form; 128: the small-batch form up to 128 queries), which a
+checkout before the small-batch form lacks (it is timed as it is).
 Prints one JSON line per measurement, the card's name and power limit first.
 """
 
@@ -67,10 +76,54 @@ def kernel_ms(fn, reps=5):
     return out
 
 
+def small_batch(dev, emit, fused_topk, scores_blockmax, fused_topk_search):
+    """The small-batch cells (see the module docstring)."""
+    import torch
+
+    def forms():
+        if not hasattr(fused_topk, "NARROW_MAX_NQ"):
+            return {"as_is": None}
+        return {"small_batch": 128, "128_row": 0}
+
+    def timed(form, fn):
+        saved = getattr(fused_topk, "NARROW_MAX_NQ", None)
+        if form is not None:
+            fused_topk.NARROW_MAX_NQ = form
+        try:
+            return {"ms": time_ms(fn, reps=10), "kernels_ms": kernel_ms(fn, reps=3)}
+        finally:
+            if saved is not None:
+                fused_topk.NARROW_MAX_NQ = saved
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype, ng in ((torch.bfloat16, 1_000_000), (torch.float32, 100_000)):
+        g = torch.nn.functional.normalize(torch.randn((ng, D), generator=gen, device=dev),
+                                          dim=1).to(dtype)
+        qall = torch.nn.functional.normalize(torch.randn((96, D), generator=gen, device=dev),
+                                             dim=1)
+        name = str(dtype).split(".")[-1]
+        for nq in (1, 8, 20, 32, 33, 64, 96):
+            q = qall[:nq].contiguous()
+            qr = q.to(dtype).float()
+            ql = q.to(dtype)
+            cells = {form: timed(v, lambda: scores_blockmax(g, qr)) for form, v in forms().items()}
+            emit(kernel="scores_blockmax", dtype=name, ng=ng, nq=nq, forms=cells,
+                 library_ms=time_ms(lambda: ql @ g.T, reps=10))
+            for k in ((1, 20, 100, 128) if nq in (1, 20) else (100,)):
+                cells = {form: timed(v, lambda: fused_topk_search(g, q, k))
+                         for form, v in forms().items()}
+                emit(kernel="fused_topk_search", dtype=name, ng=ng, nq=nq, k=k, forms=cells,
+                     library_ms=time_ms(lambda: torch.topk(ql @ g.T, k, dim=1), reps=10))
+        del g, qall
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=here, help="checkout whose port is timed")
+    ap.add_argument("--small-batch", action="store_true",
+                    help="time the small-batch form against the 128-row form")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -98,6 +151,13 @@ def main() -> int:
     def emit(**kw):
         print(json.dumps(dict(root=root, **kw)), flush=True)
 
+    if args.small_batch:
+        from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+            fused_topk,
+        )
+
+        small_batch(dev, emit, fused_topk, scores_blockmax, fused_topk_search)
+        return 0
     gen = torch.Generator().manual_seed(0)
     g32 = torch.nn.functional.normalize(torch.randn((NG, D), generator=gen), dim=1).to(dev)
     q = torch.nn.functional.normalize(torch.randn((NQ, D), generator=gen), dim=1).to(dev)
