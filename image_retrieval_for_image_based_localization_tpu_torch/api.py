@@ -47,6 +47,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.device import 
     DeviceLike,
     resolve_device,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import span
 
 
 def _prefetched(iterator, depth: int = 2):
@@ -303,19 +304,33 @@ class Extractor:
     def extract(self, images: Sequence, bbxs: Optional[Sequence] = None,
                 prefetch: int = 2) -> np.ndarray:
         """Descriptors [N, D] for image paths or HWC arrays. Host resizing
-        runs in a background thread ``prefetch`` batches ahead."""
-        out = np.zeros((len(images), self.out_dim), dtype=np.float32)
-        pending = []  # (device descriptors, host indices), drained lazily
-        for batch in _prefetched(self.make_input_batches(images, bbxs=bbxs), prefetch):
-            px = torch.from_numpy(batch.pixels_u8).to(self.device, non_blocking=True)
-            sz = torch.from_numpy(batch.sizes).to(self.device, non_blocking=True)
-            pending.append((self.forward_u8(px, sz), batch.indices))
-            while len(pending) > prefetch:
-                d, ix = pending.pop(0)
+        runs in a background thread ``prefetch`` batches ahead.
+
+        Its stages are spans (``utils.metrics.span``) on the calling thread:
+        ``Extractor.extract`` around the call; inside it, per batch,
+        ``Extractor.next_batch`` (the wait for the background thread, the
+        last one for its end), ``Extractor.h2d`` (the batch's copies to the
+        device) and ``Extractor.forward`` (the model enqueued)."""
+        with span("Extractor.extract"):
+            out = np.zeros((len(images), self.out_dim), dtype=np.float32)
+            pending = []  # (device descriptors, host indices), drained lazily
+            batches = _prefetched(self.make_input_batches(images, bbxs=bbxs), prefetch)
+            while True:
+                with span("Extractor.next_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with span("Extractor.h2d"):
+                    px = torch.from_numpy(batch.pixels_u8).to(self.device, non_blocking=True)
+                    sz = torch.from_numpy(batch.sizes).to(self.device, non_blocking=True)
+                with span("Extractor.forward"):
+                    pending.append((self.forward_u8(px, sz), batch.indices))
+                while len(pending) > prefetch:
+                    d, ix = pending.pop(0)
+                    out[ix] = d[: len(ix)].cpu().numpy()
+            for d, ix in pending:
                 out[ix] = d[: len(ix)].cpu().numpy()
-        for d, ix in pending:
-            out[ix] = d[: len(ix)].cpu().numpy()
-        return out
+            return out
 
     @torch.no_grad()
     def _extract_structured(self, images: Sequence, bbxs, kind: str) -> list:

@@ -28,13 +28,13 @@ input's dtype, ``dp`` with ``p``'s shape; ``sizes`` gets none.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Union
 
 import torch
 
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import _build
+from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import span
 
 GEM_EPS = 1e-6
 L2N_EPS = 1e-6
@@ -112,8 +112,7 @@ def _forward(feats: torch.Tensor, p: torch.Tensor, sizes) -> torch.Tensor:
     entry = gem_l2n_fused if sizes is None else gem_l2n_fused_rect
     # both entry points launch one kernel; while a profiler records, a range
     # named after the entry point tells them apart in its trace
-    with (torch.profiler.record_function(entry.__name__) if torch.autograd._profiler_enabled()
-          else contextlib.nullcontext()):
+    with span(entry.__name__):
         out = _launch(feats.reshape(B, -1, C), p.detach(), sizes, W)
     entry.launches += 1
     return out

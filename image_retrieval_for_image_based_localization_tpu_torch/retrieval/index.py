@@ -61,6 +61,7 @@ from image_retrieval_for_image_based_localization_tpu_torch.utils.device import 
     DeviceLike,
     resolve_device,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.utils.metrics import span
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 DBA_BLOCK = 8192  # gallery rows expanded at a time by DBA (bounds its gather)
@@ -177,30 +178,34 @@ class Index:
     def transform_queries(self, qdescriptors) -> torch.Tensor:
         """The index's whitening applied to query descriptors (a host array,
         or a tensor, which is not copied through the host), on the device."""
-        if isinstance(qdescriptors, torch.Tensor):
-            q = qdescriptors.to(self.device, torch.float32)
-        else:
-            q = torch.as_tensor(np.asarray(qdescriptors, dtype=np.float32)).to(self.device)
+        with span("Index.h2d"):
+            if isinstance(qdescriptors, torch.Tensor):
+                q = qdescriptors.to(self.device, torch.float32)
+            else:
+                q = torch.as_tensor(np.asarray(qdescriptors, dtype=np.float32)).to(self.device)
         if q.dim() == 1:
             q = q[None, :]
         if self.P is None:
             return q
-        if self._device_mP is None:
-            self._device_mP = (torch.from_numpy(self.m).to(self.device),
-                               torch.from_numpy(self.P).to(self.device))
-        return whiten_apply(q, *self._device_mP, self.dims)
+        with span("Index.whiten"):
+            if self._device_mP is None:
+                self._device_mP = (torch.from_numpy(self.m).to(self.device),
+                                   torch.from_numpy(self.P).to(self.device))
+            return whiten_apply(q, *self._device_mP, self.dims)
 
     def _search_queries(self, qdescriptors, qe_nqe: int = 0, qe_alpha: float = 3.0,
                         pre_transformed: bool = False) -> torch.Tensor:
         """Whitened (unless ``pre_transformed``) and, with ``qe_nqe``,
         αQE-expanded queries on the device."""
         if pre_transformed:
-            q = torch.as_tensor(qdescriptors).to(self.device, torch.float32)
+            with span("Index.h2d"):
+                q = torch.as_tensor(qdescriptors).to(self.device, torch.float32)
         else:
             q = self.transform_queries(qdescriptors)
         if qe_nqe:
-            q = expand_queries(self.device_gallery(), q,
-                               nqe=min(int(qe_nqe), self.gallery.shape[0]), alpha=qe_alpha)
+            with span("Index.whiten"):
+                q = expand_queries(self.device_gallery(), q,
+                                   nqe=min(int(qe_nqe), self.gallery.shape[0]), alpha=qe_alpha)
         return q
 
     def query(self, qdescriptors, k: int = 10, qe_nqe: int = 0, qe_alpha: float = 3.0,
@@ -214,13 +219,21 @@ class Index:
         the TPU's hardware selection at ``recall_target``. The port runs the
         exact search for it, which meets any recall target; nothing
         approximates the selection.
+
+        Its stages are spans (``utils.metrics.span``): ``Index.query``
+        around the call; inside it ``Index.h2d`` (the queries to the
+        device), ``Index.whiten`` (whitening, and αQE where asked),
+        ``Index.topk`` (the routed search's host path and launch) and
+        ``Index.d2h`` (the results to the host).
         """
         if method not in ("exact", "approx"):
             raise ValueError(f"unknown query method {method!r} (exact|approx)")
         if method == "approx" and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
-        scores, idx = self.query_device(qdescriptors, k, qe_nqe, qe_alpha)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        with span("Index.query"):
+            scores, idx = self.query_device(qdescriptors, k, qe_nqe, qe_alpha)
+            with span("Index.d2h"):
+                return scores.cpu().numpy(), idx.cpu().numpy()
 
     def query_device(self, qdescriptors, k: int = 10, qe_nqe: int = 0,
                      qe_alpha: float = 3.0, pre_transformed: bool = False
@@ -235,9 +248,10 @@ class Index:
         over f32 or bf16 storage without αQE, else ``knn_search``."""
         q = self._search_queries(qdescriptors, qe_nqe, qe_alpha, pre_transformed)
         g = self.device_gallery()
-        if not qe_nqe and k <= LANES and self.storage in ("float32", "bfloat16"):
-            return fused_topk_search(g, q, k)
-        return knn_search(g, q, k)
+        with span("Index.topk"):
+            if not qe_nqe and k <= LANES and self.storage in ("float32", "bfloat16"):
+                return fused_topk_search(g, q, k)
+            return knn_search(g, q, k)
 
     def ranks(self, qdescriptors, qe_nqe: int = 0, qe_alpha: float = 3.0) -> np.ndarray:
         """Full ranking [N, Nq] for mAP evaluation (αQE with ``qe_nqe``)."""

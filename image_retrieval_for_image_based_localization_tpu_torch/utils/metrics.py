@@ -3,7 +3,8 @@
 The JAX package's ``utils/metrics.py``: records stream as JSON lines,
 host-side and cheap, and a region can run under ``torch.profiler``
 (:func:`profile_trace`, the counterpart of its ``jax.profiler`` trace),
-which writes a Chrome/Perfetto trace.
+which writes a Chrome/Perfetto trace. The program marks its stages with
+:func:`span`, ranges that such a trace shows on the card's clock.
 """
 
 from __future__ import annotations
@@ -79,6 +80,22 @@ def profile_trace(logdir: str = os.path.join(tempfile.gettempdir(), "irtpu_trace
         os.makedirs(logdir, exist_ok=True)
         prof.trace_path = os.path.join(logdir, f"{os.getpid()}-{time.time_ns()}.pt.trace.json")
         prof.export_chrome_trace(prof.trace_path)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's own: while ``torch.profiler`` records
+    on the calling thread, a ``record_function`` range, which the trace
+    (``profile_trace``'s, or any profiler's window) stamps on the clock of
+    the card's kernels; otherwise one shared no-op context, so an untraced
+    call pays one check and nothing more. Ranges opened in a thread the
+    profiler did not see start are not recorded, so the program opens its
+    spans on the calling thread."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def percentile_summary(lat_seconds, unit: str = "ms") -> dict:
