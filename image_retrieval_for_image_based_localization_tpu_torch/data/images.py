@@ -6,9 +6,13 @@ max-side-resized, then padded to its bucket's (H, W) (multiples of the trunk
 stride); a batch carries raw uint8 pixels and per-row valid (h, w) extents,
 and normalization and masking happen on the device. PIL is imported only
 inside the functions that use it: an array whose max side already equals
-``image_size`` never reaches PIL. Path inputs may instead go through the
-native C++ decoder (:func:`make_batches_native`, ``data/native.py``), the
-JAX package's default for them.
+``image_size`` never reaches PIL. A uint8 array of raw [0, 255] pixels stays
+uint8 from input to batch (PIL resizes it as uint8): the JAX package takes it
+to float32 in [0, 1] and rounds it back, a round trip that is the identity,
+so the batches are the JAX package's bit for bit, without the float copies.
+Path inputs may instead go through the native C++ decoder
+(:func:`make_batches_native`, ``data/native.py``), the JAX package's default
+for them.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ def max_side_resize(
     Reference parity: the reference's ``imresize`` thumbnails — shrink-only
     LANCZOS (``upscale=False, resize_filter='lanczos'``; ``ExtractConfig``
     defaults to exactly that). The function-level defaults keep the
-    round-1 behavior (bilinear, both ways) for direct callers.
+    round-1 behavior (bilinear, both ways) for direct callers. Float input
+    in [0, 1] gives float32 in [0, 1]; uint8 input is taken as raw
+    [0, 255] pixels and gives PIL's uint8 output. No resize returns ``img``
+    itself.
     """
     from PIL import Image
 
@@ -65,6 +72,8 @@ def max_side_resize(
         return img
     scale = image_size / m
     nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+    if img.dtype == np.uint8:
+        return np.asarray(Image.fromarray(img).resize((nw, nh), _pil_filter(resize_filter)))
     pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
     pil = pil.resize((nw, nh), _pil_filter(resize_filter))
     return np.asarray(pil, dtype=np.float32) / 255.0
@@ -189,6 +198,13 @@ def make_batches_native(
             )
 
 
+def _raw_u8(img) -> bool:
+    """A uint8 array read as raw [0, 255] pixels: non-empty, max above 1.
+    (The JAX package reads a uint8 array with max <= 1 as [0, 1] floats.)"""
+    return (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.size > 0
+            and img.max() > 1)
+
+
 def _prepare_one(
     img: ImageSource,
     image_size: int,
@@ -196,8 +212,18 @@ def _prepare_one(
     upscale: bool = True,
     resize_filter: str = "bilinear",
 ) -> np.ndarray:
+    """One image cropped to ``bbx`` and max-side-resized, as the JAX
+    package's ``_prepare_one``. A raw uint8 array (:func:`_raw_u8`) stays
+    uint8: the crop is a view and, where no resize is needed, the array
+    itself is returned, with the pixels the JAX package's float32 round
+    trip gives back. Paths, float arrays and every other array give float32
+    in [0, 1], as there."""
     if isinstance(img, str):
         img = load_image(img, bbx=bbx)
+    elif _raw_u8(img):
+        if bbx is not None:
+            x0, y0, x1, y1 = (int(round(v)) for v in bbx)
+            img = img[y0:y1, x0:x1]
     else:
         img = np.asarray(img, dtype=np.float32)
         if img.size and img.min() < -0.05:
@@ -232,6 +258,12 @@ def make_batches(
     Two-pass: resize all (host), group by padded bucket shape, emit batches
     padded to ``batch_size`` rows so at most one compilation per bucket shape.
     ``bucket_multiple=1`` gives exact shapes (no spatial padding).
+
+    Raw uint8 arrays stay uint8 through ``_prepare_one`` and are copied into
+    ``pixels_u8`` as they are; only float images are rounded to uint8. The
+    batches are the JAX package's ``make_batches``'s bit for bit, for every
+    input. ``make_batches.u8_images`` and ``make_batches.float_images`` count
+    the images that reached a batch each way (:func:`batch_counts`).
     """
     resized: List[np.ndarray] = []
     for i, img in enumerate(images):
@@ -260,20 +292,30 @@ def make_batches(
             for row, gi in enumerate(chunk):
                 img = resized[gi]
                 h, w = img.shape[:2]
+                u8 = img.dtype == np.uint8
                 if squarify and (h != H or w != W):
                     from PIL import Image
 
-                    pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-                    img = (
-                        np.asarray(
-                            pil.resize((W, H), _pil_filter(resize_filter)), np.float32
+                    if u8:
+                        pil = Image.fromarray(img).resize((W, H), _pil_filter(resize_filter))
+                        img = np.asarray(pil)
+                    else:
+                        pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+                        img = (
+                            np.asarray(
+                                pil.resize((W, H), _pil_filter(resize_filter)), np.float32
+                            )
+                            / 255.0
                         )
-                        / 255.0
-                    )
                     h, w = H, W
-                pixels_u8[row, :h, :w] = np.clip(
-                    np.round(img * 255.0), 0, 255
-                ).astype(np.uint8)
+                if u8:
+                    pixels_u8[row, :h, :w] = img
+                    make_batches.u8_images += 1
+                else:
+                    pixels_u8[row, :h, :w] = np.clip(
+                        np.round(img * 255.0), 0, 255
+                    ).astype(np.uint8)
+                    make_batches.float_images += 1
                 sizes[row] = (h, w)
             yield ImageBatch(
                 pixels_u8=pixels_u8,
@@ -281,3 +323,19 @@ def make_batches(
                 indices=np.asarray(chunk, dtype=np.int64),
                 valid=len(chunk),
             )
+
+
+make_batches.u8_images = 0     # images copied into a batch as uint8
+make_batches.float_images = 0  # images rounded into a batch from float32
+
+
+def reset_batch_counts() -> None:
+    make_batches.u8_images = 0
+    make_batches.float_images = 0
+
+
+def batch_counts() -> dict:
+    """Images ``make_batches`` put into batches since the last reset, by
+    path: ``u8_images`` copied as raw uint8, ``float_images`` rounded from
+    float32 (paths, float arrays, uint8 arrays with max <= 1)."""
+    return {"u8_images": make_batches.u8_images, "float_images": make_batches.float_images}
