@@ -12,7 +12,7 @@ import pytest
 
 from retrieval_bench import harness
 from retrieval_bench import trace as tr_mod
-from retrieval_bench.tests.tiny import TINY
+from retrieval_bench.tests.tiny import tiny
 
 EXTRACT = ["extract_idle_pct.next_batch", "extract_idle_pct.h2d", "extract_idle_pct.forward",
            "extract_first_batch_ms"]
@@ -116,7 +116,7 @@ def test_traced_run_holds_the_program_spans(cell, stages, monkeypatch):
 
     monkeypatch.setattr(tr_mod, "Window", Kept)
     r = harness.run(cell, SEED, 0.6, True, time.perf_counter(), device="cpu",
-                    overrides=TINY[cell])
+                    overrides=tiny(cell))
     assert r["correct"], r["checks"]
     w = windows[-1]
     names = {n for n, _, _ in w.host}

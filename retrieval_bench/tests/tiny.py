@@ -1,23 +1,33 @@
-"""Overrides that cut each cell to a size a CPU test run holds (resnet at
-64 px, a 1,000-row gallery of 256 dimensions); the code paths are the
-cells' own."""
+"""Each cell's cut to a size a CPU test run holds, one file a cell, found by
+the cell's name: ``tests/tiny/<cell>.json``. It holds ``config`` and
+``traffic``, merged into the cell's own files as overrides (resnet at 64 px,
+a 1,000-row gallery of 256 dimensions; the code paths are the cell's own),
+and ``faults``, the kinds of fault in the timed path that the cell can have
+(``altered``: an answer altered where it is produced; ``half``: half of each
+batch left out)."""
 
-TINY_SEARCH = {"config": {"index": {"gallery_rows": 1000, "whiten_in": 256, "whiten_out": 256},
-                          "gallery": {"clusters": 50}},
-               "traffic": {"query_pool": 100, "warm_calls": 2, "check_queries": 40,
-                           "trace_seconds": 0.5}}
-_EXTRACT_TRAFFIC = {"list_images": 8, "pool_per_shape": 3, "warm_batches_per_shape": 1,
-                    "trace_seconds": 0.5, "host_batch_seconds": 0.2, "check_images": 4}
-TINY = {
-    "aachen-1m-pod.search-q20-k100": TINY_SEARCH,
-    "aachen-1m-pod.search-q1-k100": TINY_SEARCH,
-    "r50-gem-pca-roxford5k.extract-db": {
-        "config": {"extract": {"image_size": 64, "batch_size": 4},
-                   "images": {"shapes": [[48, 64], [64, 48]], "mix": [3, 1]}},
-        "traffic": _EXTRACT_TRAFFIC},
-    "aachen-1m-pod.extract-db": {
-        "config": {"extract": {"image_size": 64, "batch_size": 2},
-                   "images": {"shapes": [[48, 64], [43, 64], [64, 48], [64, 43]],
-                              "mix": [1, 1, 1, 1]}},
-        "traffic": _EXTRACT_TRAFFIC},
-}
+import glob
+import json
+import os
+
+TINY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiny")
+FAULT_KINDS = ("altered", "half")
+
+
+def tiny(cell: str) -> dict:
+    """The cell's tiny file: ``config`` and ``traffic`` (the overrides
+    ``harness.run`` takes) and ``faults``."""
+    path = os.path.join(TINY_DIR, f"{cell}.json")
+    if not os.path.exists(path):
+        checkout = os.path.dirname(os.path.dirname(os.path.dirname(TINY_DIR)))
+        raise FileNotFoundError(
+            f"cell {cell!r} has no CPU cut: add {os.path.relpath(path, checkout)} with its "
+            f"'config' and 'traffic' overrides and its 'faults' (of {list(FAULT_KINDS)})")
+    with open(path) as f:
+        return json.load(f)
+
+
+def list_tiny() -> list:
+    """Every cell that has a tiny file."""
+    return sorted(os.path.basename(p)[: -len(".json")]
+                  for p in glob.glob(os.path.join(TINY_DIR, "*.json")))

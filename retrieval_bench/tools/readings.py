@@ -1,9 +1,11 @@
 """The readings a cell's limits are set from, in one process: the program's
 compared numbers over many seeds (each a short window at the cell's own
 load and sizes, sampled as a full run samples), and the control's over a
-few: the program's own int8 gallery for the search cells, the reference at
-the next precision down (``--control fp8`` for bf16, ``tf32`` for float32)
-for the extraction cells.
+few. The control is the driver's own where its module defines
+``control_numbers(cfg, traffic, seed, seconds, device)``; else the program's
+own int8 gallery for the search driver, the reference at the next precision
+down (``--control fp8`` for bf16, ``tf32`` for float32) for the extraction
+driver.
 
     python3 -m retrieval_bench.tools.readings --workload <cell> --seeds 1,2,3 \
         --control-seeds 4,5,6 --seconds 3 [--out readings.jsonl]
@@ -26,6 +28,8 @@ def control_numbers(name: str, seed: int, seconds: float, device="cuda",
     entry, wl, cfg, traffic = harness.resolve(name, bench, overrides)
     drv = harness.load_module("drivers", traffic["driver"])
     torch.set_grad_enabled(False)
+    if hasattr(drv, "control_numbers"):
+        return drv.control_numbers(cfg, traffic, seed, seconds, device)
     if traffic["driver"] == "search":
         cell = drv.Cell(cfg, traffic, seed, torch.device(device))
         cell.program_storage = "int8"
