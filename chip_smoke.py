@@ -20,7 +20,12 @@ Phases (any failure exits non-zero):
        NaN pattern (ROADMAP C15);
      - netvlad at config 3's head width (B=16, 64x64 map, C=512, K=64, f32,
        ragged extents with a (0, 0) row, one image with zero-mass clusters),
-       and on the same map at K=256; a second call bit for bit;
+       and on the same map at K=256; a second call bit for bit; with
+       pre_l2 (NetVLAD's preL2 cut) at the vgg16-netvlad cell's four maps
+       (48x64, 44x64 with 43 rows valid, 64x48, 64x44 with 43 columns
+       valid; B=16, C=512, K=64, signed features, ragged extents, a (0, 0)
+       row, a zero feature row, with and without a bias), each entry's
+       launches counted in the check;
      - fused_topk and scores_blockmax at the search shape (256 queries x
        100,000 x 2048, f32 and bf16), and the exact long-shortlist search
        (blockmax_topk_search, knn_search) at k=200 and 1000, with planted
@@ -726,6 +731,72 @@ def check_netvlad(dev):
         del nv, x, c, w, b, sizes, got, want, got_u
     nv64["err"] = errs
     return nv64
+
+
+# the vgg16-netvlad cell's maps at stride 16 (H, W, valid h, valid w): 768 x
+# 1024 and 1024 x 768, and 683 x 1024 and 1024 x 683 in the 704 bucket
+NETVLAD_CELL_MAPS = ((48, 64, 48, 64), (44, 64, 43, 64), (64, 48, 64, 48), (64, 44, 64, 43))
+
+
+def check_netvlad_prel2(dev, B=16, C=512, K=64, alpha=20.0):
+    """Both NetVLAD kernels with ``pre_l2`` against the plain version with
+    ``pre_l2`` at the cell's four maps: signed features (conv5_3 before its
+    ReLU), K unit centroids with the assignment 2 alpha c, no bias (the
+    cell's) and a bias; ragged extents, a (0, 0) batch-pad row, one all-zero
+    feature row; each twice, bit for bit; unit-norm descriptors; the
+    entries' launches counted in this check. Returns the max errors."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.ops import kernels
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
+        netvlad_fused,
+        netvlad_fused_rect,
+        netvlad_plain,
+    )
+
+    errs = {"netvlad_fused_rect": 0.0, "netvlad_fused": 0.0}
+    calls = 0
+    before = kernels.launch_counts()
+    for i, (H, W, h, w) in enumerate(NETVLAD_CELL_MAPS):
+        gen = torch.Generator().manual_seed(27 + i)
+        x = torch.randn((B, H, W, C), generator=gen)
+        x[0, 0, 0] = 0.0
+        c = torch.randn((K, C), generator=gen)
+        c = c / c.norm(dim=1, keepdim=True)
+        sizes = torch.tensor([[h, w]] * (B - 4) + [[h - 5, w], [h, w - 7], [1, 1], [0, 0]],
+                             dtype=torch.int32)
+        for b in (None, 0.1 * torch.randn(K, generator=gen)):
+            xd, cd, wd, sd = (t.to(dev).contiguous()
+                              for t in (x, c, (2 * alpha * c).t(), sizes))
+            bd = None if b is None else b.to(dev)
+            got = netvlad_fused_rect(xd, cd, wd, bd, sizes=sd, pre_l2=True)
+            e_rect = (got - netvlad_plain(xd, cd, wd, bd, sd, pre_l2=True)).abs().max().item()
+            got_u = netvlad_fused(xd, cd, wd, bd, pre_l2=True)
+            e_un = (got_u - netvlad_plain(xd, cd, wd, bd, pre_l2=True)).abs().max().item()
+            same = (torch.equal(got, netvlad_fused_rect(xd, cd, wd, bd, sizes=sd, pre_l2=True))
+                    and torch.equal(got_u, netvlad_fused(xd, cd, wd, bd, pre_l2=True)))
+            calls += 2
+            torch.cuda.synchronize()
+            log(f"[check] netvlad pre_l2 f32 [{B}, {H}x{W}, {C}] K={K} valid {h}x{w} "
+                f"bias {b is not None}: rect max|err| {e_rect:.3e}, unmasked {e_un:.3e}; "
+                f"second calls bit-equal {same}")
+            if not (e_rect <= NETVLAD_TOL and e_un <= NETVLAD_TOL):
+                raise AssertionError("netvlad pre_l2 disagrees with its plain version")
+            if not same:
+                raise AssertionError("netvlad pre_l2 gave other bits on a second call")
+            if got[B - 1].abs().max().item() != 0.0:
+                raise AssertionError("a (0, 0) row must give a zero descriptor")
+            norms = torch.cat([got[:B - 1].norm(dim=1), got_u.norm(dim=1)])
+            if (norms - 1).abs().max().item() > 1e-5:
+                raise AssertionError("netvlad pre_l2 descriptors are not unit-norm")
+            errs = {"netvlad_fused_rect": max(errs["netvlad_fused_rect"], e_rect),
+                    "netvlad_fused": max(errs["netvlad_fused"], e_un)}
+    after = kernels.launch_counts()
+    for name in errs:
+        if after[name] - before[name] != calls:
+            raise AssertionError(f"{name} launched {after[name] - before[name]} times in the "
+                                 f"pre_l2 check, want {calls}")
+    log(f"[check] netvlad pre_l2: {calls} launches of each entry; max|err| {errs}")
+    return errs
 
 
 def check_scores_blockmax(dev):
@@ -5819,6 +5890,8 @@ def main() -> int:
     gem_in = check_gem(dev)
     topk_err = check_topk(dev)
     nv_in = check_netvlad(dev)
+    for kname, e in check_netvlad_prel2(dev).items():
+        nv_in["err"][kname] = max(nv_in["err"][kname], e)
     sb_err = check_scores_blockmax(dev)
     long_err = check_long_topk(dev)
     check_search_bitwise(dev)

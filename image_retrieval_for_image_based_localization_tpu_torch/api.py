@@ -155,7 +155,8 @@ class Extractor:
         self.device = resolve_device(device if mesh is None else mesh.local_devices[0])
         model = RetrievalNet(arch=mc.arch, pooling=mc.pooling, whiten_dim=mc.whiten_dim,
                              regional=mc.regional, gem_p=mc.gem_p, use_kernel=mc.use_pallas,
-                             netvlad_clusters=mc.netvlad_clusters, dtype=mc.dtype)
+                             netvlad_clusters=mc.netvlad_clusters, dtype=mc.dtype,
+                             netvlad_prel2=mc.netvlad_prel2)
         if state_dict is None:
             init_random_(model, torch.Generator().manual_seed(seed))
         else:

@@ -11,6 +11,13 @@
 //   vlad[k, :] /= sqrt(sum_c vlad[k, c]^2) + 1e-6          (intra-normalization)
 //   out        = flat(vlad) / (sqrt(sum flat^2) + 1e-6)      (global L2N)
 //
+// With pre_l2 (NetVLAD's preL2 models) netvlad_forward first L2-normalizes
+// each row, x_n / max(||x_n||, 1e-12) as F.normalize does, as a per-row
+// scale r_n and not a normalized copy of x: L1 writes x_n . W without the bias; L2
+// reads x_n's row once for r_n and takes softmax_k(r_n (x_n . W) + b) as its
+// logits, the cluster mass sum_n a[n, k] unscaled and a[n, k] r_n as L3's
+// weights, so vlad[k, c] = sum_n a[n, k] r_n x[n, c] - mass_k centroids[k, c].
+//
 // Position n of an [H, W] map is valid iff n / W < h_b and n % W < w_b; the
 // valid rows are enumerated row-major in the rectangle (v = 0 .. h w - 1),
 // so an invalid row is never read.
@@ -18,7 +25,8 @@
 // Bound on this card: the two products, 2 N C K flop each, taken as three
 // TF32 tensor-core products (the split rule of csrc/tf32x3_gemm.cuh), against
 // one read of x. At [16, 64 x 64, 512], K = 64: 8.59 GFLOP, 0.052 ms at 495
-// TFLOP/s / 3, against 134 MB, 0.040 ms (0.128 ms as f32 FMA). The TPU
+// TFLOP/s / 3, against 134 MB, 0.040 ms (0.128 ms as f32 FMA). preL2 reads the
+// valid rows of x once more (L2's norms), which stays under the operations. The TPU
 // kernel carried agg [K, C] in VMEM across a sequential grid; here blocks run
 // in parallel, so the work is six kernels on the caller's stream, with W's
 // planes, the assignment and the partial sums in scratch the caller allocates:
@@ -29,7 +37,8 @@
 //      the planes. A block past the image's valid rows exits at once.
 //      Writes [B, NP, KP] f32.
 //   L2 netvlad_softmax: 32 rows a block, any K: row max and sum (a warp a
-//      row), then a = e / s in 32-cluster slices transposed through shared
+//      row; with preL2 the row's norm first, from x, and the bias), then
+//      a = e / s in 32-cluster slices transposed through shared
 //      memory and written as a^T's hi/lo planes [B, K, NP], zero on invalid
 //      and pad rows: the B operand of L3 as its loader reads it. Each 32-row
 //      tile's cluster mass, summed in row order, goes to [B, NP / 32, K].
@@ -86,6 +95,7 @@ struct Args {
   const int32_t* sizes;                   // null: every row valid
   float *wt_hi, *wt_lo, *logits, *a_hi, *a_lo, *mass, *part, *row_sq, *out;
   int N, W, C, K, KP, NP, S;
+  int pre_l2;  // 1: each row scaled by 1 / max(||x_n||, 1e-12), the bias added in L2
 };
 
 // Valid rows of image b: count and rectangle width. sizes == null: all N rows.
@@ -168,7 +178,7 @@ __global__ void __launch_bounds__(NT, 2) netvlad_logits(Args a) {
   float acc[ACC];
   tf32x3::gemm_tile(ValidRowsA(xb, a.C, m0, nvalid, wv, a.W, a.sizes != nullptr), a.wt_hi,
                     a.wt_lo, a.KP, a.C, n0, smem, acc);
-  const float* __restrict__ bias = a.bias;
+  const float* __restrict__ bias = a.pre_l2 ? nullptr : a.bias;  // preL2: added in L2
   float* __restrict__ lg = a.logits + (size_t)b * a.NP * a.KP;
   const int K = a.K, KP = a.KP;
   tf32x3::for_each_pair(nvalid, KP, m0, n0, [&](int e, int m, int n) {
@@ -181,7 +191,7 @@ __global__ void __launch_bounds__(NT, 2) netvlad_logits(Args a) {
 
 __global__ void __launch_bounds__(256) netvlad_softmax(Args a) {
   __shared__ float tile[32][33];  // [cluster][row] of one 32-cluster slice
-  __shared__ float rmax[RT], rsum[RT];
+  __shared__ float rmax[RT], rsum[RT], rscale[RT];
   const int b = blockIdx.y, t = blockIdx.x, v0 = t * RT;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   int nvalid, wv;
@@ -189,19 +199,36 @@ __global__ void __launch_bounds__(256) netvlad_softmax(Args a) {
   if (v0 >= nvalid) return;
   const int K = a.K, KP = a.KP, NP = a.NP;
   const float* lg = a.logits + ((size_t)b * NP + v0) * KP;
+  const float* __restrict__ bias = a.bias;
+  const bool pre = a.pre_l2 != 0;
+  // row r's logit k: L1's, or with preL2 rs (x . W) + b
+  auto logit = [&](int r, float rs, int k) {
+    const float z = lg[(size_t)r * KP + k];
+    return pre ? fmaf(z, rs, bias != nullptr ? bias[k] : 0.f) : z;
+  };
   // row max and sum of exp, a warp a row; lanes take k = lane + 32 j, then
-  // the same butterfly every call
+  // the same butterfly every call. With preL2 the row's scale comes first:
+  // its sum of squares over c = lane + 32 j, by the same butterfly.
   for (int r = warp; r < RT; r += 8) {
-    float m = -FLT_MAX, s = 0.f;
+    float m = -FLT_MAX, s = 0.f, rs = 0.f;
     if (v0 + r < nvalid) {
-      for (int k = lane; k < K; k += 32) m = fmaxf(m, lg[(size_t)r * KP + k]);
+      if (pre) {
+        const float* xr = a.x + ((size_t)b * a.N + position(v0 + r, wv, a.W,
+                                                            a.sizes != nullptr)) * a.C;
+        float q = 0.f;
+        for (int c = lane; c < a.C; c += 32) q = fmaf(xr[c], xr[c], q);
+        for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(FULL, q, o);
+        rs = 1.f / fmaxf(sqrtf(q), 1e-12f);
+      }
+      for (int k = lane; k < K; k += 32) m = fmaxf(m, logit(r, rs, k));
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-      for (int k = lane; k < K; k += 32) s += expf(lg[(size_t)r * KP + k] - m);
+      for (int k = lane; k < K; k += 32) s += expf(logit(r, rs, k) - m);
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
     }
     if (lane == 0) {
       rmax[r] = m;
       rsum[r] = s;
+      rscale[r] = rs;  // 0 on an invalid row, whose weights are 0
     }
   }
   __syncthreads();
@@ -212,13 +239,15 @@ __global__ void __launch_bounds__(256) netvlad_softmax(Args a) {
     for (int r = warp; r < RT; r += 8) {
       const int k = k0 + lane;
       float p = 0.f;
-      if (v0 + r < nvalid && k < K) p = expf(lg[(size_t)r * KP + k] - rmax[r]) / rsum[r];
+      if (v0 + r < nvalid && k < K) p = expf(logit(r, rscale[r], k) - rmax[r]) / rsum[r];
       tile[lane][r] = p;
     }
     __syncthreads();
     for (int kk = warp; kk < 32 && k0 + kk < K; kk += 8) {
       uint32_t hi, lo;
-      tf32x3::split(tile[kk][lane], hi, lo);
+      float p = tile[kk][lane];
+      if (pre) p *= rscale[lane];  // the aggregation's weight; the mass below stays a's
+      tf32x3::split(p, hi, lo);
       const size_t o = (size_t)(k0 + kk) * NP + lane;
       ahi[o] = __uint_as_float(hi);
       alo[o] = __uint_as_float(lo);
@@ -330,11 +359,12 @@ extern "C" {
 // ceil(N / 512): wt_hi and wt_lo [KP, C] (W^T's split planes), logits
 // [B, NP, KP], a_hi and a_lo [B, K, NP], mass [B, NP / 32, K], part
 // [B, n_chunks, K, C], row_sq [B, K], all f32; the planes and a_hi, a_lo
-// 16-byte aligned. out: [B, K * C] f32. Any K >= 1.
+// 16-byte aligned. out: [B, K * C] f32. Any K >= 1. pre_l2: 1 to
+// L2-normalize each row of x first (preL2), 0 not to.
 int netvlad_forward(const void* x, const void* w, const void* bias, const void* centroids,
                     const void* sizes, void* wt_hi, void* wt_lo, void* logits, void* a_hi,
                     void* a_lo, void* mass, void* part, void* row_sq, void* out, int B, int N,
-                    int W, int C, int K, int n_chunks, void* stream) {
+                    int W, int C, int K, int n_chunks, void* stream, int pre_l2) {
   if (B < 1 || B > 65535 || N < 1 || W < 1 || C < 32 || C % 32 || K < 1 ||
       N > INT_MAX - CHUNK || n_chunks != (N + CHUNK - 1) / CHUNK) {
     return (int)cudaErrorInvalidValue;
@@ -345,7 +375,7 @@ int netvlad_forward(const void* x, const void* w, const void* bias, const void* 
   const Args a{(const float*)x, (const float*)w, (const float*)bias, (const float*)centroids,
                (const int32_t*)sizes, (float*)wt_hi, (float*)wt_lo, (float*)logits,
                (float*)a_hi, (float*)a_lo, (float*)mass, (float*)part, (float*)row_sq,
-               (float*)out, N, W, C, K, KP, NP, n_chunks};
+               (float*)out, N, W, C, K, KP, NP, n_chunks, pre_l2};
   cudaStream_t s = (cudaStream_t)stream;
   const int k_tiles = KP / BN, c_tiles = (C + BM - 1) / BM;
   netvlad_split_w<<<dim3(KP / 32, C / 32), 256, 0, s>>>(a);

@@ -26,6 +26,11 @@ trains (GeMmp's [C] exponent, the learned ``whiten`` FC, R-MAC through
 ``rmac_bucketed`` on a bucketed mask, the regional pool on exact shapes)
 and the kernel head differentiates through the GeM and NetVLAD autograd
 Functions.
+
+``netvlad_prel2=True``, the port's own option (off: the JAX package's
+model), is NetVLAD's ``vd16_..._conv5_3_vlad_preL2_intra_white`` as hloc runs
+it: vgg16's trunk ends at conv5_3 before its ReLU, and each local descriptor
+is L2-normalized before the NetVLAD aggregation.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.models.alexnet import AlexNetTrunk
 from image_retrieval_for_image_based_localization_tpu_torch.models.densenet import (
@@ -155,10 +161,14 @@ class RetrievalNet(nn.Module):
         netvlad_clusters: int = 64,
         dtype: str = "float32",
         regional: bool = False,
+        netvlad_prel2: bool = False,
     ):
         super().__init__()
         if pooling not in POOLINGS:
             raise ValueError(f"unknown pooling {pooling!r}")
+        if netvlad_prel2 and (arch, pooling) != ("vgg16", "netvlad"):
+            raise ValueError(f"netvlad_prel2 is vgg16 + NetVLAD's conv5_3 preL2 cut, not "
+                             f"{arch} + {pooling}")
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r} (one of {tuple(DTYPES)})")
         if regional and pooling not in REGIONAL_BASES:
@@ -171,8 +181,9 @@ class RetrievalNet(nn.Module):
         self.gem_p_trainable = gem_p_trainable
         self.use_kernel = use_kernel
         self.netvlad_clusters = netvlad_clusters
+        self.pre_l2 = netvlad_prel2
         self.compute_dtype = DTYPES[dtype]
-        self.features = build_trunk(arch)
+        self.features = VGGTrunk(last_relu=False) if netvlad_prel2 else build_trunk(arch)
         if pooling == "gem":
             self.pool = GeM(gem_p, gem_p_trainable)
         elif pooling == "gemmp":
@@ -278,15 +289,18 @@ class RetrievalNet(nn.Module):
         """The JAX head's routing: the fused kernel without a mask; with one,
         the rect kernel when every row's mask is the rectangle its extents
         describe (``sum(mask) == h * w``, the bucketing invariant), else the
-        plain aggregation, which takes any mask."""
+        plain aggregation, which takes any mask. ``pre_l2``: the kernels scale
+        each row by its inverse norm, the plain aggregation takes
+        ``F.normalize``d rows."""
         c, w, b = self.pool.centroids, self.pool.assign_w(), self.pool.conv.bias
-        if not self.use_kernel:
-            return netvlad_aggregate(feats, c, w, b, mask=fmask)
-        if fmask is None:
-            return netvlad_fused(feats, c, w, b)
-        sizes = rect_sizes(fmask)
-        if is_rect(fmask, sizes):
-            return netvlad_fused_rect(feats, c, w, b, sizes=sizes)
+        if self.use_kernel:
+            if fmask is None:
+                return netvlad_fused(feats, c, w, b, pre_l2=self.pre_l2)
+            sizes = rect_sizes(fmask)
+            if is_rect(fmask, sizes):
+                return netvlad_fused_rect(feats, c, w, b, sizes=sizes, pre_l2=self.pre_l2)
+        if self.pre_l2:
+            feats = F.normalize(feats, dim=-1)
         return netvlad_aggregate(feats, c, w, b, mask=fmask)
 
 

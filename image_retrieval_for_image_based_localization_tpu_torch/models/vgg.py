@@ -5,6 +5,10 @@ convs with ReLU, no BN) with the final max-pool stripped, as the cirtorch
 lineage does (``features.children()[:-1]``), so the trunk has stride 16 and
 512 channels. The layers sit at torchvision's indices 0-29, so a torchvision
 or cirtorch ``features.N.weight/bias`` ``state_dict`` loads as it is.
+``last_relu=False`` (``RetrievalNet(netvlad_prel2=True)``) drops the ReLU
+after conv5_3 (index 29), so the trunk ends at conv5_3's signed output, as
+NetVLAD's ``conv5_3`` models and hloc cut it; every conv keeps its index, so
+the same ``state_dict`` loads either way.
 
 A bf16 input runs in bf16 as flax's ``nn.Conv(dtype=bf16)`` does: the
 convolution rounds to bf16 (``resnet.conv_lowp``), then the bias, cast to
@@ -29,11 +33,12 @@ VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
 
 
 class VGGTrunk(nn.Sequential):
-    """VGG-16 feature trunk: [B, 3, H, W] -> [B, 512, H/16, W/16] (NCHW logical)."""
+    """VGG-16 feature trunk: [B, 3, H, W] -> [B, 512, H/16, W/16] (NCHW logical);
+    ``last_relu=False`` leaves out the final ReLU (``features.29``)."""
 
     out_channels = 512
 
-    def __init__(self):
+    def __init__(self, last_relu: bool = True):
         layers = []
         in_ch = 3
         for v in VGG16_CFG:
@@ -42,6 +47,8 @@ class VGGTrunk(nn.Sequential):
             else:
                 layers += [nn.Conv2d(in_ch, v, 3, padding=1), nn.ReLU(inplace=True)]
                 in_ch = v
+        if not last_relu:
+            layers.pop()
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

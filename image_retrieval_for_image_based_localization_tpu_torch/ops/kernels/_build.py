@@ -45,9 +45,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "netvlad": {
         # x, w, bias, centroids, sizes, wt_hi, wt_lo, logits, a_hi, a_lo,
-        # mass, part, row_sq, out, B, N, W, C, K, n_chunks, stream
+        # mass, part, row_sq, out, B, N, W, C, K, n_chunks, stream, pre_l2
         "netvlad_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _P),
+                            _I, _I, _I, _P, _I),
     },
     "score_topk": {
         # queries, gallery, scores, bmax, Nq, Ng, D, ng_pad, is_bf16, width,

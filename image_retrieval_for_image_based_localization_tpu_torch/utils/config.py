@@ -5,7 +5,9 @@ graded configs), so a config written for one package means the same thing in
 the other. Every arch, pooling and ``regional`` of the JAX package is taken.
 ``s2d_stem`` (the JAX package's space-to-depth form of the resnet stem,
 the same function of the same parameter) is taken and runs the standard
-stem;
+stem; ``netvlad_prel2`` is the port's own (its default is the JAX package's
+model; True is NetVLAD's ``vd16_..._conv5_3_vlad_preL2`` cut, vgg16 +
+NetVLAD only);
 ``fuse_blocks`` is taken for bottleneck resnets in f32 and bf16,
 ``dtype="bfloat16"`` runs every trunk in bf16 (graded configs 4 and 5), and
 ``native_preproc`` selects the native C++ decoder for path inputs as in the
@@ -37,6 +39,9 @@ class ModelConfig:
     # hand-written CUDA head" (RetrievalNet.use_kernel)
     use_pallas: bool = False
     s2d_stem: Optional[bool] = None  # TPU stem layout: the standard stem here
+    # vgg16 + NetVLAD: the trunk ends at conv5_3 before its ReLU and each local
+    # descriptor is L2-normalized before the aggregation
+    netvlad_prel2: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -96,13 +96,14 @@ def test_signature_types_match_the_c_entries(name):
 
 def test_netvlad_forward_signature():
     """netvlad_forward: five inputs, the scratch in the order of the
-    wrapper's plan, out, six ints and the stream, as the wrapper passes them."""
+    wrapper's plan, out, six ints, the stream and the preL2 flag, as the
+    wrapper passes them."""
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.netvlad import _plan
 
     params = re.search(r"\bint netvlad_forward\(([^)]*)\)", _source("netvlad")).group(1)
     names = [p.split()[-1].lstrip("*") for p in params.split(",")]
     scratch = list(_plan(1, 1, 32, 1)["scratch"])
     assert names == ["x", "w", "bias", "centroids", "sizes", *scratch, "out", "B", "N", "W",
-                     "C", "K", "n_chunks", "stream"]
+                     "C", "K", "n_chunks", "stream", "pre_l2"]
     assert _build.SIGNATURES["netvlad"]["netvlad_forward"] == (_build._P,) * (6 + len(
-        scratch)) + (_build._I,) * 6 + (_build._P,)
+        scratch)) + (_build._I,) * 6 + (_build._P, _build._I)

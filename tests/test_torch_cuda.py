@@ -403,7 +403,7 @@ def test_netvlad_split_planes_are_split_tf32(dev, K, C):
     err = _build.load("netvlad").netvlad_forward(
         xp.data_ptr(), wp.data_ptr(), b.data_ptr(), cen.data_ptr(), None,
         *(t.data_ptr() for t in scratch.values()), out.data_ptr(), 2, 15, 1, cp, K,
-        plan["n_chunks"], torch.cuda.current_stream().cuda_stream)
+        plan["n_chunks"], torch.cuda.current_stream().cuda_stream, 0)
     assert err == 0
     torch.cuda.synchronize()
     hi, lo = split_tf32(F.pad(wp.t(), (0, 0, 0, -(-K // 64) * 64 - K)))
