@@ -49,6 +49,12 @@ Phases (any failure exits non-zero):
        5 % of the values not equal bit for bit, a second call bit for bit;
        the launch plan the built library reports held against the
        wrapper's);
+     - bn_act (the bf16 trunk's BatchNorm + ReLU (+ residual) pass) bit for
+       bit against its plain chain, in place and not, at resnet101's largest
+       and smallest BatchNorm maps at Aachen's buckets, batch 16, with signed
+       zeros, infinities, NaN and subnormals; its ms beside the plain
+       chain's and the byte bound; one bf16 resnet101 forward's 104
+       BatchNorms all on the kernel (104 bn_act launches, none plain);
   4. sixteen paths at full width, each with the launch counts set to 0 just
      before it and read just after it; the extraction paths run on an
      in-memory clustered corpus of 100 images in three aspect ratios and 20
@@ -360,6 +366,7 @@ def device_summary(events, wall_ms):
         n = e.name.lower()
         g = ("head kernel" if "gem_" in n or "netvlad" in n else
              "bottleneck kernel" if "bottleneck" in n else
+             "bn_act kernel" if "bn_act" in n else
              "layout transform" if "nhwctonchw" in n or "nchwtonhwc" in n else
              "convolution / gemm" if any(k in n for k in ("conv", "implicit", "xmma", "cudnn",
                                                           "winograd", "fft", "gemm", "cutlass",
@@ -797,6 +804,134 @@ def check_netvlad_prel2(dev, B=16, C=512, K=64, alpha=20.0):
                                  f"pre_l2 check, want {calls}")
     log(f"[check] netvlad pre_l2: {calls} launches of each entry; max|err| {errs}")
     return errs
+
+
+# (tag, N, C, h, w, identity, relu): resnet101's largest and smallest
+# BatchNorm maps at Aachen's buckets, batch 16, in the form the trunk calls them
+R101_BATCHNORMS = 104  # stem 1 + 33 blocks x 3 + 4 downsamples
+BN_ACT_MAPS = (("stem, 768x1024", 16, 64, 384, 512, False, True),
+               ("layer1 bn3, 768x1024", 16, 256, 192, 256, True, True),
+               ("layer4 bn1, 704x1024", 16, 512, 22, 32, False, True),
+               ("layer4 bn3, 704x1024", 16, 2048, 22, 32, True, True))
+BN_ACT_SPECIALS = (0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40, 3e38)
+
+
+def _bn_act_case(dev, N, C, h, w, seed):
+    """A bf16 channels_last map with the special values at seeded places and
+    an eval-mode BatchNorm with the benchmark's statistics (channel 0: mean
+    0, bias -0.0, so a -0 input stays -0)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = (torch.randn((N, C, h, w), generator=g, device=dev) * 3).to(torch.bfloat16)
+    y = y.contiguous(memory_format=torch.channels_last)
+    flat = y.permute(0, 2, 3, 1).reshape(-1)  # a view of the channels_last map
+    pos = torch.randint(0, flat.numel(), (4096,), generator=g, device=dev)
+    flat[pos] = torch.tensor(BN_ACT_SPECIALS, device=dev).repeat(512).to(torch.bfloat16)
+    y[:, 0, ::2] = -0.0
+    bn = torch.nn.BatchNorm2d(C).eval()
+    gc = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(C, generator=gc) * 0.5 + 0.5)
+        bn.bias.copy_(torch.randn(C, generator=gc) * 0.1)
+        bn.running_mean.copy_(torch.randn(C, generator=gc) * 0.1)
+        bn.running_var.copy_(torch.rand(C, generator=gc) + 0.5)
+        bn.running_mean[0] = 0.0
+        bn.bias[0] = -0.0
+    return y, bn.to(dev)
+
+
+def _bn_act_same_bits(got, want) -> bool:
+    """Bit for bit where ``want`` is a number, NaN where it is NaN."""
+    import torch
+
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and not ((got.view(torch.int16) != want.view(torch.int16)) & ~nan).any())
+
+
+def _bn_act_device_ms(fn, reps=5):
+    """Device ms of the ``bn_act`` kernel per launch (``fn`` launches one),
+    averaged over the launches the profiler recorded, and their count. On an
+    H100 with torch 2.11, late in the whole script, the profiler recorded
+    only some launches (none at the smallest maps), so its sum over ``reps``
+    read below the byte bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ts = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "bn_act_kernel" in e.name]
+    return (sum(ts) / len(ts) / 1e3 if ts else None), len(ts)
+
+
+def check_bn_act(dev):
+    """The bf16 BatchNorm + ReLU (+ residual) kernel against its plain chain,
+    bit for bit (signed zeros, infinities, subnormals; NaN where the chain
+    gives NaN), in place and not, at BN_ACT_MAPS; then CUDA-event ms through
+    the wrapper, the kernel's profiled device ms per recorded launch (the
+    share of the byte bound from it where the profiler recorded a launch,
+    else from the event ms), the plain chain's ms and
+    the byte bound (the map read and written, the identity read, 12 bytes a
+    channel) at each; and the BatchNorm routes of one bf16 resnet101 forward
+    at Aachen's 768 x 1024 bucket: ``bn_act`` launches against the trunk's
+    BatchNorms (plain = BatchNorms less launches). Returns the timing rows."""
+    import torch
+    from image_retrieval_for_image_based_localization_tpu_torch.models import resnet
+    from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bn_act import (
+        bn_act,
+        bn_act_plain,
+    )
+
+    rows = []
+    for k, (tag, N, C, h, w, with_id, relu) in enumerate(BN_ACT_MAPS):
+        y, bn = _bn_act_case(dev, N, C, h, w, 28 + 2 * k)
+        ident = _bn_act_case(dev, N, C, h, w, 29 + 2 * k)[0] if with_id else None
+        want = bn_act_plain(y, bn, relu, ident)
+        got = bn_act(y, bn, relu, ident)
+        same = _bn_act_same_bits(got, want)
+        same_inplace = _bn_act_same_bits(bn_act(y.clone(), bn, relu, ident, inplace=True), want)
+        torch.cuda.synchronize()
+        log(f"[check] bn_act {tag} [{N}, {C}, {h}, {w}] identity {with_id} relu {relu}: "
+            f"bit-equal to the plain chain {same}, in place {same_inplace}; "
+            f"NaN {int(torch.isnan(want).sum())}, -0 {int((want.view(torch.int16) == -32768).sum())}")
+        if not (same and same_inplace):
+            raise AssertionError(f"bn_act differs from its plain chain at {tag}")
+        n = N * C * h * w
+        byts = n * 2 * (3 if with_id else 2) + 12 * C
+        row = {"name": "bn_act", "shape": f"{tag} [{N}, {C}, {h}, {w}]", "identity": with_id,
+               "ms": time_ms(lambda: bn_act(y, bn, relu, ident)),
+               "plain_ms": time_ms(lambda: bn_act_plain(y, bn, relu, ident)),
+               "bound_ms": 1e3 * byts / HBM_BYTES_PER_S, "bytes": byts}
+        row["device_ms"], row["device_launches_recorded"] = _bn_act_device_ms(
+            lambda: bn_act(y, bn, relu, ident))
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / (row["device_ms"] or row["ms"])
+        log(f"[timing] {json.dumps(row)}")
+        rows.append(row)
+        del y, ident, want, got
+    torch.cuda.empty_cache()
+    trunk = resnet.ResNetTrunk("resnet101").eval().to(dev)
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in trunk.modules())
+    x = torch.randn((16, 3, 768, 1024), device=dev).to(torch.bfloat16)
+    before = bn_act.launches
+    with torch.no_grad():
+        trunk(x.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    routes = {"batchnorms": n_bn, "kernel": bn_act.launches - before}
+    routes["plain"] = n_bn - routes["kernel"]
+    log(f"[check] bn_act routes of one bf16 resnet101 forward at [16, 3, 768, 1024]: "
+        f"{json.dumps(routes)}")
+    if routes != {"batchnorms": R101_BATCHNORMS, "kernel": R101_BATCHNORMS, "plain": 0}:
+        raise AssertionError("a bf16 resnet101 forward on the card must run its 104 "
+                             "BatchNorms on the bn_act kernel")
+    del trunk, x
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_scores_blockmax(dev):
@@ -1918,6 +2053,11 @@ def config5_phase(dev):
         if launches["fused_topk_search_narrow"] <= 0:
             raise AssertionError("config 5's 20-query search did not take fused_topk's "
                                  "small-batch form")
+        # one GeM launch a trunk forward, resnet101's 104 BatchNorms in each
+        forwards = launches["gem_l2n_fused_rect"] + launches["gem_l2n_fused"]
+        if launches["bn_act"] != R101_BATCHNORMS * forwards:
+            raise AssertionError(f"config 5: {launches['bn_act']} bn_act launches for "
+                                 f"{forwards} trunk forwards, not {R101_BATCHNORMS} each")
         recs = [json.loads(line) for line in open(os.path.join(tmp, "config5.jsonl"))]
         timed = next(r for r in recs if "queries_per_sec" in r)
         art = next(r for r in recs if r.get("event") == "index_artifact")
@@ -3068,6 +3208,10 @@ def serving_phase(dev, e, ann, qd, q_u8):
     if launches["fused_topk_search_narrow"] <= 0:
         raise AssertionError("serving's one-query /query did not take fused_topk's "
                              "small-batch form")
+    forwards = launches["gem_l2n_fused_rect"] + launches["gem_l2n_fused"]
+    if launches["bn_act"] != R101_BATCHNORMS * forwards:
+        raise AssertionError(f"serving: {launches['bn_act']} bn_act launches for {forwards} "
+                             f"trunk forwards, not {R101_BATCHNORMS} each")
 
     # where one /extract_query's time goes: its stages on one image, each
     # ended by a synchronize, host clock, median of 5
@@ -3308,10 +3452,12 @@ def other_trunks_phase(dev):
     for name in ("alexnet-gem", "squeezenet1_1-gem", "densenet121-gem"):
         mc16 = dataclasses.replace(zoo.MODEL_ZOO[name], use_pallas=True, dtype="bfloat16")
         zcfg = port.ExtractConfig(model=mc16, image_size=1024, batch_size=16)
-        before = kernels.gem_l2n_fused_rect.launches
+        before = kernels.gem_l2n_fused_rect.launches, kernels.bn_act.launches
         zex = port.Extractor(zcfg, seed=1, device=dev)
         d = zex.extract(rect)
-        n_rect = kernels.gem_l2n_fused_rect.launches - before
+        n_rect = kernels.gem_l2n_fused_rect.launches - before[0]
+        n_bn_act = kernels.bn_act.launches - before[1]
+        n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in zex.model.modules())
         sd = zex.model.state_dict()
         zplain = port.Extractor(dataclasses.replace(zcfg, model=dataclasses.replace(
             mc16, use_pallas=False)), state_dict=sd, device=dev)
@@ -3321,7 +3467,8 @@ def other_trunks_phase(dev):
         d32 = z32.extract(rect)
         d_32, cos_32 = _desc_gap(d, d32)
         log(f"[{name} bf16] one bucket of {len(rect)} {rect[0].shape[0]} x {rect[0].shape[1]} "
-            f"images, bf16 trunk: gem_l2n_fused_rect launches {n_rect}, kernel vs plain head "
+            f"images, bf16 trunk: gem_l2n_fused_rect launches {n_rect}, bn_act launches "
+            f"{n_bn_act} ({n_bn} BatchNorms a forward), kernel vs plain head "
             f"max|err| {e:.3e}; bf16 vs f32 run of the same weights max|diff| {d_32:.3e}, min "
             f"cosine {cos_32:.6f} (gates {BF16_DESC_MAX_DIFF}, {BF16_DESC_MIN_COS})")
         if n_rect != 1 or e > GEM_TOL or not np.isfinite(d).all():
@@ -3329,7 +3476,11 @@ def other_trunks_phase(dev):
                                  f"kernel or disagrees with the plain head")
         if d_32 > BF16_DESC_MAX_DIFF or cos_32 < BF16_DESC_MIN_COS:
             raise AssertionError(f"{name} bf16 descriptors stray from the f32 run")
-        out[f"{name}_bf16"] = {"rect_launches": n_rect, "d_err": e, "vs_f32_max_abs_diff": d_32,
+        if n_bn_act != n_bn * n_rect:
+            raise AssertionError(f"{name} bf16: {n_bn_act} bn_act launches, not one a "
+                                 f"BatchNorm ({n_bn}) a forward")
+        out[f"{name}_bf16"] = {"rect_launches": n_rect, "bn_act_launches": n_bn_act,
+                               "d_err": e, "vs_f32_max_abs_diff": d_32,
                                "vs_f32_min_cos": cos_32}
         del zex, zplain, z32
 
@@ -5563,7 +5714,7 @@ def _nq20_cells(g, q, k):
     return out
 
 
-def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
+def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares, bn_act_rows):
     import torch
     from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels import (
         adc_scores,
@@ -5872,6 +6023,11 @@ def timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares):
         f"{mix16['plain_ms']:.3f} ms, library (three bf16 cuDNN convs) "
         f"{mix16['library_ms']:.3f} ms, bound {mix16['bound_ms']:.3f} ms")
     rows[-1]["r101_29_blocks"] = mix16
+    # row 9 at the largest of check_bn_act's maps (each map on its [timing] line)
+    b = max(bn_act_rows, key=lambda r: r["bytes"])
+    row("bn_act", CSRC + "bn_act.cu", "none: XLA fuses BatchNorm, ReLU and the residual add",
+        b["ms"], b["plain_ms"], b["bytes"], 0, None, shape=b["shape"], device_ms=b["device_ms"],
+        device_launches_recorded=b["device_launches_recorded"], roofline_pct=b["roofline_pct"])
     return rows
 
 
@@ -5899,6 +6055,7 @@ def main() -> int:
     adc_in = check_adc(dev)
     bn_err, bn_rel = check_bottleneck(dev)
     bn16_err, bn16_rel, bn16_neq, bn16_shares = check_bottleneck_bf16(dev)
+    bn_act_rows = check_bn_act(dev)
     launches2, main2, c2 = main_path_phase(
         dev, 2, ("gem_l2n_fused_rect", "gem_l2n_fused", "fused_topk_search"))
     launches3, main3, _ = main_path_phase(
@@ -5951,7 +6108,8 @@ def main() -> int:
     bf16 = main_c5["bf16_kernels"]
     for kname, r in bf16.items():
         errs[kname] = max(errs[kname], r["max_abs_err"])
-    rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares)
+    errs["bn_act"] = 0.0  # check_bn_act raises on any bit that differs
+    rows = timing_phase(dev, gem_in, nv_in, adc_in, launches, errs, bn16_shares, bn_act_rows)
     for r in rows:  # rows 1-4 also carry their bf16 times at path C's shapes
         if r["name"] in bf16:
             r["bf16"] = bf16[r["name"]]
@@ -5972,6 +6130,7 @@ def main() -> int:
                                   "bottleneck_rel_err": bn_rel,
                                   "bottleneck_bf16_rel_err": bn16_rel,
                                   "bottleneck_bf16_not_bit_equal_share": bn16_neq,
+                                  "bn_act": bn_act_rows,
                                   "launches_by_path": by_path}}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -11,7 +11,8 @@ numeric keys through ``models.flax_port.cirtorch_to_torchvision_keys``).
 
 A bf16 input runs in bf16 with flax's rounding points: each convolution
 rounds to bf16 (``resnet.conv_lowp``), each BatchNorm computes in f32 and
-rounds once (``resnet.bn_lowp``), ReLU, max-pool and the concatenations run
+rounds once (``ops.kernels.bn_act.bn_lowp``; in inference on the card one
+``bn_act`` pass, ``resnet.bn_eval_lowp``), ReLU, max-pool and the concatenations run
 in bf16, and a transition's 2x2 average pool sums its four values in bf16
 in row-major order, rounding after each add, then divides by 4 in bf16, as
 XLA reduces flax's ``avg_pool`` (:func:`avg_pool2x2_lowp`).
@@ -32,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from image_retrieval_for_image_based_localization_tpu_torch.models.resnet import (
-    bn_lowp,
+    bn_eval_lowp,
     bn_train,
     conv_lowp,
     segment,
@@ -61,7 +62,8 @@ def densenet_out_channels(arch: str) -> int:
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     if bn.training:
         return bn_train(bn, x)
-    return bn(x) if x.dtype == torch.float32 else bn_lowp(bn, x)
+    # the map may be a dense block's concatenation, read again later: never in place
+    return bn(x) if x.dtype == torch.float32 else bn_eval_lowp(bn, x)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,11 @@ the JAX package's rounding points (flax ``nn.Conv(dtype=bf16)`` and
 ``nn.BatchNorm(dtype=bf16)``): each convolution takes bf16 input and bf16
 weights, sums in f32 and rounds to bf16 (:func:`conv_lowp`); BatchNorm
 computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 on that
-output and rounds once (:func:`bn_lowp`); ReLU, max-pool and the residual
-add run in bf16. A float32 input takes the f32 modules as they are.
+output and rounds once (``ops.kernels.bn_act.bn_lowp``); ReLU, max-pool and
+the residual add run in bf16. On the card an inference BatchNorm, the
+residual add and the ReLU after it are one pass of the ``bn_act`` kernel,
+which gives the same bits (:func:`bn_eval_lowp`). A float32 input takes the
+f32 modules as they are.
 
 In train mode (``module.train()``) BatchNorm has flax's semantics, not
 ``nn.BatchNorm2d``'s (:func:`bn_train`): it normalizes with the biased batch
@@ -43,6 +46,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bn_act import (
+    add_relu,
+    bn_act,
+    bn_act_plain,
+)
 
 # (block, layers-per-stage, expansion)
 RESNET_SPECS = {
@@ -84,14 +93,26 @@ def conv_lowp(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.float(), w.float(), None, conv.stride, conv.padding).to(x.dtype)
 
 
-def bn_lowp(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm of a bf16 map as flax computes it: in f32,
-    ``(y - mean) * (rsqrt(var + eps) * scale) + bias``, rounded once."""
-    shape = (1, -1, 1, 1)
-    mul = (torch.rsqrt(bn.running_var + bn.eps) * bn.weight).reshape(shape)
-    t = y.float()
-    t.sub_(bn.running_mean.reshape(shape)).mul_(mul).add_(bn.bias.reshape(shape))
-    return t.to(y.dtype)
+def bn_eval_lowp(bn: nn.BatchNorm2d, y: torch.Tensor, relu: bool = False,
+                 identity: Optional[torch.Tensor] = None, inplace: bool = False) -> torch.Tensor:
+    """Inference BatchNorm of a bf16 map (``bn_lowp``), then ``+
+    identity`` in bf16 and ReLU where asked. On the CPU the plain chain; on
+    the card one ``bn_act`` pass with the same bits, on ``channels_last``
+    copies of a map or identity in another layout, written over ``y``
+    where ``inplace`` (the caller owns it). The kernel has no gradient: on
+    the card it raises where grad mode is on and a tensor needs one, and
+    ``bn_act`` raises on any map it does not take."""
+    if y.device.type != "cuda":
+        return bn_act_plain(y, bn, relu, identity)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (y, identity, bn.weight, bn.bias)):
+        raise RuntimeError("the bf16 trunk's inference BatchNorm has no gradient on the card: "
+                           "run it under torch.no_grad() or in train mode")
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        y, inplace = y.contiguous(memory_format=torch.channels_last), True  # a copy of its own
+    if identity is not None:
+        identity = identity.contiguous(memory_format=torch.channels_last)
+    return bn_act(y, bn, relu, identity, inplace)
 
 
 BN_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
@@ -275,14 +296,18 @@ def bn_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16);
-    in train mode with flax's statistics (:func:`bn_train`), either dtype."""
+def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor, relu: bool = False,
+            identity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bn(conv(x))`` in the input's dtype (eval-mode statistics in bf16:
+    :func:`bn_eval_lowp`), then ``+ identity`` and ReLU where asked; in
+    train mode with flax's statistics (:func:`bn_train`), either dtype."""
     if x.dtype == torch.float32:
         y = conv(x)
-        return bn_train(bn, y) if bn.training else bn(y)
+        return add_relu(bn_train(bn, y) if bn.training else bn(y), relu, identity)
     y = conv_lowp(conv, x)
-    return bn_train(bn, y) if bn.training else bn_lowp(bn, y)
+    if bn.training:
+        return add_relu(bn_train(bn, y), relu, identity)
+    return bn_eval_lowp(bn, y, relu, identity, inplace=True)
 
 
 def _downsample(ds: Optional[nn.Sequential], x: torch.Tensor) -> torch.Tensor:
@@ -297,16 +322,14 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
-        self.relu = nn.ReLU(inplace=True)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x):
         identity = _downsample(self.downsample, x)
-        out = self.relu(conv_bn(self.conv1, self.bn1, x))
-        out = conv_bn(self.conv2, self.bn2, out)
-        return self.relu(out + identity)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        return conv_bn(self.conv2, self.bn2, out, relu=True, identity=identity)
 
 
 class Bottleneck(nn.Module):
@@ -322,15 +345,13 @@ class Bottleneck(nn.Module):
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(planes * 4)
-        self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
     def forward(self, x):
         identity = _downsample(self.downsample, x)
-        out = self.relu(conv_bn(self.conv1, self.bn1, x))
-        out = self.relu(conv_bn(self.conv2, self.bn2, out))
-        out = conv_bn(self.conv3, self.bn3, out)
-        return self.relu(out + identity)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        out = conv_bn(self.conv2, self.bn2, out, relu=True)
+        return conv_bn(self.conv3, self.bn3, out, relu=True, identity=identity)
 
 
 class ResNetTrunk(nn.Module):
@@ -345,7 +366,6 @@ class ResNetTrunk(nn.Module):
         self.out_channels = 512 * expansion
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
-        self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for i, (width, depth) in enumerate(zip((64, 128, 256, 512), stages)):
@@ -362,7 +382,7 @@ class ResNetTrunk(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layers))
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool(self.relu(conv_bn(self.conv1, self.bn1, x)))
+        return self.maxpool(conv_bn(self.conv1, self.bn1, x, relu=True))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = segment(self._stem, x)

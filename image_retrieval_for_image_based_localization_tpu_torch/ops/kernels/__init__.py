@@ -9,6 +9,10 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.adc impo
     adc_scores,
     adc_scores_plain,
 )
+from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bn_act import (  # noqa: F401
+    bn_act,
+    bn_act_plain,
+)
 from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.bottleneck import (  # noqa: F401
     bottleneck_fused,
     bottleneck_fused_bf16,
@@ -38,7 +42,8 @@ from image_retrieval_for_image_based_localization_tpu_torch.ops.kernels.score_to
 )
 
 KERNELS = (gem_l2n_fused_rect, gem_l2n_fused, fused_topk_search, netvlad_fused_rect,
-           netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused, bottleneck_fused_bf16)
+           netvlad_fused, scores_blockmax, adc_scores, bottleneck_fused, bottleneck_fused_bf16,
+           bn_act)
 
 
 SEARCH_KERNELS = (fused_topk_search, scores_blockmax)  # also count their small-batch form

@@ -70,6 +70,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "bottleneck_forward_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _P),
     },
+    "bn_act": {
+        # y, identity, mean, mul, bias, out, rows, C, relu, stream
+        "bn_act_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()
